@@ -1,0 +1,191 @@
+"""Versioned binary index serialization — the `.memo` file successor.
+
+Replaces FAISS's opaque `read_index`/`write_index` binary format
+(memo_cli.py:255, :361, :448) with a simple, versioned,
+sharding-aware container:
+
+    magic "TPUVDB01" | u32 header_len | JSON header | raw array payloads
+
+The JSON header records the index kind, its scalar params, and a manifest
+of named arrays (dtype, shape, byte offsets), so any index family can
+round-trip through the same container and future formats stay readable.
+Arrays are raw little-endian buffers, loadable with zero copies via
+np.frombuffer / memory mapping.
+
+Recovery contract preserved: a missing or unreadable index file yields a
+fresh empty index silently (reference memo_cli.py:251-257; SURVEY.md §2.5
+#10) — the YAML record store is the source of truth and `reindex` is the
+recovery path. One exception in the port: a readable file of an index kind
+the port does not have yet raises NotImplementedError instead of coming
+back empty.
+
+Files cross-read with the JAX package in both directions: same magic,
+header and payload layout.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+
+from ..constants import DIM, INDEX_MAGIC
+from ..models import registry
+
+FORMAT_VERSION = 1
+
+
+def write_index(index: Any, path: Path) -> None:
+    params, arrays = index.state()
+    manifest = []
+    offset = 0
+    payloads = []
+    for name, arr in arrays.items():
+        arr = np.ascontiguousarray(arr)
+        data = arr.tobytes()
+        manifest.append(
+            {
+                "name": name,
+                "dtype": str(arr.dtype),
+                "shape": list(arr.shape),
+                "offset": offset,
+                "nbytes": len(data),
+            }
+        )
+        payloads.append(data)
+        offset += len(data)
+
+    header = json.dumps(
+        {
+            "version": FORMAT_VERSION,
+            "kind": index.kind,
+            "params": params,
+            "arrays": manifest,
+        }
+    ).encode("utf-8")
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    with tmp.open("wb") as fh:
+        fh.write(INDEX_MAGIC)
+        fh.write(struct.pack("<I", len(header)))
+        fh.write(header)
+        for data in payloads:
+            fh.write(data)
+    tmp.replace(path)  # atomic publish — fixes SURVEY.md §2.5 #14 for the index file
+
+
+def read_index(path: Path, device=None) -> Any:
+    """Deserialize an index onto `device` (utils/runtime.resolve_device);
+    raises on malformed input (callers decide recovery), and
+    NotImplementedError for a kind that is not ported yet.
+
+    Array payloads memory-map by default (read-only): an eager read
+    would make a second full copy of the store before the host->device
+    push even started; mmap lets the push page the file in as it streams
+    and halves peak host RSS. C99VDB_INDEX_MMAP=0 restores the
+    eager read (e.g. when the file lives on a network FS where lazy
+    faults are worse than one sequential read)."""
+    import os
+
+    use_mmap = os.environ.get("C99VDB_INDEX_MMAP", "1").strip() != "0"
+    # ONE open for header and payloads: writers publish via atomic
+    # rename, so a single fd pins a single inode — re-opening the PATH
+    # per array could mix generations if a writer renamed in between
+    # (np.memmap accepts the open file object and mmaps its fd; the
+    # mapping survives the close).
+    with path.open("rb") as fh:
+        head = fh.read(len(INDEX_MAGIC) + 4)
+        if len(head) < len(INDEX_MAGIC) + 4 or head[: len(INDEX_MAGIC)] != INDEX_MAGIC:
+            raise ValueError("not a TPUVDB index file")
+        (header_len,) = struct.unpack_from("<I", head, len(INDEX_MAGIC))
+        header = json.loads(fh.read(header_len).decode("utf-8"))
+        if header["version"] > FORMAT_VERSION:
+            raise ValueError(f"unsupported index format version {header['version']}")
+
+        body_start = len(INDEX_MAGIC) + 4 + header_len
+        raw: np.ndarray | None = None
+        if not use_mmap:
+            raw = np.frombuffer(fh.read(), dtype=np.uint8)  # body only
+
+        arrays: dict[str, np.ndarray] = {}
+        for entry in header["arrays"]:
+            dt = np.dtype(entry["dtype"])
+            count = entry["nbytes"] // dt.itemsize
+            if entry["nbytes"] != count * dt.itemsize:
+                raise ValueError(f"array '{entry['name']}' payload size mismatch")
+            if count == 0:
+                buf = np.empty((0,), dt)
+            elif raw is None:
+                buf = np.memmap(fh, dtype=dt, mode="r",
+                                offset=body_start + entry["offset"],
+                                shape=(count,))
+            else:
+                start = entry["offset"]
+                if start + entry["nbytes"] > raw.nbytes:
+                    raise ValueError(f"array '{entry['name']}' payload out of bounds")
+                buf = raw[start : start + entry["nbytes"]].view(dt)
+            arrays[entry["name"]] = buf.reshape(entry["shape"])
+
+    cls = registry.resolve(header["kind"])
+    return cls.from_state(header["params"], arrays, device=device)
+
+
+# FAISS serializer fourccs (faiss/impl/index_write.cpp): every Index*
+# subclass leads with a 4-byte "I??" tag — the reference's .memo files
+# start with IndexIDMap2's "IxM2" (written at memo_cli.py:448
+# wrapping IndexHNSWFlat).
+_FAISS_FOURCC_PREFIXES = (b"Ix", b"IH", b"Iv", b"Iw", b"IP", b"IR", b"IO", b"Im")
+
+
+def _looks_like_faiss(path: Path) -> bool:
+    try:
+        with path.open("rb") as fh:
+            head = fh.read(4)
+    except OSError:
+        return False
+    return len(head) == 4 and head[:1] == b"I" and any(
+        head.startswith(p) for p in _FAISS_FOURCC_PREFIXES
+    )
+
+
+def load_index_or_fresh(path: Path, dim: int = DIM, fresh_factory=None, device=None) -> Any:
+    """Load an index, silently substituting a fresh empty index when the
+    file is missing or unreadable (reference recovery semantics).
+    fresh_factory overrides the default FlatIndex for the empty case.
+    A file of a kind the port does not have yet raises NotImplementedError.
+
+    One deliberate loudness exception (VERDICT round 2, missing #1): a
+    file carrying a FAISS fourcc — i.e. a reference-created `.memo` —
+    gets a one-line stderr migration hint instead of fully silent
+    recovery, because a user pointing this CLI at a reference DB would
+    otherwise recall nothing until they discover `reindex` themselves.
+    The YAML store is the source of truth either way."""
+
+    def fresh() -> Any:
+        if fresh_factory is not None:
+            return fresh_factory()
+        from ..models.flat import FlatIndex
+
+        return FlatIndex(dim=dim, device=device)
+
+    if not path.exists():
+        return fresh()
+    try:
+        return read_index(path, device=device)
+    except NotImplementedError:
+        raise
+    except Exception:
+        if _looks_like_faiss(path):
+            import sys
+
+            print(
+                f"Note: '{path}' is a FAISS-format index from the reference "
+                "implementation; starting with an empty index — run "
+                "'reindex' to rebuild it from the YAML records.",
+                file=sys.stderr,
+            )
+        return fresh()

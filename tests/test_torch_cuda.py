@@ -1,0 +1,216 @@
+"""PyTorch port on the card: the hand-written fused L2 top-k kernel against
+its plain version, and FlatIndex, embedding and MemoDB on CUDA against the
+same calls on the CPU.
+
+Every test here is marked `cuda` and skips without a card (the kernel has
+no CPU mode). This file imports neither jax nor the JAX package, so it runs
+where only torch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: int8 keys bit-equal (both sides round the product, then the
+sum); f32/bf16 keys within 1e-4 relative (another summation order), with
+positions equal except inside groups of keys tied within that tolerance.
+Index and API fixtures are integer-valued or hash embeddings, so their
+distances are exact in f32 on both devices."""
+
+import numpy as np
+import pytest
+import torch
+
+from c99_vectordb_tpu_torch.api import MemoDB
+from c99_vectordb_tpu_torch.models.flat import FlatIndex
+from c99_vectordb_tpu_torch.ops import topk_cuda
+from c99_vectordb_tpu_torch.ops.embed import embed_texts
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode (run on the card)")
+    return torch.device("cuda", 0)
+
+
+def same_up_to_ties(want_k, want_p, got_k, got_p, tol):
+    np.testing.assert_allclose(got_k, want_k, rtol=tol, atol=tol)
+    for r in range(want_k.shape[0]):
+        k, s = want_k.shape[1], 0
+        while s < k:
+            e = s + 1
+            while e < k and (want_k[r, e] == want_k[r, s] or abs(
+                    want_k[r, e] - want_k[r, s]) <= tol * max(1.0, abs(want_k[r, s]))):
+                e += 1
+            if e < k:
+                assert sorted(got_p[r, s:e]) == sorted(want_p[r, s:e]), (r, s, e)
+            s = e
+
+
+def _store(dtype, n, d, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=device)
+    if dtype == "int8":
+        scale = x.abs().amax(0) / 127.0
+        codes = torch.clamp(torch.round(x / scale), -127, 127)
+        dec = codes * scale
+        return codes.to(torch.int8).contiguous(), (dec * dec).sum(1), scale
+    return x.to(getattr(torch, dtype)).contiguous(), (x * x).sum(1), None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 20, 200, 1024])
+@pytest.mark.parametrize("b", [1, 70])
+def test_kernel_matches_plain(cuda, dtype, k, b):
+    n, d = 8192 + 37, 384                       # ragged last row tile
+    db, norms, scale = _store(dtype, n, d, cuda, seed=k + b)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    norms[torch.randperm(n, generator=g, device=cuda)[: n // 4]] = torch.inf
+    q = torch.randn((b, d), generator=g, device=cuda)
+    q_st, rs = topk_cuda.stage_queries(q if scale is None else q * scale, db.dtype)
+    before = topk_cuda.fused_l2_topk.launches
+    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, k, rs)
+    assert topk_cuda.fused_l2_topk.launches == before + 1
+    pk, pp = topk_cuda.select_plain(q_st, db, norms, k, rs)
+    torch.cuda.synchronize()
+    assert kk.shape == (b, k) and kp.dtype == torch.int32
+    if dtype == "int8":
+        assert torch.equal(kk, pk) and torch.equal(kp, pp)
+    else:
+        same_up_to_ties(pk.cpu().numpy(), pp.cpu().numpy(), kk.cpu().numpy(),
+                        kp.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_odd_width_and_exact_ties(cuda, dtype):
+    """D not a multiple of the kernel's slice; integer rows with many exact
+    ties must come back in position order, exactly as the plain version."""
+    g = np.random.default_rng(4)
+    db = torch.from_numpy(g.integers(-2, 3, (3000, 21)).astype(np.float32)).to(cuda)
+    norms = (db * db).sum(1)
+    q = torch.from_numpy(g.integers(-2, 3, (9, 21)).astype(np.float32)).to(cuda)
+    q_st, _ = topk_cuda.stage_queries(q, getattr(torch, dtype))
+    db = db.to(getattr(torch, dtype))
+    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, 50)
+    pk, pp = topk_cuda.select_plain(q_st, db, norms, 50)
+    assert torch.equal(kk, pk) and torch.equal(kp, pp)
+
+
+def test_kernel_rejects_bad_operands(cuda):
+    db, norms, _ = _store("float32", 1024, 64, cuda, seed=1)
+    q = torch.randn((4, 64), device=cuda)
+    before = topk_cuda.fused_l2_topk.launches
+    with pytest.raises(TypeError):
+        topk_cuda.fused_l2_topk(q.to(torch.bfloat16), db, norms, 5)
+    with pytest.raises(ValueError):
+        topk_cuda.fused_l2_topk(q[:, ::2], db[:, ::2], norms, 5)      # not contiguous
+    with pytest.raises(ValueError):
+        topk_cuda.fused_l2_topk(q, db, norms.cpu(), 5)                # mixed devices
+    with pytest.raises(TypeError):
+        topk_cuda.fused_l2_topk(q, db, norms.double(), 5)
+    i8 = torch.zeros((1024, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        topk_cuda.fused_l2_topk(torch.zeros((4, 64), dtype=torch.int8, device=cuda), i8, norms, 5)
+    with pytest.raises(ValueError):
+        topk_cuda.fused_l2_topk(torch.zeros((4, 62), dtype=torch.int8, device=cuda),
+                                i8[:, :62].contiguous(), norms, 5, torch.ones(4, device=cuda))
+    assert topk_cuda.fused_l2_topk.launches == before
+
+
+def _corpus(n, seed, d=32):
+    """Integer rows with many exact ties. Row 0 holds 127 in every
+    dimension and every query holds 127 in dimension 0, so the SQ8 scale is
+    exactly 1 and the int8 query scale exactly 2: the int8 scan's keys are
+    exact too, and all three scan stores must equal the CPU result."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    x[0] = 127.0
+    ids = np.sort(rng.permutation(2 * n)[:n]).astype(np.int64)
+    q = rng.integers(-3, 4, (40, d)).astype(np.float32)
+    q[:, 0] = 127.0
+    mask = rng.random(2 * n + 3) < 0.2
+    return x, ids, q, mask
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,k", [(3000, 10), (3000, 600), (300, 10)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flat_on_card_matches_cpu(cuda, scan_dtype, n, k, masked):
+    """Kernel route (n=3000, k=10), deep-shortlist route (k_scan > 1024)
+    and small-store route (cap < 1024), each against the CPU index."""
+    x, ids, q, mask = _corpus(n, seed=n + k)
+    on_card = FlatIndex(dim=32, scan_dtype=scan_dtype, device=cuda)
+    on_cpu = FlatIndex(dim=32, scan_dtype=scan_dtype, device="cpu")
+    on_card.add(torch.from_numpy(x).to(cuda), ids)
+    on_cpu.add(x, ids)
+    kw = {"id_mask": mask} if masked else {}
+    before = topk_cuda.fused_l2_topk.launches
+    gd, gi = on_card.search(q, k, **kw)
+    launched = topk_cuda.fused_l2_topk.launches - before
+    assert launched == (1 if n == 3000 and k == 10 else 0)
+    cd, ci = on_cpu.search(q, k, **kw)
+    np.testing.assert_array_equal(gi, ci)
+    np.testing.assert_array_equal(gd, cd)
+
+
+def test_ranking_and_embedding_on_card_match_cpu(cuda):
+    x, ids, q, _ = _corpus(500, seed=9)
+    on_card = FlatIndex(dim=32, device=cuda)
+    on_cpu = FlatIndex(dim=32, device="cpu")
+    on_card.add(x, ids)
+    on_cpu.add(x, ids)
+    for r in range(3):
+        gd, gi = on_card.ranked_all(q[r])
+        cd, ci = on_cpu.ranked_all(q[r])
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_array_equal(gd, cd)
+    gd, gi, _ = on_card.ranked_many_device(q)
+    cd, ci, _ = on_cpu.ranked_many_device(q)
+    np.testing.assert_array_equal(gi.cpu().numpy(), ci.numpy())
+    np.testing.assert_array_equal(gd.cpu().numpy(), cd.numpy())
+    texts = ["alpha beta", "", "dup dup dup unique", "unicode üñîсö 中文", "x " * 300]
+    np.testing.assert_array_equal(embed_texts(texts, device=cuda), embed_texts(texts, device="cpu"))
+
+
+WORDS = ("tea coffee morning meeting project deadline budget review design kernel memory "
+         "cache index vector search query filter record note user agent system").split()
+
+
+def test_memodb_on_card_matches_cpu(cuda, tmp_path):
+    rng = np.random.default_rng(8)
+    records = [{"body": " ".join(WORDS[j] for j in rng.integers(0, len(WORDS), 6)),
+                "metadata": {"source": ["user", "agent"][i % 2], "p": int(i % 5)}}
+               for i in range(2000)]
+    queries = [" ".join(WORDS[j] for j in rng.integers(0, len(WORDS), 3)) for _ in range(32)]
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    card = MemoDB("notes", cwd=str(tmp_path / "a"), device=cuda)
+    cpu = MemoDB("notes", cwd=str(tmp_path / "b"), device="cpu")
+
+    def same(fn):
+        a, b = fn(card), fn(cpu)
+        if isinstance(a, list) and a and isinstance(a[0], list):
+            for ha, hb in zip(a, b):
+                assert len(ha) == len(hb)
+                scores = {h.doc_id: h.score for h in hb}
+                for x, y in zip(ha, hb):
+                    assert abs(x.score - y.score) <= 1e-5
+                    if x.doc_id != y.doc_id:
+                        assert (x.doc_id in scores and abs(scores[x.doc_id] - x.score) <= 1e-5
+                                ) or abs(x.score - hb[-1].score) <= 1e-5
+        else:
+            assert a == b
+        for name in ("notes.yaml", "notes.memo"):
+            assert (tmp_path / "a" / name).read_bytes() == (tmp_path / "b" / name).read_bytes()
+        return a
+
+    same(lambda db: db.save_many(records))
+    before = topk_cuda.fused_l2_topk.launches
+    same(lambda db: db.recall_many(queries, k=10))
+    assert topk_cuda.fused_l2_topk.launches > before
+    same(lambda db: db.recall_many(queries, k=10, filter="{p: {$gte: 3}}"))
+    same(lambda db: [db.recall(qs, k=5, filter="{source: user}", pushdown=True)
+                     for qs in queries[:4]])
+    same(lambda db: db.delete(17))
+    same(lambda db: db.reindex())
+    same(lambda db: db.recall_many(queries, k=10))
