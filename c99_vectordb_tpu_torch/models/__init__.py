@@ -2,3 +2,4 @@
 
 from .base import VectorIndex  # noqa: F401
 from .flat import FlatIndex  # noqa: F401
+from .ivf_flat import IVFFlatIndex  # noqa: F401

@@ -57,3 +57,11 @@ def next_pow2(n: int, floor: int = 8) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+def list_pad(max_count: int) -> int:
+    """Inverted-list padded length: pow2 up to 128, then 128-multiples
+    (the JAX package's rule, so both packages stage the same canvases)."""
+    if max_count <= 128:
+        return next_pow2(max(max_count, 8))
+    return ((max_count + 127) // 128) * 128

@@ -9,7 +9,7 @@ _REGISTRY: dict[str, Any] = {}
 # Kinds the JAX package writes that the port cannot read yet. A file of
 # one of these kinds must fail loudly: silently substituting an empty
 # index would lose the user's data from view.
-NOT_YET_PORTED = ("ivf_flat", "ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq")
+NOT_YET_PORTED = ("ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq")
 
 
 def register(cls: Any) -> Any:
@@ -18,7 +18,7 @@ def register(cls: Any) -> Any:
 
 
 def resolve(kind: str) -> Any:
-    from . import flat  # noqa: F401  (registers the built-in kinds)
+    from . import flat, ivf_flat  # noqa: F401  (registers the built-in kinds)
 
     try:
         return _REGISTRY[kind]

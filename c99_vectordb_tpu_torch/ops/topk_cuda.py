@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ops/topk_pallas.py (`fused_topk`, whose
 Pallas kernel `_fused_kernel` this replaces). The CUDA source is
-csrc/fused_l2_topk.cu; it is compiled with nvcc for sm_90a on first use
-into `_build/` (keyed on a hash of the source) and loaded with ctypes.
+csrc/fused_l2_topk.cu; ops/cuda_build.py compiles it with nvcc for sm_90a
+on first use into `_build/` (keyed on a hash of the source) and loads it
+with ctypes.
 
 Layers:
   - `fused_l2_topk(q_staged, db, norms, k, rs)`: the kernel wrapper. It
@@ -24,93 +25,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .distances import INT32_MAX
 from .topk import stable_topk
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_l2_topk.cu"
-BUILD_DIR = _PKG / "_build"
-
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-
-
-# -- build and load ---------------------------------------------------------
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and PATH); "
-            "it is needed to build the fused_l2_topk CUDA kernel"
-        )
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"fused_l2_topk_{digest}.so"
-
-
-def build() -> tuple[Path, float]:
-    """Compile the kernel if its source-keyed library is missing.
-    Returns (library path, seconds spent compiling; 0.0 when cached).
-    Raises if nvcc is missing or the build fails."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-    ]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed building {SOURCE.name} (exit {res.returncode}):\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(res.stderr)
-    tmp.replace(out)
-    return out, seconds
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            if lib.fused_l2_topk_abi_version() != 2:
-                raise RuntimeError(f"{path.name}: unexpected ABI version")
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.fused_l2_topk.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                          vp, vp, vp, vp, vp]
-            lib.fused_l2_topk.restype = ci
-            lib.fused_l2_topk_splits.argtypes = [ci, ci, ci]
-            lib.fused_l2_topk_splits.restype = ci
-            _lib = lib
-    return _lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 2, {
+        "fused_l2_topk": ([ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp], ci),
+        "fused_l2_topk_splits": ([ci, ci, ci], ci),
+    })
 
 
 @functools.cache

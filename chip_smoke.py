@@ -4,25 +4,39 @@
     python3 chip_smoke.py [--seed 1234]    # on CUDA device 0
 
 Phases (any failure raises and exits non-zero; none is caught):
-  1. build    nvcc builds csrc/fused_l2_topk.cu into c99_vectordb_tpu_torch/_build/.
-  2. kernel   fused_l2_topk against its plain torch version on the card, for
-              the f32, bf16 and int8 stores at N=1,048,576 x D=384, B in
-              {128, 1024, 100}, k=20, plus fixtures (duplicate rows, +inf
-              padding and masked norms, k above the live rows, deep k).
-  3. flat     FlatIndex on 1,000,000 seeded clustered unit vectors (D=384),
-              each scan dtype, B=128, k=10: strict recall@10 = 1.0 against a
-              float64 (distance, id) ground truth, unfiltered and with a 10%
-              id_mask.
-  4. memodb   MemoDB on 100,000 seeded synthetic notes: save_many,
-              recall_many (with and without a pushed-down filter),
-              recall(pushdown=True), delete, reindex — each step held
-              against MemoDB(device="cpu") on a copy of the same files;
-              then the kernel against its plain version on this path's own
-              operands (the resident store and the 128 staged queries).
-  5. times    kernel, plain version and a library yardstick (torch matmul +
-              torch.topk on the same staged operands; never used by the
-              port) beside the bound, on the MemoDB path's operands and per
-              store dtype and batch at N=1,048,576.
+  1. build       nvcc builds csrc/fused_l2_topk.cu and csrc/ivf_scan.cu, in
+                 parallel, into c99_vectordb_tpu_torch/_build/.
+  2. kernel      fused_l2_topk against its plain torch version on the card,
+                 for the f32, bf16 and int8 stores at N=1,048,576 x D=384, B in
+                 {128, 1024, 100}, k=20, plus fixtures (duplicate rows, +inf
+                 padding and masked norms, k above the live rows, deep k).
+  3. flat        FlatIndex on 1,000,000 seeded clustered unit vectors (D=384),
+                 each scan dtype, B=128, k=10: strict recall@10 = 1.0 against a
+                 float64 (distance, id) ground truth, unfiltered and with a 10%
+                 id_mask.
+  4. memodb      MemoDB on 100,000 seeded synthetic notes: save_many,
+                 recall_many (with and without a pushed-down filter),
+                 recall(pushdown=True), delete, reindex — each step held
+                 against MemoDB(device="cpu") on a copy of the same files;
+                 then the kernel against its plain version on this path's own
+                 operands.
+  5. ivf         IVFFlatIndex on the same 1M corpus, nlist = auto_nlist(1M):
+                 k-means once on the card (twice, to show it is
+                 deterministic), then the f32, bf16 and int8 indexes from
+                 that quantizer; per store a dense-route nprobe and 16,
+                 unfiltered and with the 10% id_mask, each held against the
+                 same route on the plain versions; f32 select = dense bit for
+                 bit; recall@10 (informative); a 10,000-row tail add,
+                 remove_ids and the fold-restage, held the same way.
+  6. memodb_ivf  MemoDB with C99VDB_INDEX=ivf_flat at 100,000 notes (save_many
+                 in host mode at nlist 64, reindex in device mode at
+                 auto_nlist), each step against MemoDB(device="cpu") on the
+                 card's files; queries whose card and CPU routes probe
+                 different lists are counted (<= 1%) and skipped.
+  7. times       every kernel, its plain version and a library yardstick
+                 (never used by the port) beside the bound, on the paths' own
+                 operands; each IVF kernel is first held against its plain
+                 version on them.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -44,11 +58,17 @@ import numpy as np
 import torch
 
 from c99_vectordb_tpu_torch.api import MemoDB
+from c99_vectordb_tpu_torch.commands import auto_nlist
 from c99_vectordb_tpu_torch.models.flat import FlatIndex
+from c99_vectordb_tpu_torch.models.ivf_flat import DENSE_MAX_BF16, DENSE_MAX_F32, IVFFlatIndex
+from c99_vectordb_tpu_torch.ops import cuda_build, ivf_scan, ivf_scan_cuda
 from c99_vectordb_tpu_torch.ops import topk as topk_mod
 from c99_vectordb_tpu_torch.ops import topk_cuda
-from c99_vectordb_tpu_torch.ops.embed import embed_texts_device
+from c99_vectordb_tpu_torch.ops.distances import scores_via_matmul
+from c99_vectordb_tpu_torch.ops.embed import embed_texts, embed_texts_device
+from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
 from c99_vectordb_tpu_torch.ops.rerank import shortlist_depth
+from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 # Published H100 SXM figures (NVIDIA data sheet): bytes/s and dense
 # tensor-core peak operations/s by operand type (TF32 for f32 operands:
@@ -256,7 +276,7 @@ def phase_flat(device, n, d, seed, card):
         out[dt] = t_search
         del index
         torch.cuda.empty_cache()
-    return out
+    return out, (x, q, mask, gt_i, gtm_i)
 
 
 # -- phase 4: MemoDB ---------------------------------------------------------------
@@ -460,7 +480,464 @@ def phase_times(device, n, d, batches, k, seed, card):
     return rows
 
 
+# -- IVF: helpers ------------------------------------------------------------------
+
+
+IVF_KERNELS = ("ivf_scan_select", "ivf_scan_dense", "ivf_scan_dense_int8")
+IVF_REL_TOL = 1e-5   # kernel route vs the same route on the plain versions
+
+
+def ivf_counts() -> dict:
+    return {name: getattr(ivf_scan_cuda, name).launches for name in IVF_KERNELS}
+
+
+def reset_counts() -> None:
+    topk_cuda.fused_l2_topk.launches = 0
+    for name in IVF_KERNELS:
+        getattr(ivf_scan_cuda, name).launches = 0
+
+
+class plain_kernels:
+    """Run the IVF programs on their plain versions (on the same device):
+    the route of ops/ivf_scan.py with each kernel call swapped for its
+    plain torch version. For holding a whole route against itself."""
+
+    def __enter__(self):
+        self.saved = (ivf_scan.ivf_scan_select, ivf_scan.ivf_scan_dense,
+                      ivf_scan.ivf_scan_dense_int8)
+        ivf_scan.ivf_scan_select = (lambda *a, qpb=1: ivf_scan.scan_select_plain(*a[:7]))
+        ivf_scan.ivf_scan_dense = ivf_scan.scan_dense_plain
+        ivf_scan.ivf_scan_dense_int8 = (
+            lambda *a, qpb=1: ivf_scan.scan_dense_int8_plain(*a[:6]))
+        return self
+
+    def __exit__(self, *exc):
+        (ivf_scan.ivf_scan_select, ivf_scan.ivf_scan_dense,
+         ivf_scan.ivf_scan_dense_int8) = self.saved
+
+
+def compare_topk(want_d, want_i, got_d, got_i, label, tol=IVF_REL_TOL):
+    """Distances within tol relative (tol absolute near 0); ids equal except
+    inside groups of distances tied within tol. Returns max |diff|."""
+    fin = np.isfinite(want_d)
+    assert np.array_equal(fin, np.isfinite(got_d)), f"{label}: inf slots differ"
+    diff = np.abs(got_d[fin] - want_d[fin])
+    assert bool((diff <= tol * np.maximum(np.abs(want_d[fin]), 1.0)).all()), (
+        f"{label}: distance error {diff.max()}")
+    for r in range(want_d.shape[0]):
+        k, s = want_d.shape[1], 0
+        while s < k:
+            e = s + 1
+            while e < k and (want_d[r, e] == want_d[r, s] or abs(
+                    want_d[r, e] - want_d[r, s]) <= tol * max(1.0, abs(want_d[r, s]))):
+                e += 1
+            tied_to_end = e == k
+            if not tied_to_end and fin[r, s]:
+                assert sorted(got_i[r, s:e]) == sorted(want_i[r, s:e]), (
+                    f"{label}: query {r} ids differ beyond ties")
+            s = e
+    return float(diff.max()) if diff.size else 0.0
+
+
+def recall_at(got_i, gt_i, k=10):
+    return float(np.mean([len(set(got_i[r][:k]) & set(gt_i[r][:k])) / k
+                          for r in range(gt_i.shape[0])]))
+
+
+def route_of(index, scan_dtype, nprobe):
+    pad = index._staged[6]
+    if scan_dtype == "int8":
+        return "dense_int8"
+    gate = DENSE_MAX_F32 if scan_dtype == "float32" else DENSE_MAX_BF16
+    return "dense" if nprobe * pad <= gate else "select"
+
+
+# -- phase ivf: IVFFlatIndex at 1M x 384 ----------------------------------------------
+
+
+def timed_search(index, q, k, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = index._search(q, k, card_route=True, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_route(index, q, k, label, **kw):
+    """The index's card route on the kernels against the same route on the
+    plain versions. Returns ((dists, ids), seconds, {kernel: max |diff|})
+    with the route's max |diff| under each IVF kernel the route launched."""
+    before = ivf_counts()
+    (kd, ki), secs = timed_search(index, q, k, **kw)
+    launched = [name for name, v in ivf_counts().items() if v > before[name]]
+    with plain_kernels():
+        pd, pi = index._search(q, k, card_route=True, **kw)
+    return (kd, ki), secs, dict.fromkeys(launched, compare_topk(pd, pi, kd, ki, label))
+
+
+def note_errs(errs, got):
+    """Fold a {kernel: max |diff|} into the per-kernel maxima."""
+    for name, err in got.items():
+        errs[name] = max(errs[name], err)
+
+
+def phase_ivf(device, d, seed, card, corpus):
+    x, q, mask, gt_i, gtm_i = corpus
+    n = x.shape[0]
+    nlist = auto_nlist(n)
+    x_dev = torch.from_numpy(x).to(device)
+    ids_dev = torch.arange(n, dtype=torch.int32, device=device)
+    base = IVFFlatIndex(dim=d, nlist=nlist, nprobe=16, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base.train(x_dev)
+    torch.cuda.synchronize()
+    t_km = time.perf_counter() - t0
+    again = train_kmeans(x_dev, nlist, out_device=True)
+    assert torch.equal(again, base._centroids), "k-means on the card is not deterministic"
+    del again
+    log(f"ivf: k-means (maximin + 10 Lloyd iterations) of {n} x {d} into {nlist} lists "
+        f"in {t_km:.2f} s host clock; a second training gave bit-identical centroids [{card}]")
+    errs = dict.fromkeys(IVF_KERNELS, 0.0)
+    result = {"kmeans_s": t_km, "nlist": nlist, "routes": []}
+    operands = {}
+    extra, _, _ = clustered_corpus(10_000, d, seed + 5)
+    for dt in ("float32", "bfloat16", "int8"):
+        index = base if dt == "float32" else IVFFlatIndex(
+            dim=d, nlist=nlist, nprobe=16, scan_dtype=dt, device=device)
+        index._centroids = base._centroids      # the one trained quantizer
+        t0 = time.perf_counter()
+        index.add(x_dev, ids_dev)
+        index.search(q[:1], 10)                 # stage
+        torch.cuda.synchronize()
+        pad = index._staged[6]
+        log(f"ivf {dt}: staged {n} rows in {time.perf_counter() - t0:.2f} s, nlist={nlist}, "
+            f"pad={pad}")
+        dense_np = max(1, (DENSE_MAX_BF16 if dt == "bfloat16" else DENSE_MAX_F32) // pad)
+        for nprobe in sorted({dense_np, 16}):
+            route = route_of(index, dt, nprobe)
+            for name, kw, gt in (("unfiltered", {}, gt_i),
+                                 ("10% id_mask", {"id_mask": mask}, gtm_i)):
+                (gd, gi), secs, got = check_route(index, q, 10, f"ivf {dt} p={nprobe} {name}",
+                                                   nprobe=nprobe, **kw)
+                note_errs(errs, got)
+                err = max(got.values(), default=0.0)
+                rec = recall_at(gi, gt)
+                log(f"ivf {dt} nprobe={nprobe} {name}: route {route} (pad {pad}, width "
+                    f"{nprobe * pad}), agrees with the plain route (max |diff| {err:.2e}), "
+                    f"recall@10 {rec:.4f}, B=128 search {secs * 1e3:.2f} ms host clock [{card}]")
+                result["routes"].append({"dtype": dt, "nprobe": nprobe, "filter": name,
+                                         "route": route, "pad": pad, "recall": rec,
+                                         "search_ms": secs * 1e3})
+            if dt == "float32":
+                # The select and dense routes share one distance routine.
+                sd, si = index._search(q, 10, nprobe=nprobe, card_route=True, scan="select")
+                dd, di = index._search(q, 10, nprobe=nprobe, card_route=True, scan="dense")
+                assert np.array_equal(sd, dd), f"ivf f32 p={nprobe}: select != dense distances"
+                fin = np.isfinite(sd)
+                assert np.array_equal(si[fin], di[fin]), f"ivf f32 p={nprobe}: select != dense ids"
+                log(f"ivf float32 nprobe={nprobe}: select and dense routes bit-identical")
+            if dt != "int8":
+                operands[(route_of(index, dt, nprobe), dt)] = staged_operands(index, q, nprobe)
+        if dt == "int8":
+            operands[("dense_int8", dt)] = staged_operands(index, q, 16)
+        # Incremental add into the tail, one remove_ids, and the fold.
+        index.add(torch.from_numpy(extra).to(device),
+                  torch.arange(n, n + extra.shape[0], dtype=torch.int32, device=device))
+        assert index._tail is not None and index._tail.count == extra.shape[0]
+        note_errs(errs, check_route(index, q, 10, f"ivf {dt} tail")[2])
+        removed = index.remove_ids(np.arange(0, n, 997))    # folds the tail first
+        assert removed == len(range(0, n, 997)) and index._tail is None
+        note_errs(errs, check_route(index, q, 10, f"ivf {dt} after remove + fold")[2])
+        log(f"ivf {dt}: tail add of {extra.shape[0]} rows, remove_ids of {removed} rows and "
+            f"the fold-restage agree with the plain route")
+        del index
+    del base, x_dev
+    torch.cuda.empty_cache()
+    return result, errs, operands
+
+
+def staged_operands(index, q, nprobe):
+    """The scan operands of an index's card route at `nprobe` (staged
+    lists, probes, staged queries) for the times phase."""
+    (centroids, c_sq, store, li, sqn, _, pad, extra) = index._stage()
+    qd = torch.from_numpy(q).to(store.device)
+    probes = ivf_scan.coarse_probes(qd, centroids, c_sq, nprobe)
+    ops = {"probes": probes, "ids": li, "pad": pad}
+    if extra is not None and extra[0] == "int8":
+        q8, rs = ivf_scan.sq8_stage_queries(qd, extra[2])
+        ops.update(kind="int8", q8=q8, rs=rs, codes=extra[1], sqn=extra[3])
+    else:
+        lists = store if extra is None else extra[1]
+        ops.update(kind="float", q=qd, q_sq=(qd * qd).sum(1), lists=lists, sqn=sqn)
+    return ops
+
+
+# -- phase memodb_ivf: MemoDB on IVFFlatIndex at 100k notes ------------------------------
+
+
+def probe_sets(db, q_emb):
+    """Per query: (card-route probes, CPU-route probes) of a MemoDB's index,
+    each a frozenset."""
+    index = db._index()
+    centroids, c_sq = index._stage()[:2]
+    nprobe = min(index.nprobe, int(centroids.shape[0]))
+    qd = torch.from_numpy(q_emb).to(centroids.device)
+    card = ivf_scan.coarse_probes(qd, centroids, c_sq, nprobe).cpu().numpy()
+    _, cpu = topk_mod.stable_topk(scores_via_matmul(qd, centroids, c_sq), nprobe)
+    cpu = cpu.cpu().numpy()
+    return [(frozenset(a.tolist()), frozenset(b.tolist())) for a, b in zip(card, cpu)]
+
+
+def compare_hits_ivf(gpu, cpu, probes_g, probes_c, label):
+    """Hits held as compare_hits does, except queries whose card-route probe
+    set (on the card index) and CPU-route probe set (on the CPU index)
+    differ. Returns (tie swaps, queries skipped)."""
+    swaps = skipped = 0
+    for qi, (g, c) in enumerate(zip(gpu, cpu)):
+        if probes_g[qi][0] != probes_c[qi][1]:
+            skipped += 1
+            continue
+        swaps += compare_hits([g], [c], f"{label} query {qi}")
+    return swaps, skipped
+
+
+def phase_memodb_ivf(device, n_records, seed, workdir, card):
+    import os
+
+    records, queries = synthetic_notes(n_records, seed)
+    q_emb = embed_texts(queries, device="cpu")
+    gdir, cdir = workdir / "gpu", workdir / "cpu"
+    gdir.mkdir()
+    cdir.mkdir()
+    os.environ["C99VDB_INDEX"] = "ivf_flat"
+    try:
+        gpu = MemoDB("notes", cwd=str(gdir), device=device)
+        t0 = time.perf_counter()
+        gpu.save_many(records)
+        log(f"memodb_ivf: save_many of {n_records} notes (host mode, nlist 64) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def copy_card_files():
+            for f in gdir.iterdir():
+                shutil.copy2(f, cdir / f.name)
+
+        copy_card_files()
+        cpu = MemoDB("notes", cwd=str(cdir), device="cpu")
+        stats = {"swaps": 0, "skipped": 0, "compared": 0}
+
+        def both(fn, label, n_q):
+            g, c = fn(gpu), fn(cpu)
+            pg, pc = probe_sets(gpu, q_emb[:n_q]), probe_sets(cpu, q_emb[:n_q])
+            sw, sk = compare_hits_ivf(g, c, pg, pc, label)
+            stats["swaps"] += sw
+            stats["skipped"] += sk
+            stats["compared"] += n_q
+            return g
+
+        def describe(label):
+            index = gpu._index()
+            staged = index._stage()
+            pad, nlist = staged[6], int(staged[0].shape[0])
+            route = "dense" if index.nprobe * pad <= DENSE_MAX_F32 else "select"
+            log(f"memodb_ivf {label}: {index._mode} mode, nlist {nlist}, pad {pad}, nprobe "
+                f"{index.nprobe} -> route {route}")
+            return route
+
+        before = ivf_counts()
+        g = both(lambda db: db.recall_many(queries, k=10), "recall_many", len(queries))
+        assert all(len(h) == 10 for h in g)
+        routes = {"before_reindex": describe("recall_many"),
+                  "launches_first_call": {k: v - before[k] for k, v in ivf_counts().items()}}
+        ops_before = staged_operands(gpu._index(), q_emb, gpu._index().nprobe)
+        both(lambda db: db.recall_many(queries, k=10, filter="{source: user}"),
+             "recall_many {source: user}", len(queries))
+        both(lambda db: [db.recall(qs, k=10, filter="{priority: {$gte: 3}}", pushdown=True)[:10]
+                         for qs in queries[:8]], "recall(pushdown=True)", 8)
+        victim = gpu.recall_many(queries[:1], k=1)[0][0].doc_id
+        assert gpu.delete(victim) and cpu.delete(victim)
+        g = both(lambda db: db.recall_many(queries, k=10), "recall_many after delete",
+                 len(queries))
+        assert all(h.doc_id != victim for hs in g for h in hs)
+        t0 = time.perf_counter()
+        dropped = gpu.reindex()
+        t_reindex = time.perf_counter() - t0
+        assert dropped == cpu.reindex() == 1
+        own_g = read_index(gdir / "notes.memo", device="cpu").state()[1]
+        own_c = read_index(cdir / "notes.memo", device="cpu").state()[1]
+        cdiff = float(np.abs(own_g["centroids"] - own_c["centroids"]).max())
+        ag = own_g["assign"][np.argsort(own_g["ids"])]
+        ac = own_c["assign"][np.argsort(own_c["ids"])]
+        log(f"memodb_ivf: reindex (device mode, nlist {auto_nlist(n_records - 1)}) in "
+            f"{t_reindex:.1f} s on the card; the two sides' own k-means: centroid max |diff| "
+            f"{cdiff:.3e}, assignment agreement {float(np.mean(ag == ac)):.4f}")
+        copy_card_files()
+        routes["after_reindex"] = describe("after reindex")
+        g = both(lambda db: db.recall_many(queries, k=10), "recall_many after reindex",
+                 len(queries))
+        ops_after = staged_operands(gpu._index(), q_emb, gpu._index().nprobe)
+        share = stats["skipped"] / stats["compared"]
+        assert share <= 0.01, f"memodb_ivf: {stats['skipped']} queries with differing probes"
+        log(f"memodb_ivf: all steps agree with MemoDB(device='cpu') ({stats['swaps']} tie swaps; "
+            f"{stats['skipped']} of {stats['compared']} query results skipped for differing "
+            f"probe sets between the card and CPU routes)")
+        times = []
+        before = ivf_counts()
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gpu.recall_many(queries, k=10)
+            times.append(time.perf_counter() - t0)
+        per_call = {k: (v - before[k]) / 5 for k, v in ivf_counts().items()}
+        t_med = sorted(times)[len(times) // 2]
+        log(f"memodb_ivf: recall_many 128 queries k=10 median {t_med * 1e3:.2f} ms -> "
+            f"{128 / t_med:.1f} QPS (host clock, {n_records} notes), kernel launches per call "
+            f"{per_call} [{card}]")
+    finally:
+        os.environ.pop("C99VDB_INDEX", None)
+    return ({"qps": 128 / t_med, "per_call": per_call, "routes": routes,
+             "skipped": stats["skipped"], "compared": stats["compared"]},
+            {routes["before_reindex"]: ops_before, routes["after_reindex"]: ops_after})
+
+
+# -- IVF times --------------------------------------------------------------------------------
+
+
+PEAK_EXACT_F32 = 67e12      # f32 FMA outside the tensor cores: the exact f32 route
+
+
+def ivf_bound(ops, kernel, k=None):
+    """Least time for the scan on this run's operands. Bytes: the vectors of
+    the live rows (id >= 0) of the unique probed lists, and the norms and ids
+    of all their slots (a padding slot is told by its id alone), each read
+    once; the queries and probes read once; the outputs written once.
+    Operations: 2*D for each live row of each (query, probe). Returns
+    (ms, what bounds it, unique lists, live share of their slots)."""
+    probes = ops["probes"]
+    b, nprobe = probes.shape
+    pad = ops["pad"]
+    lists = ops["codes"] if ops["kind"] == "int8" else ops["lists"]
+    d, item = lists.shape[2], lists.element_size()
+    uniq_lists = torch.unique(probes).long()
+    uniq = int(uniq_lists.numel())
+    live_per_list = (ops["ids"] >= 0).sum(dim=1)
+    live = int(live_per_list[uniq_lists].sum())
+    live_pairs = int(live_per_list[probes.long()].sum())
+    out_cols = k if kernel == "ivf_scan_select" else nprobe * pad
+    nbytes = (live * d * item + uniq * pad * 8 + b * d * (1 if ops["kind"] == "int8" else 4)
+              + b * 4 + b * nprobe * 4 + b * out_cols * 8)
+    n_ops = 2 * live_pairs * d
+    peak = {torch.float32: PEAK_EXACT_F32, torch.bfloat16: PEAK_OPS_PER_S["bfloat16"],
+            torch.int8: PEAK_OPS_PER_S["int8"]}[lists.dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / peak
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), uniq,
+            live / (uniq * pad))
+
+
+def ivf_calls(ops, kernel, k):
+    """(kernel call, plain call, library yardstick) on the same operands. The
+    yardstick gathers the probed lists and scores them with one
+    torch.baddbmm (f32 product, int8 codes widened to f32), plus torch.topk
+    for the select kernel; it is timed only and never called by the port."""
+    p = ops["probes"]
+    if ops["kind"] == "int8":
+        args = (p, ops["q8"], ops["rs"], ops["codes"], ops["sqn"], ops["ids"])
+        kern = lambda: ivf_scan_cuda.ivf_scan_dense_int8(*args, qpb=8)  # noqa: E731
+        plain = lambda: ivf_scan.scan_dense_int8_plain(*args)  # noqa: E731
+        qv, lists, scale = ops["q8"].float() * ops["rs"][:, None], ops["codes"], ops["rs"]
+        qv_sq = None
+    else:
+        args = (p, ops["q"], ops["q_sq"], ops["lists"], ops["sqn"], ops["ids"])
+        if kernel == "ivf_scan_select":
+            kern = lambda: ivf_scan_cuda.ivf_scan_select(*args, k)  # noqa: E731
+            plain = lambda: ivf_scan.scan_select_plain(*args, k)  # noqa: E731
+        else:
+            kern = lambda: ivf_scan_cuda.ivf_scan_dense(*args)  # noqa: E731
+            plain = lambda: ivf_scan.scan_dense_plain(*args)  # noqa: E731
+        qv, lists, scale = ops["q"].to(ops["lists"].dtype).float(), ops["lists"], None
+        qv_sq = ops["q_sq"]
+    b, nprobe = p.shape
+    d = lists.shape[2]
+    flat_l = p.long().reshape(-1)
+
+    def library():
+        x = lists[flat_l].reshape(b, -1, d).float()
+        sq = ops["sqn"][flat_l].reshape(b, -1)
+        ip = torch.baddbmm(sq[:, :, None], x, qv[:, :, None],
+                           alpha=-2.0 if scale is None else 1.0)[..., 0]
+        if qv_sq is not None:
+            ip = ip + qv_sq[:, None]
+        if kernel == "ivf_scan_select":
+            return torch.topk(ip, k, largest=False)
+        return ip
+
+    return kern, plain, library
+
+
+def time_ivf(ops, kernel, k, label, card):
+    kern, plain, library = ivf_calls(ops, kernel, k)
+    iters = 10
+    saved = ivf_counts()
+    ms = time_ms(kern, iters)
+    for name, v in saved.items():        # timing launches are not the path's
+        getattr(ivf_scan_cuda, name).launches = v
+    plain_ms = time_ms(plain, 3)
+    lib_ms = time_ms(library, iters)
+    bms, by, uniq, live_share = ivf_bound(ops, kernel, k)
+    b, nprobe = ops["probes"].shape
+    lists = ops["codes"] if ops["kind"] == "int8" else ops["lists"]
+    shape = {"dtype": str(lists.dtype).removeprefix("torch."), "B": b, "nprobe": nprobe,
+             "nlist": lists.shape[0], "pad": ops["pad"], "D": lists.shape[2],
+             "unique_lists": uniq, "live_share": live_share}
+    if kernel == "ivf_scan_select":
+        shape["k"] = k
+    log(f"times {kernel} {label} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library yardstick {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}) [{card}]")
+    return {"label": label, **shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def check_ivf_kernel(ops, kernel, k, label):
+    """Kernel against its plain version on one set of operands; returns max
+    |diff| (int8 keys must be bit-equal)."""
+    kern, plain, _ = ivf_calls(ops, kernel, k)
+    kd, ki = kern()
+    pd, pi = plain()
+    torch.cuda.synchronize()
+    if kernel == "ivf_scan_dense_int8":
+        assert torch.equal(kd, pd) and torch.equal(ki, pi), f"{label}: int8 keys not bit-equal"
+        return 0.0
+    if kernel == "ivf_scan_dense":
+        assert torch.equal(ki, pi), f"{label}: ids differ"
+        kd, pd = kd.cpu().numpy(), pd.cpu().numpy()
+        fin = np.isfinite(pd)
+        assert np.array_equal(fin, np.isfinite(kd)), f"{label}: inf slots differ"
+        diff = np.abs(kd[fin] - pd[fin])
+        assert bool((diff <= IVF_REL_TOL * np.maximum(np.abs(pd[fin]), 1.0)).all()), label
+        return float(diff.max()) if diff.size else 0.0
+    return compare_topk(pd.cpu().numpy(), pi.cpu().numpy(), kd.cpu().numpy(),
+                        ki.cpu().numpy(), label)
+
+
 # -- main ------------------------------------------------------------------------
+
+
+def build_all():
+    """Build both CUDA sources at once (one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("fused_l2_topk", "ivf_scan")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(cuda_build.build, names))
+    log(f"build: {len(names)} sources in {time.perf_counter() - t0:.1f} s wall (nvcc, sm_90a)")
+    for name, (path, seconds) in zip(names, built):
+        log(f"build: {path.name} in {seconds:.1f} s")
+        ptxas = cuda_build.ptxas_log(name)
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
 
 
 def main() -> int:
@@ -480,13 +957,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. build
-    path, seconds = topk_cuda.build()
-    log(f"build: {path.name} in {seconds:.1f} s (nvcc, sm_90a)")
-    ptxas = path.with_name(path.stem + ".ptxas.txt")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    build_all()
 
     # 2. kernel against plain
     t0 = time.perf_counter()
@@ -496,16 +967,16 @@ def main() -> int:
 
     # 3. FlatIndex end to end (a path: counts reset before, read after)
     t0 = time.perf_counter()
-    topk_cuda.fused_l2_topk.launches = 0
-    phase_flat(device, 1_000_000, d, args.seed, card)
+    reset_counts()
+    _, corpus = phase_flat(device, 1_000_000, d, args.seed, card)
     flat_launches = topk_cuda.fused_l2_topk.launches
     assert flat_launches > 0, "FlatIndex did not reach the kernel"
     log(f"phase flat: {time.perf_counter() - t0:.1f} s")
 
-    # 4. MemoDB, the main path (counts reset before, read after)
+    # 4. MemoDB on the flat index (counts reset before, read after)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=str(Path.cwd())) as tmp:
-        topk_cuda.fused_l2_topk.launches = 0
+        reset_counts()
         qps, per_call, main_inputs = phase_memodb(device, 100_000, args.seed, Path(tmp), card)
         main_launches = topk_cuda.fused_l2_topk.launches
     assert main_launches > 0, "MemoDB did not reach the kernel"
@@ -517,12 +988,48 @@ def main() -> int:
         f"path's own operands")
     log(f"phase memodb: {time.perf_counter() - t0:.1f} s, kernel launches {main_launches}")
 
-    # 5. times
+    # 5. IVFFlatIndex at 1M x 384 (counts reset before, read after)
+    t0 = time.perf_counter()
+    reset_counts()
+    ivf_result, ivf_errs, ivf_ops = phase_ivf(device, d, args.seed, card, corpus)
+    ivf_launches = ivf_counts()
+    del corpus
+    assert all(v > 0 for v in ivf_launches.values()), f"ivf path launches {ivf_launches}"
+    log(f"phase ivf: {time.perf_counter() - t0:.1f} s, kernel launches {ivf_launches}")
+
+    # 6. MemoDB on IVFFlatIndex (counts reset before, read after)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=str(Path.cwd())) as tmp:
+        reset_counts()
+        memo_ivf, memo_ops = phase_memodb_ivf(device, 100_000, args.seed, Path(tmp), card)
+        memo_ivf_launches = ivf_counts()
+    assert memo_ivf_launches["ivf_scan_select"] + memo_ivf_launches["ivf_scan_dense"] > 0, (
+        f"MemoDB(ivf_flat) did not reach the scan kernels: {memo_ivf_launches}")
+    log(f"phase memodb_ivf: {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{memo_ivf_launches}")
+
+    # Each IVF kernel against its plain version on the paths' own operands.
+    cases = {"ivf_scan_select": [], "ivf_scan_dense": [], "ivf_scan_dense_int8": []}
+    kernel_of = {"select": "ivf_scan_select", "dense": "ivf_scan_dense",
+                 "dense_int8": "ivf_scan_dense_int8"}
+    for (route, dt), ops in ivf_ops.items():
+        k = 10 if dt == "float32" else shortlist_depth(10, 1_000_000)
+        cases[kernel_of[route]].append((f"ivf {dt}", ops, k))
+    for route, ops in memo_ops.items():
+        cases[kernel_of[route]].append(("memodb_ivf f32", ops, 10))
+    for kernel, items in cases.items():
+        for label, ops, k in items:
+            note_errs(ivf_errs, {kernel: check_ivf_kernel(ops, kernel, k, f"{kernel} {label}")})
+            log(f"{kernel} {label}: agrees with plain on the path's own operands")
+
+    # 7. times
     t0 = time.perf_counter()
     main_row = time_case(*main_inputs, card)
     rows = [main_row] + phase_times(device, n_kernel, d, (128, 1024), 20, args.seed, card)
+    ivf_rows = {kernel: [time_ivf(ops, kernel, k, label, card) for label, ops, k in items]
+                for kernel, items in cases.items()}
     log(f"phase times: {time.perf_counter() - t0:.1f} s")
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "fused_l2_topk",
         "route": "cuda",
         "source": "c99_vectordb_tpu_torch/csrc/fused_l2_topk.cu",
@@ -540,10 +1047,38 @@ def main() -> int:
         "check": "pass",
         "recall_many_qps": qps,
         "launches_per_recall_many": per_call,
-    }]}
+    }]
+    replaces = {
+        "ivf_scan_select": "c99_vectordb_tpu/ops/ivf_scan_pallas.py:113 (and :202)",
+        "ivf_scan_dense": "c99_vectordb_tpu/ops/ivf_scan_pallas.py:362",
+        "ivf_scan_dense_int8": "c99_vectordb_tpu/ops/ivf_scan_pallas.py:462 (and :496)",
+    }
+    for kernel, variants in ivf_rows.items():
+        head = variants[0]        # the 1M ivf path's first case for this kernel
+        kernels.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "c99_vectordb_tpu_torch/csrc/ivf_scan.cu",
+            "replaces": replaces[kernel],
+            "launches": ivf_launches[kernel],
+            "launches_by_path": {"ivf": ivf_launches[kernel],
+                                 "memodb_ivf": memo_ivf_launches[kernel]},
+            "max_abs_err": ivf_errs[kernel],
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": {k: v for k, v in head.items()
+                      if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "variants": variants,
+            "check": "pass",
+        })
+    kernels[1]["ivf"] = ivf_result
+    kernels[1]["memodb_ivf"] = memo_ivf
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps(kernels))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -155,19 +155,19 @@ def test_index_files_cross_read(tmp_path, monkeypatch, mmap):
 
 
 def test_unported_kind_raises(tmp_path, monkeypatch):
-    from c99_vectordb_tpu.models.ivf_flat import IVFFlatIndex
+    from c99_vectordb_tpu.models.ivf_pq import IVFPQIndex
 
     rng = np.random.default_rng(5)
-    pts = rng.standard_normal((64, 8)).astype(np.float32)
-    ivf = IVFFlatIndex(dim=8, nlist=2, nprobe=2)
-    ivf.train(pts)
-    ivf.add(pts, np.arange(64))
-    jio.write_index(ivf, tmp_path / "ivf.memo")
-    with pytest.raises(NotImplementedError, match="index kind 'ivf_flat' not yet ported"):
-        tio.read_index(tmp_path / "ivf.memo", device="cpu")
+    pts = rng.standard_normal((300, 8)).astype(np.float32)
+    pq = IVFPQIndex(dim=8, nlist=2, nprobe=2, m=2)
+    pq.train(pts)
+    pq.add(pts, np.arange(300))
+    jio.write_index(pq, tmp_path / "pq.memo")
+    with pytest.raises(NotImplementedError, match="index kind 'ivf_pq' not yet ported"):
+        tio.read_index(tmp_path / "pq.memo", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tio.load_index_or_fresh(tmp_path / "ivf.memo", dim=8, device="cpu")
-    for kind in ("ivf_flat", "ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq"):
+        tio.load_index_or_fresh(tmp_path / "pq.memo", dim=8, device="cpu")
+    for kind in ("ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq"):
         monkeypatch.setenv("C99VDB_INDEX", kind)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tcommands.make_index(device="cpu")

@@ -194,6 +194,9 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "ok" in res.stdout
     assert len(modules) >= 20
+    assert {"c99_vectordb_tpu_torch.ops.kmeans", "c99_vectordb_tpu_torch.ops.ivf_scan",
+            "c99_vectordb_tpu_torch.ops.ivf_scan_cuda", "c99_vectordb_tpu_torch.ops.cuda_build",
+            "c99_vectordb_tpu_torch.models.ivf_flat"} <= set(modules)
     chip = subprocess.run(
         [sys.executable, "-c",
          "import ast, sys; t = ast.parse(open('chip_smoke.py').read());"
