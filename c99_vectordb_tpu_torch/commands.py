@@ -28,35 +28,44 @@ def auto_nlist(corpus_size: int) -> int:
 def make_index(corpus_size: int | None = None, device=None):
     """Build an empty index of the configured family on `device`.
 
-    C99VDB_INDEX = flat (default) | ivf_flat. C99VDB_SCAN_DTYPE = float32 |
-    bfloat16 | int8 selects the scan store of both. For ivf_flat:
-    C99VDB_NLIST (else auto_nlist(corpus_size) when the caller knows the
-    corpus size, else 64), C99VDB_NPROBE (8), C99VDB_RERANK_DTYPE = float32 |
-    bfloat16, C99VDB_PAD_CAP. The JAX package's other families (ivf_pq,
-    sharded_*) are not ported yet and raise."""
+    C99VDB_INDEX = flat (default) | ivf_flat | ivf_pq. C99VDB_SCAN_DTYPE =
+    float32 | bfloat16 | int8 selects the scan store of flat and ivf_flat.
+    For the IVF families: C99VDB_NLIST (else auto_nlist(corpus_size) when
+    the caller knows the corpus size, else 64), C99VDB_NPROBE (8),
+    C99VDB_PAD_CAP; for ivf_flat C99VDB_RERANK_DTYPE = float32 | bfloat16;
+    for ivf_pq C99VDB_PQ_M (8), C99VDB_PQ_KSUB (256, or 16 for nibble-packed
+    4-bit codes) and C99VDB_OPQ (on unless empty, 0 or false). The JAX
+    package's sharded families are not ported yet and raise."""
     kind = os.environ.get("C99VDB_INDEX", "flat").strip().lower()
     scan_dtype = os.environ.get("C99VDB_SCAN_DTYPE", "float32").strip() or "float32"
     if kind == "flat":
         from .models.flat import FlatIndex
 
         return FlatIndex(dim=DIM, scan_dtype=scan_dtype, device=device)
+    nlist_env = os.environ.get("C99VDB_NLIST", "").strip()
+    if nlist_env:
+        nlist = int(nlist_env)
+    elif corpus_size is not None:
+        nlist = auto_nlist(corpus_size)
+    else:
+        nlist = 64
+    nprobe = int(os.environ.get("C99VDB_NPROBE", "8"))
+    pad_cap_env = os.environ.get("C99VDB_PAD_CAP", "").strip()
+    pad_cap = int(pad_cap_env) if pad_cap_env else None
     if kind == "ivf_flat":
         from .models.ivf_flat import IVFFlatIndex
 
-        nlist_env = os.environ.get("C99VDB_NLIST", "").strip()
-        if nlist_env:
-            nlist = int(nlist_env)
-        elif corpus_size is not None:
-            nlist = auto_nlist(corpus_size)
-        else:
-            nlist = 64
         rerank_dtype = os.environ.get("C99VDB_RERANK_DTYPE", "float32").strip() or "float32"
-        pad_cap_env = os.environ.get("C99VDB_PAD_CAP", "").strip()
-        return IVFFlatIndex(dim=DIM, nlist=nlist,
-                            nprobe=int(os.environ.get("C99VDB_NPROBE", "8")),
-                            scan_dtype=scan_dtype, rerank_dtype=rerank_dtype,
-                            pad_cap=int(pad_cap_env) if pad_cap_env else None,
-                            device=device)
+        return IVFFlatIndex(dim=DIM, nlist=nlist, nprobe=nprobe, scan_dtype=scan_dtype,
+                            rerank_dtype=rerank_dtype, pad_cap=pad_cap, device=device)
+    if kind == "ivf_pq":
+        from .models.ivf_pq import IVFPQIndex
+
+        opq = os.environ.get("C99VDB_OPQ", "").strip() not in ("", "0", "false")
+        return IVFPQIndex(dim=DIM, nlist=nlist, nprobe=nprobe,
+                          m=int(os.environ.get("C99VDB_PQ_M", "8")),
+                          ksub=int(os.environ.get("C99VDB_PQ_KSUB", "256")), opq=opq,
+                          pad_cap=pad_cap, device=device)
     if kind in NOT_YET_PORTED:
         raise NotImplementedError(f"index kind '{kind}' not yet ported")
     raise ValueError(f"unknown C99VDB_INDEX '{kind}'")

@@ -8,8 +8,13 @@
 //
 //   key(q, row) = norms[row] + dot(q_staged[q], x[row])          f32 / bf16
 //   key(q, row) = float(dot_i32(q8[q], x8[row])) * rs[q] + norms[row]  int8
+//   key(q, row) = norms[row] + dot(q_bf16[q], bf16(x8[row]))     int8 codes,
+//                                                                 bf16 queries
 //
-// with f32 accumulation (int8: an exact int32 dot via __dp4a). For every
+// with f32 accumulation (int8: an exact int32 dot via __dp4a). The last
+// mode is the Pallas kernel's q_int8=False branch (topk_pallas.py:76-80):
+// SQ8 codes decode to bf16 (exactly: |code| <= 127) against bf16 queries
+// staged as (-2 q).to(bf16); each product is exact in f32. For every
 // query the k smallest keys are kept, ordered by (key, position): ties go
 // to the lowest position, and a +inf key (padding or a masked row) never
 // enters, so unfilled slots stay (inf, INT32_MAX). Rows at or past N count
@@ -64,6 +69,7 @@ static_assert(QT == RT, "the slice loaders stage QT rows for both operands");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 // Stage a (rows x DKF) slice of a row-major (n_rows, D) matrix into the
 // transposed float tile t[DKF][TS]; out-of-range entries are 0.
@@ -119,10 +125,11 @@ __device__ __forceinline__ void warp_insert(float* lk, int* lp, int K, float key
     __syncwarp();
 }
 
-// MODE 0: f32 store, 1: bf16 store, 2: int8 store with int8 queries.
-template <int MODE, typename T>
+// MODE 0: f32 store, 1: bf16 store, 2: int8 store with int8 queries,
+// 3: int8 store with bf16 queries. TQ / T: query / store element types.
+template <int MODE, typename TQ, typename T>
 __global__ void __launch_bounds__(NT)
-scan_topk_kernel(const T* __restrict__ q, const T* __restrict__ x,
+scan_topk_kernel(const TQ* __restrict__ q, const T* __restrict__ x,
                  const float* __restrict__ norms, const float* __restrict__ rs,
                  int B, int N, int D, int K, int rows_per_split,
                  float* __restrict__ part_k, int* __restrict__ part_p) {
@@ -315,19 +322,19 @@ merge_splits_kernel(const float* __restrict__ part_k, const int* __restrict__ pa
     }
 }
 
-template <int MODE, typename T>
+template <int MODE, typename TQ, typename T>
 cudaError_t launch_scan(const void* q, const void* x, const float* norms, const float* rs,
                         int B, int N, int D, int K, int S, float* part_k, int* part_p,
                         cudaStream_t stream) {
     const int rows_per_split = ((N + S - 1) / S + RT - 1) / RT * RT;
     size_t smem = sizeof(float) * (QT * (RT + 1) + 2 * DKF * TS);
     if (K <= SMEM_LIST_MAX) smem += (sizeof(float) + sizeof(int)) * (size_t)QT * K;
-    cudaError_t err = cudaFuncSetAttribute(scan_topk_kernel<MODE, T>,
+    cudaError_t err = cudaFuncSetAttribute(scan_topk_kernel<MODE, TQ, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((B + QT - 1) / QT, S);
-    scan_topk_kernel<MODE, T><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(x), norms, rs, B, N, D, K,
+    scan_topk_kernel<MODE, TQ, T><<<grid, NT, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const T*>(x), norms, rs, B, N, D, K,
         rows_per_split, part_k, part_p);
     return cudaGetLastError();
 }
@@ -336,7 +343,7 @@ cudaError_t launch_scan(const void* q, const void* x, const float* norms, const 
 
 extern "C" {
 
-int fused_l2_topk_abi_version() { return 2; }
+int fused_l2_topk_abi_version() { return 3; }
 
 // The number S of splits of the store for B queries over N rows on a card
 // of `sms` multiprocessors: (query tiles x splits) fills the card about
@@ -350,7 +357,8 @@ int fused_l2_topk_splits(int B, int N, int sms) {
     return s < 1 ? 1 : s;
 }
 
-// dtype: 0 = f32, 1 = bf16, 2 = int8 (queries int8 with per-row scales rs).
+// dtype: 0 = f32, 1 = bf16, 2 = int8 (queries int8 with per-row scales rs),
+// 3 = int8 store with bf16 queries (rs unused).
 // q (B, D) and x (N, D) row-major in the store dtype; norms (N,) f32;
 // part_k/part_p (S, B, K) scratch, S from fused_l2_topk_splits; out_k/out_p
 // (B, K). Returns the CUDA error code of the launches (0 on success).
@@ -367,11 +375,13 @@ int fused_l2_topk(int dtype, const void* q, const void* x, const void* norms, co
     int* pp = static_cast<int*>(part_p);
     cudaError_t err;
     if (dtype == 0)
-        err = launch_scan<0, float>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
+        err = launch_scan<0, float, float>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else if (dtype == 1)
-        err = launch_scan<1, __nv_bfloat16>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
+        err = launch_scan<1, __nv_bfloat16, __nv_bfloat16>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else if (dtype == 2)
-        err = launch_scan<2, int8_t>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
+        err = launch_scan<2, int8_t, int8_t>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
+    else if (dtype == 3)
+        err = launch_scan<3, __nv_bfloat16, int8_t>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else
         return (int)cudaErrorInvalidValue;
     if (err != cudaSuccess) return (int)err;

@@ -26,7 +26,8 @@ import torch
 from ..ops.topk import merge_topk, stable_topk
 from .base import next_pow2
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32,
+           "uint8": torch.uint8}
 
 
 def is_device_array(x) -> bool:
@@ -123,6 +124,16 @@ class ChunkStore:
         self._chunks = []
         self._n = 0
         self._cache = None
+
+    def drain(self):
+        """Yield the chunks in order, dropping each from the store as it
+        is taken (a consumer that copies them elsewhere holds at most one
+        extra chunk); the store is empty afterwards."""
+        self._cache = None
+        while self._chunks:
+            chunk = self._chunks.pop(0)
+            self._n -= int(chunk.shape[0])
+            yield chunk
 
     def consolidated(self, dtype=None):
         """One tensor holding every appended row, in `dtype` when given."""
@@ -232,13 +243,15 @@ class GrowTail:
 # -- tail search merge ----------------------------------------------------------------
 
 
-def tail_scores(tail: GrowTail, centroids, c_sq, queries, nprobe: int):
+def tail_scores(tail: GrowTail, centroids, c_sq, queries, nprobe: int,
+                vec_field: str = "vecs"):
     """(b, cap) exact tail distances, +inf where the row is invalid or its
     assigned list is NOT probed by that query — the rows a fresh build's
     scan would have seen. The probes repeat the kernel route's formula
     with the q_sq term, UNCLAMPED: q_sq + c_sq - 2 q.c, ties to the lowest
-    list."""
-    vecs = tail["vecs"].to(torch.float32)
+    list. vec_field names the tail's row field (IVF-PQ scores its ADC
+    reconstructions, "recon")."""
+    vecs = tail[vec_field].to(torch.float32)
     nlist = centroids.shape[0]
     b = queries.shape[0]
     q32 = queries.to(torch.float32)

@@ -254,7 +254,9 @@ class FlatIndex:
         """Full exact ranking, left ON DEVICE: (dists, ids_i32, n)."""
         query = np.ascontiguousarray(query, dtype=np.float32).reshape(self.dim)
         vecs, ids, valid = self._staged()[:3]
-        dists, out_ids = ranked_program(vecs, ids, valid, torch.from_numpy(query).to(self.device))
+        # The store is sorted by id with its padding last (_coerce_sorted).
+        dists, out_ids = ranked_program(vecs, ids, valid, torch.from_numpy(query).to(self.device),
+                                        in_id_order=True)
         return dists, out_ids, self.ntotal
 
     def ranked_many_device(self, queries: np.ndarray):
@@ -264,7 +266,7 @@ class FlatIndex:
             np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim)
         ).to(self.device)
         vecs, ids, valid = self._staged()[:3]
-        dists, out_ids = ranked_many_program(vecs, ids, valid, q)
+        dists, out_ids = ranked_many_program(vecs, ids, valid, q, in_id_order=True)
         return dists, out_ids, self.ntotal
 
     def ranked_all(self, query: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

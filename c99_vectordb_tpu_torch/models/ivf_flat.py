@@ -734,8 +734,9 @@ class IVFFlatIndex:
     def _ranked_staged(self):
         """(vecs, ids, valid) for the full ranking, cached until the next
         add/train. An f32 bucketed store with an empty tail is reused flat
-        as (nlist * pad, D) (row order is irrelevant: the ranking sorts by
-        (distance, id)); otherwise a pow2-padded f32 copy is built once."""
+        as (nlist * pad, D) (its rows are in list order, so the ranking puts
+        them in id order before sorting by distance); otherwise a
+        pow2-padded f32 copy is built once."""
         if self._ranked_cache is not None:
             return self._ranked_cache
         tail_empty = not (self._tail and self._tail.count)

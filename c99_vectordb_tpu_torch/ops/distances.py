@@ -39,24 +39,37 @@ def scores_via_matmul(
     return torch.clamp_min(q_sq + db_sq_norms[None, :] - 2.0 * ip, 0.0)
 
 
+def sort_by_dist_id(dists: torch.Tensor, tie_ids: torch.Tensor, in_id_order: bool):
+    """Sort rows of `dists` ((cap,) or (B, cap)) ascending by (distance,
+    tie id); tie_ids is (cap,), INT32_MAX on padding rows. Rows not in id
+    order (an inverted-list canvas, a positional refine store) are put in
+    id order first; then a STABLE sort on distance gives the (distance, id)
+    order. in_id_order=True (the flat store, whose padding comes last)
+    skips that step. Returns (sorted dists, their tie ids)."""
+    if not in_id_order:
+        by_id = torch.argsort(tie_ids, stable=True)
+        dists, tie_ids = dists[..., by_id], tie_ids[by_id]
+    sorted_d, order = torch.sort(dists, dim=-1, stable=True)
+    return sorted_d, tie_ids[order]
+
+
 def ranked_program(
-    db: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, query: torch.Tensor
+    db: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, query: torch.Tensor,
+    *, in_id_order: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full ranking of one query against a padded DB.
 
     Returns (distances, ids), each (cap,), ascending by (distance, id);
-    padding rows sort last at (+inf, int32 max). A STABLE sort on distance
-    alone gives the (distance, id) order because the flat store keeps its
-    rows ascending by id with the padding rows at the end."""
+    padding rows sort last at (+inf, int32 max). in_id_order: the caller's
+    rows are ascending by id with the padding last (sort_by_dist_id)."""
     dists = pairwise_sq_l2(query[None, :], db)[0]
     dists = torch.where(valid, dists, torch.inf)
-    tie_ids = torch.where(valid, ids, INT32_MAX)
-    order = torch.argsort(dists, stable=True)
-    return dists[order], tie_ids[order]
+    return sort_by_dist_id(dists, torch.where(valid, ids, INT32_MAX), in_id_order)
 
 
 def ranked_many_program(
-    db: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor
+    db: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
+    *, in_id_order: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full ranking for a batch of queries: (distances, ids), each (B, cap).
 
@@ -74,7 +87,6 @@ def ranked_many_program(
         qs = queries[s0 : s0 + chunk]
         dists = torch.stack([pairwise_sq_l2(q[None, :], db)[0] for q in qs])
         dists = torch.where(valid[None, :], dists, torch.inf)
-        sorted_d, order = torch.sort(dists, dim=1, stable=True)
-        out_d[s0 : s0 + chunk] = sorted_d
-        out_i[s0 : s0 + chunk] = tie_ids[order]
+        out_d[s0 : s0 + chunk], out_i[s0 : s0 + chunk] = sort_by_dist_id(
+            dists, tie_ids, in_id_order)
     return out_d, out_i

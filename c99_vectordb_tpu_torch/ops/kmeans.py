@@ -1,7 +1,8 @@
 """k-means (batched Lloyd's) — the IVF coarse quantizer trainer (plain torch).
 
 Counterpart of the JAX package's ops/kmeans.py (`train_kmeans`,
-`assign_clusters`). Assignment is one matmul per data chunk (distance =
+`assign_clusters`, and the PQ subspace trainers `train_kmeans_multi`,
+`assign_clusters_multi`). Assignment is one matmul per data chunk (distance =
 ||c||^2 - 2 x.c, argmin over centroids, ties to the lowest centroid); the
 update sums each cluster's rows and divides by its count; empty clusters
 keep their previous centroid. Chunking bounds the (chunk, k) distance
@@ -20,7 +21,14 @@ JAX package draws that permutation with jax.random; here a torch.Generator
 seeded from `seed` draws it, so the two packages pick different seeds
 from the same subsample.
 
-The `*_multi` trainers of the PQ subspaces are not ported yet.
+The `*_multi` trainers run m independent k-means at once (the PQ
+subspaces): the JAX package's vmap becomes an explicit leading m
+dimension, one `bmm` per chunk for the distances and one for the one-hot
+update, so they are as deterministic as the single trainer. Their seeding
+is the same farthest-first traversal per subspace over the same strided
+subsample; the JAX package pads that sample to a multiple of 8 and masks
+the padding out of the mean and the picks, which gives the same seeds as
+the unpadded sample used here.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ from ..utils.runtime import resolve_device
 # Rows per update chunk on the card: the (chunk, k) one-hot block and the
 # distance block stay ~1 GB at k = 4096.
 _DEVICE_CHUNK = 65_536
+# Bytes of one (m, chunk, k) distance block of the multi trainers on the
+# card.
+_MULTI_BLOCK_BYTES = 256 << 20
 
 
 def _as_f32(data, device) -> torch.Tensor:
@@ -148,4 +159,105 @@ def assign_clusters(data, centroids, *, chunk: int = 2048, out_device: bool = Fa
     out = torch.cat([
         _assign_chunk(data[s0 : s0 + step], cents, c_sq) for s0 in range(0, n, step)
     ]).to(torch.int32)
+    return out if out_device else out.cpu().numpy()
+
+
+# -- the PQ subspace trainers ------------------------------------------------------
+
+
+def _as_f32_multi(data, device) -> torch.Tensor:
+    """(m, N, d) float32 tensor; numpy goes to `device`."""
+    if isinstance(data, torch.Tensor):
+        return data.to(torch.float32)
+    data = np.ascontiguousarray(data, dtype=np.float32)
+    return torch.from_numpy(data if data.flags.writeable else data.copy()).to(device)
+
+
+def _multi_rows(chunk: int, m: int, k: int, device: torch.device) -> int:
+    if device.type != "cuda":
+        return chunk
+    return max(chunk, _MULTI_BLOCK_BYTES // max(m * k * 4, 1))
+
+
+def _assign_multi_chunk(block, cents, c_sq):
+    """(m, c, d) x (m, k, d) -> (m, c) int64 nearest centroid per subspace."""
+    ip = torch.bmm(block, cents.transpose(1, 2))
+    return torch.argmin(c_sq[:, None, :] - 2.0 * ip, dim=2)
+
+
+def _lloyd_multi(data: torch.Tensor, init: torch.Tensor, iters: int, chunk: int) -> torch.Tensor:
+    m, n, dim = data.shape
+    k = init.shape[1]
+    step = _multi_rows(chunk, m, k, data.device)
+    cluster = torch.arange(k, device=data.device)
+    cents = init.clone()
+    for _ in range(iters):
+        c_sq = (cents * cents).sum(dim=2)
+        sums = torch.zeros((m, k, dim), dtype=torch.float32, device=data.device)
+        counts = torch.zeros((m, k), dtype=torch.float32, device=data.device)
+        for s0 in range(0, n, step):
+            block = data[:, s0 : s0 + step]
+            assign = _assign_multi_chunk(block, cents, c_sq)
+            onehot = (assign[:, :, None] == cluster).to(torch.float32)
+            sums += torch.bmm(onehot.transpose(1, 2), block)
+            counts += onehot.sum(dim=1)
+        fresh = sums / torch.clamp_min(counts, 1.0)[:, :, None]
+        cents = torch.where((counts > 0.0)[:, :, None], fresh, cents)
+    return cents
+
+
+def _maximin_multi(data: torch.Tensor, k: int) -> torch.Tensor:
+    """_maximin on each of the m subspaces of (m, n, d) data at once."""
+    m, n, dim = data.shape
+    sub = torch.arange(m, device=data.device)
+    mean = data.sum(dim=1) / max(n, 1)
+    first = torch.argmax(((data - mean[:, None, :]) ** 2).sum(dim=2), dim=1)
+    cents = torch.zeros((m, k, dim), dtype=torch.float32, device=data.device)
+    cents[:, 0] = data[sub, first]
+    min_d = ((data - data[sub, first][:, None, :]) ** 2).sum(dim=2)
+    for i in range(1, k):
+        chosen = data[sub, torch.argmax(min_d, dim=1)]
+        cents[:, i] = chosen
+        min_d = torch.minimum(min_d, ((data - chosen[:, None, :]) ** 2).sum(dim=2))
+    return cents
+
+
+def train_kmeans_multi(data_subs, k: int, *, iters: int = 10, seed: int = 0, chunk: int = 2048,
+                       out_device: bool = False, device=None):
+    """Train m codebooks of k centroids each on (m, N, dsub) data (numpy, or
+    a tensor on its own device); returns (m, k, dsub) float32, numpy or (with
+    out_device=True) a tensor. Seeding: farthest-first traversal per
+    subspace over a strided subsample."""
+    dev = data_subs.device if isinstance(data_subs, torch.Tensor) else resolve_device(device)
+    data = _as_f32_multi(data_subs, dev)
+    m, n, _ = data.shape
+    if n < k:
+        raise ValueError(f"need at least k={k} training points, got {n}")
+    sample_cap = max(k * 16, 16384)
+    stride = max(1, n // sample_cap)
+    sample = data[:, (seed % stride) :: stride][:, : max(k, sample_cap)]
+    out = _lloyd_multi(data, _maximin_multi(sample, k), iters, min(chunk, n))
+    return out if out_device else out.cpu().numpy()
+
+
+def assign_clusters_multi(data_subs, codebooks, *, chunk: int = 2048, out_device: bool = False,
+                          device=None):
+    """(m, N, dsub) x (m, k, dsub) -> (m, N) int32 assignments (numpy, or a
+    tensor on the data's device when out_device=True)."""
+    if isinstance(data_subs, torch.Tensor):
+        dev = data_subs.device
+    elif isinstance(codebooks, torch.Tensor):
+        dev = codebooks.device
+    else:
+        dev = resolve_device(device)
+    data = _as_f32_multi(data_subs, dev)
+    m, n, _ = data.shape
+    if n == 0:
+        empty = torch.zeros((m, 0), dtype=torch.int32, device=dev)
+        return empty if out_device else empty.cpu().numpy()
+    books = _as_f32_multi(codebooks, dev).to(dev)
+    c_sq = (books * books).sum(dim=2)
+    step = _multi_rows(min(chunk, n), m, books.shape[1], dev)
+    out = torch.cat([_assign_multi_chunk(data[:, s0 : s0 + step], books, c_sq)
+                     for s0 in range(0, n, step)], dim=1).to(torch.int32)
     return out if out_device else out.cpu().numpy()

@@ -9,14 +9,16 @@ with ctypes.
 Layers:
   - `fused_l2_topk(q_staged, db, norms, k, rs)`: the kernel wrapper. It
     selects, per query, the k smallest keys norms[row] + q_staged . x_row
-    (int8: float(ip) * rs + norms) by (key, position), and returns
+    (int8 queries: float(ip) * rs + norms) by (key, position), and returns
     (keys (B, k) f32, positions (B, k) int32) with (inf, INT32_MAX) in
-    unfilled slots. A CUDA tensor launches the kernel (or raises); a CPU
+    unfilled slots. Modes: f32, bf16 and int8 stores with queries of the
+    same type, and int8 codes with bf16 queries (the codes decode to bf16,
+    exactly). A CUDA tensor launches the kernel (or raises); a CPU
     tensor takes the plain version `select_plain`. `fused_l2_topk.launches`
-    counts kernel launches.
-  - `fused_topk(db, ids, sq_norms, queries, k)`: the JAX package's
-    `fused_topk` contract: query staging, the selection above, and the
-    epilogue (+ ||q||^2, clamp at 0, positions -> ids).
+    counts kernel launches, `fused_l2_topk.launches_by_mode` by mode.
+  - `fused_topk(db, ids, sq_norms, queries, k, q_int8=None)`: the JAX
+    package's `fused_topk` contract: query staging, the selection above,
+    and the epilogue (+ ||q||^2, clamp at 0, positions -> ids).
   - `fused_topk_reference`: the same contract with the plain selection on
     any device; the tests and chip_smoke.py hold the kernel against it.
 """
@@ -32,12 +34,18 @@ from . import cuda_build
 from .distances import INT32_MAX
 from .topk import stable_topk
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# (store dtype, query dtype) -> the kernel's mode code and name.
+_MODES = {
+    (torch.float32, torch.float32): (0, "float32"),
+    (torch.bfloat16, torch.bfloat16): (1, "bfloat16"),
+    (torch.int8, torch.int8): (2, "int8"),
+    (torch.int8, torch.bfloat16): (3, "int8_bf16q"),
+}
 
 
 def _load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 2, {
+    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 3, {
         "fused_l2_topk": ([ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp], ci),
         "fused_l2_topk_splits": ([ci, ci, ci], ci),
     })
@@ -53,15 +61,16 @@ def _sm_count(device_index: int) -> int:
 
 def select_plain(q_staged, db, norms, k: int, rs=None):
     """Plain torch version of the kernel's selection: same key arithmetic
-    (f32 accumulation; int8 as an exact f32 product of integers), top-k by
-    (key, position) with +inf keys never entering."""
+    (f32 accumulation; int8 queries as an exact f32 product of integers),
+    top-k by (key, position) with +inf keys never entering."""
     n, d = db.shape
+    int8_q = q_staged.dtype == torch.int8
     # For int8 there is no int32 matmul on CUDA: the f32 product of int8
     # values is exact while every partial sum stays below 2**24.
-    if db.dtype == torch.int8 and 127 * 127 * d >= (1 << 24):
+    if int8_q and 127 * 127 * d >= (1 << 24):
         raise ValueError(f"int8 dot not exact in f32 at D={d}")
     ip = q_staged.to(torch.float32) @ db.to(torch.float32).T
-    if db.dtype == torch.int8:
+    if int8_q:
         keys = ip * rs[:, None] + norms[None, :]
     else:
         keys = norms[None, :] + ip
@@ -77,29 +86,29 @@ def select_plain(q_staged, db, norms, k: int, rs=None):
 def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
     """Top-k selection on key = norms + q_staged . x (see the module doc).
 
-    q_staged (B, D) and db (N, D) in the store dtype (f32, bf16 or int8);
-    norms (N,) f32; rs (B,) f32 for int8 stores. Returns (keys (B, k) f32,
-    positions (B, k) int32)."""
+    q_staged (B, D) and db (N, D) in the store dtype (f32, bf16 or int8),
+    or bf16 queries against an int8 store; norms (N,) f32; rs (B,) f32 for
+    int8 queries. Returns (keys (B, k) f32, positions (B, k) int32)."""
     if db.device.type == "cpu":
         return select_plain(q_staged, db, norms, k, rs)
     if db.device.type != "cuda":
         raise ValueError(f"fused_l2_topk: unsupported device {db.device}")
     b, d = q_staged.shape
     n = db.shape[0]
-    if db.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_l2_topk: unsupported store dtype {db.dtype}")
-    if q_staged.dtype != db.dtype:
-        raise TypeError(f"queries {q_staged.dtype} must match the store {db.dtype}")
+    mode = _MODES.get((db.dtype, q_staged.dtype))
+    if mode is None:
+        raise TypeError(f"fused_l2_topk: unsupported store/query dtypes {db.dtype}/"
+                        f"{q_staged.dtype}")
     if db.ndim != 2 or db.shape[1] != d or norms.shape != (n,):
         raise ValueError("fused_l2_topk: shapes must be q (B, D), db (N, D), norms (N,)")
     if norms.dtype != torch.float32:
         raise TypeError("fused_l2_topk: norms must be float32")
-    is_int8 = db.dtype == torch.int8
+    is_int8 = q_staged.dtype == torch.int8
     if is_int8:
         if rs is None or rs.shape != (b,) or rs.dtype != torch.float32:
-            raise ValueError("fused_l2_topk: int8 stores need rs (B,) float32")
+            raise ValueError("fused_l2_topk: int8 queries need rs (B,) float32")
         if d % 4 != 0:
-            raise ValueError(f"fused_l2_topk: int8 stores need D % 4 == 0 (D={d})")
+            raise ValueError(f"fused_l2_topk: int8 queries need D % 4 == 0 (D={d})")
     tensors = [q_staged, db, norms] + ([rs] if is_int8 else [])
     for t in tensors:
         if t.device != db.device:
@@ -120,7 +129,7 @@ def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
     with torch.cuda.device(db.device):
         stream = torch.cuda.current_stream(db.device).cuda_stream
         err = lib.fused_l2_topk(
-            _DTYPE_CODE[db.dtype], q_staged.data_ptr(), db.data_ptr(), norms.data_ptr(),
+            mode[0], q_staged.data_ptr(), db.data_ptr(), norms.data_ptr(),
             rs.data_ptr() if is_int8 else None, b, n, d, k, splits,
             part_k.data_ptr(), part_p.data_ptr(), out_k.data_ptr(), out_p.data_ptr(),
             stream,
@@ -128,21 +137,26 @@ def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
     if err != 0:
         raise RuntimeError(f"fused_l2_topk launch failed: CUDA error {err}")
     fused_l2_topk.launches += 1
+    fused_l2_topk.launches_by_mode[mode[1]] += 1
     return out_k, out_p
 
 
 fused_l2_topk.launches = 0
+fused_l2_topk.launches_by_mode = dict.fromkeys((name for _, name in _MODES.values()), 0)
 
 
 # -- the fused_topk contract --------------------------------------------------
 
 
-def stage_queries(queries, db_dtype):
+def stage_queries(queries, db_dtype, q_int8: bool | None = None):
     """Stage queries for the scan: x -2 (a lossless exponent shift) in the
     store dtype, or for int8 stores quantised per row with scale rs:
-    rs = max(max|q * -2|, 1e-30) / 127, q8 = clip(rint(q * -2 / rs), +-127).
+    rs = max(max|q * -2|, 1e-30) / 127, q8 = clip(rint(q * -2 / rs), +-127);
+    with q_int8=False an int8 store takes bf16 queries instead (None: int8).
     Returns (q_staged, rs or None)."""
     q_m2 = queries.to(torch.float32) * -2.0
+    if db_dtype == torch.int8 and q_int8 is False:
+        return q_m2.to(torch.bfloat16).contiguous(), None
     if db_dtype == torch.int8:
         rs = torch.clamp_min(q_m2.abs().amax(dim=1), 1e-30) / 127.0
         q8 = torch.clamp(torch.round(q_m2 / rs[:, None]), -127, 127).to(torch.int8)
@@ -170,26 +184,30 @@ def _check_k(k: int, n: int) -> None:
         raise ValueError("the store is empty")
 
 
-def fused_topk(db, ids, sq_norms, queries, k: int, *, return_rows: bool = False):
+def fused_topk(db, ids, sq_norms, queries, k: int, *, q_int8: bool | None = None,
+               return_rows: bool = False):
     """Exact batched top-k through the kernel.
 
     db: (N, D) f32/bf16/int8 rows ascending by id; ids: (N,) int32 with -1
     on padding rows; sq_norms: (N,) f32 with +inf on padding (and masked)
     rows; queries: (B, D), with the SQ8 scale already folded in for int8
-    stores. Returns ascending (distances (B, k), ids (B, k)) with (inf, -1)
-    in empty slots, and with return_rows=True the (B, k) int32 store rows
+    stores. q_int8 (int8 stores): None or True quantises the queries to
+    int8, False scores bf16 queries against the codes decoded to bf16.
+    Returns ascending (distances (B, k), ids (B, k)) with (inf, -1) in
+    empty slots, and with return_rows=True the (B, k) int32 store rows
     (clamped; meaningless where id == -1)."""
     n = db.shape[0]
     _check_k(k, n)
-    q_staged, rs = stage_queries(queries, db.dtype)
+    q_staged, rs = stage_queries(queries, db.dtype, q_int8)
     keys, pos = fused_l2_topk(q_staged, db, sq_norms, k, rs)
     return _epilogue(keys, pos, queries, ids, n, return_rows)
 
 
-def fused_topk_reference(db, ids, sq_norms, queries, k: int, *, return_rows: bool = False):
+def fused_topk_reference(db, ids, sq_norms, queries, k: int, *, q_int8: bool | None = None,
+                         return_rows: bool = False):
     """fused_topk with the plain torch selection, on any device."""
     n = db.shape[0]
     _check_k(k, n)
-    q_staged, rs = stage_queries(queries, db.dtype)
+    q_staged, rs = stage_queries(queries, db.dtype, q_int8)
     keys, pos = select_plain(q_staged, db, sq_norms, k, rs)
     return _epilogue(keys, pos, queries, ids, n, return_rows)

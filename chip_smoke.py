@@ -4,16 +4,19 @@
     python3 chip_smoke.py [--seed 1234]    # on CUDA device 0
 
 Phases (any failure raises and exits non-zero; none is caught):
-  1. build       nvcc builds csrc/fused_l2_topk.cu and csrc/ivf_scan.cu, in
-                 parallel, into c99_vectordb_tpu_torch/_build/.
+  1. build       nvcc builds csrc/fused_l2_topk.cu, csrc/ivf_scan.cu and
+                 csrc/adc_scan.cu, in parallel, into
+                 c99_vectordb_tpu_torch/_build/.
   2. kernel      fused_l2_topk against its plain torch version on the card,
-                 for the f32, bf16 and int8 stores at N=1,048,576 x D=384, B in
-                 {128, 1024, 100}, k=20, plus fixtures (duplicate rows, +inf
-                 padding and masked norms, k above the live rows, deep k).
+                 for the f32, bf16 and int8 stores (and int8 codes with bf16
+                 queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
+                 1024, 100}, k=20, plus fixtures (duplicate rows, +inf padding
+                 and masked norms, k above the live rows, deep k).
   3. flat        FlatIndex on 1,000,000 seeded clustered unit vectors (D=384),
                  each scan dtype, B=128, k=10: strict recall@10 = 1.0 against a
                  float64 (distance, id) ground truth, unfiltered and with a 10%
-                 id_mask.
+                 id_mask; the int8 store also through fused_topk(q_int8=False)
+                 and the exact rerank.
   4. memodb      MemoDB on 100,000 seeded synthetic notes: save_many,
                  recall_many (with and without a pushed-down filter),
                  recall(pushdown=True), delete, reindex — each step held
@@ -28,15 +31,29 @@ Phases (any failure raises and exits non-zero; none is caught):
                  same route on the plain versions; f32 select = dense bit for
                  bit; recall@10 (informative); a 10,000-row tail add,
                  remove_ids and the fold-restage, held the same way.
-  6. memodb_ivf  MemoDB with C99VDB_INDEX=ivf_flat at 100,000 notes (save_many
+  6. ivf_pq      IVFPQIndex on the same 1M corpus, device mode, nlist 4096,
+                 m=96, ksub=256, f32 refine store, refine_factor 20: B=128,
+                 nprobe 16, k=10 (shortlist 200: select kernel), k=20 (400:
+                 dense kernel, 8 queries per block), B=100 k=20 (dense, 1 per
+                 block), each also with the 10% id_mask; a ksub=16
+                 nibble-packed index with a bf16 refine store on both
+                 kernels; a refine=False index (pure ADC, select, with
+                 duplicate rows); a 10,000-row tail add, remove_ids and the
+                 restage. Every route equals the same route on the plain
+                 versions bit for bit; recall@10 is informative.
+  7. memodb_ivf  MemoDB with C99VDB_INDEX=ivf_flat at 100,000 notes (save_many
                  in host mode at nlist 64, reindex in device mode at
                  auto_nlist), each step against MemoDB(device="cpu") on the
                  card's files; queries whose card and CPU routes probe
                  different lists are counted (<= 1%) and skipped.
-  7. times       every kernel, its plain version and a library yardstick
+  8. memodb_ivf_pq  MemoDB with C99VDB_INDEX=ivf_pq at 100,000 notes, as
+                 phase 7; queries whose card and CPU routes probe different
+                 lists or shortlist different ids are counted (<= 1%) and
+                 skipped.
+  9. times       every kernel, its plain version and a library yardstick
                  (never used by the port) beside the bound, on the paths' own
-                 operands; each IVF kernel is first held against its plain
-                 version on them.
+                 operands; each IVF and ADC kernel is first held against its
+                 plain version on them.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -61,13 +78,15 @@ from c99_vectordb_tpu_torch.api import MemoDB
 from c99_vectordb_tpu_torch.commands import auto_nlist
 from c99_vectordb_tpu_torch.models.flat import FlatIndex
 from c99_vectordb_tpu_torch.models.ivf_flat import DENSE_MAX_BF16, DENSE_MAX_F32, IVFFlatIndex
-from c99_vectordb_tpu_torch.ops import cuda_build, ivf_scan, ivf_scan_cuda
+from c99_vectordb_tpu_torch.models.ivf_pq import LANE_K, IVFPQIndex
+from c99_vectordb_tpu_torch.ops import adc as adc_mod
+from c99_vectordb_tpu_torch.ops import adc_cuda, cuda_build, ivf_scan, ivf_scan_cuda
 from c99_vectordb_tpu_torch.ops import topk as topk_mod
 from c99_vectordb_tpu_torch.ops import topk_cuda
 from c99_vectordb_tpu_torch.ops.distances import scores_via_matmul
 from c99_vectordb_tpu_torch.ops.embed import embed_texts, embed_texts_device
 from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
-from c99_vectordb_tpu_torch.ops.rerank import shortlist_depth
+from c99_vectordb_tpu_torch.ops.rerank import exact_rerank_rows, shortlist_depth
 from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 # Published H100 SXM figures (NVIDIA data sheet): bytes/s and dense
@@ -144,7 +163,7 @@ def check_selection(q_st, db, norms, k, rs, exact: bool, label: str):
     return max_err
 
 
-def phase_kernel(device, n, d, batches, k, seed):
+def phase_kernel(device, n, d, batches, k, seed, max_err_bf16q):
     max_err = 0.0
     for dt in ("float32", "bfloat16", "int8"):
         made = make_store(n, d, dt, device, seed)
@@ -160,6 +179,13 @@ def phase_kernel(device, n, d, batches, k, seed):
             max_err = max(max_err, err)
             log(f"kernel {dt:8s} N={n} D={d} B={b:5d} k={k}: agrees with plain "
                 f"(max |key diff| {err:.3e})")
+            if dt == "int8":
+                q_st, _ = topk_cuda.stage_queries(q, db.dtype, q_int8=False)
+                err = check_selection(q_st, db, norms, k, None, exact=False,
+                                      label=f"int8 bf16 queries B={b}")
+                max_err_bf16q[0] = max(max_err_bf16q[0], err)
+                log(f"kernel int8 codes, bf16 queries (q_int8=False) N={n} D={d} B={b:5d} "
+                    f"k={k}: agrees with plain (max |key diff| {err:.3e})")
         del db, norms, made
     return max_err
 
@@ -274,6 +300,21 @@ def phase_flat(device, n, d, seed, card):
             f"B=128 search {t_search * 1e3:.2f} ms host clock, kernel launches {launched} "
             f"[{card}]")
         out[dt] = t_search
+        if dt == "int8":
+            # The same SQ8 store through fused_topk(q_int8=False): bf16
+            # queries against the codes decoded to bf16, then the exact rerank.
+            vecs, ids_t, _, _, _, codes, dec_norms, scale = index._staged()
+            qd = torch.from_numpy(q).to(device)
+            _, si, rows = topk_cuda.fused_topk(codes, ids_t, dec_norms, qd * scale, 20,
+                                               q_int8=False, return_rows=True)
+            bd, bi = exact_rerank_rows(vecs, rows, si, qd, 10)
+            rec = recall_at(bi.cpu().numpy(), gt_i)
+            assert rec == 1.0, f"flat int8 q_int8=False: recall@10 {rec}"
+            assert np.abs(bd.cpu().numpy() - gt_d).max() <= 1e-5
+            q_st, _ = topk_cuda.stage_queries(qd * scale, codes.dtype, q_int8=False)
+            out["bf16q_inputs"] = (q_st, codes, dec_norms, 20, None)
+            log("flat int8 through fused_topk(q_int8=False) + exact rerank: strict recall@10 "
+                "= 1.0")
         del index
         torch.cuda.empty_cache()
     return out, (x, q, mask, gt_i, gtm_i)
@@ -425,10 +466,14 @@ def time_ms(fn, iters):
 
 
 def bound(n, d, b, k, dt):
-    item = {"float32": 4, "bfloat16": 2, "int8": 1}[dt]
-    nbytes = n * d * item + n * 4 + b * d * item + b * k * 8 + (b * 4 if dt == "int8" else 0)
+    """dt: the store dtype, or "int8_bf16q" for int8 codes scored (decoded to
+    bf16) against bf16 queries, at the bf16 rate."""
+    item = {"float32": 4, "bfloat16": 2, "int8": 1, "int8_bf16q": 1}[dt]
+    q_item = 2 if dt == "int8_bf16q" else item
+    nbytes = n * d * item + n * 4 + b * d * q_item + b * k * 8 + (b * 4 if dt == "int8" else 0)
     ops = 2 * b * n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt]
+    peak = PEAK_OPS_PER_S["bfloat16" if dt == "int8_bf16q" else dt]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -439,6 +484,9 @@ def library_call(q_st, db, norms, k, rs, dt):
         return lambda: torch.topk(torch.addmm(norms, q_st, db.T), k, largest=False)
     if dt == "bfloat16":
         return lambda: torch.topk(torch.matmul(q_st, db.T) + norms, k, largest=False)
+    if dt == "int8_bf16q":
+        return lambda: torch.topk(torch.matmul(q_st, db.to(torch.bfloat16).T) + norms, k,
+                                  largest=False)
     return lambda: torch.topk(torch._int_mm(q_st, db.T).float() * rs[:, None] + norms,
                               k, largest=False)
 
@@ -449,6 +497,8 @@ def time_case(q_st, db, norms, k, rs, card):
     n, d = db.shape
     b = q_st.shape[0]
     dt = str(db.dtype).removeprefix("torch.")
+    if q_st.dtype == torch.bfloat16 and db.dtype == torch.int8:
+        dt = "int8_bf16q"
     iters = 20 if b <= 128 else 5
     saved = topk_cuda.fused_l2_topk.launches
     ms = time_ms(lambda: topk_cuda.fused_l2_topk(q_st, db, norms, k, rs), iters)
@@ -493,8 +543,13 @@ def ivf_counts() -> dict:
 
 def reset_counts() -> None:
     topk_cuda.fused_l2_topk.launches = 0
+    for mode in topk_cuda.fused_l2_topk.launches_by_mode:
+        topk_cuda.fused_l2_topk.launches_by_mode[mode] = 0
     for name in IVF_KERNELS:
         getattr(ivf_scan_cuda, name).launches = 0
+    adc_cuda.adc_scan_select.launches = 0
+    adc_cuda.adc_scan_dense.launches = 0
+    adc_cuda.adc_scan_dense.launches_by_qpb.clear()
 
 
 class plain_kernels:
@@ -919,14 +974,392 @@ def check_ivf_kernel(ops, kernel, k, label):
                         ki.cpu().numpy(), label)
 
 
+# -- IVF-PQ: helpers ----------------------------------------------------------------
+
+
+ADC_COUNTS = ("adc_scan_select", "adc_scan_dense[qpb=8]", "adc_scan_dense[qpb=1]")
+# Published H100 SXM figures for the ADC lookups: 132 SMs, each serving 32
+# four-byte shared-memory reads per clock, at the 1.98 GHz boost clock.
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+
+
+def adc_counts() -> dict:
+    by_qpb = adc_cuda.adc_scan_dense.launches_by_qpb
+    return {"adc_scan_select": adc_cuda.adc_scan_select.launches,
+            "adc_scan_dense[qpb=8]": by_qpb.get(8, 0), "adc_scan_dense[qpb=1]": by_qpb.get(1, 0)}
+
+
+class plain_adc:
+    """Run the ADC programs on the plain versions of the kernels (on the
+    same device): for holding a whole route against itself."""
+
+    def __enter__(self):
+        self.saved = (adc_mod.adc_scan_select, adc_mod.adc_scan_dense)
+        adc_mod.adc_scan_select = (
+            lambda *a, packed: adc_mod.adc_select_plain(*a, packed=packed))
+        adc_mod.adc_scan_dense = (
+            lambda *a, packed, qpb=1: adc_mod.adc_dense_plain(*a, packed=packed))
+        return self
+
+    def __exit__(self, *exc):
+        adc_mod.adc_scan_select, adc_mod.adc_scan_dense = self.saved
+
+
+def check_route_pq(index, q, k, label, **kw):
+    """The index's card route on the kernels against the same route on the
+    plain versions: bit for bit. Returns ((dists, ids), seconds, the ADC
+    counts the route raised)."""
+    before = adc_counts()
+    (kd, ki), secs = timed_search(index, q, k, **kw)
+    launched = [name for name, v in adc_counts().items() if v > before[name]]
+    with plain_adc():
+        pd, pi = index._search(q, k, card_route=True, **kw)
+    assert np.array_equal(kd, pd) and np.array_equal(ki, pi), f"{label}: not bit-equal"
+    return (kd, ki), secs, launched
+
+
+def adc_operands(index, q, qpb=None):
+    """The ADC kernel operands of an index's card route for queries q
+    (numpy): staged canvas, probes, coarse distances, QD tables."""
+    (cents, c_sq, books, _, li, canvas, ic, pad) = index._stage()
+    q_adc = index._rotate_device(torch.from_numpy(q).to(cents.device))
+    nprobe = min(index.nprobe, int(cents.shape[0]))
+    probes, pc, qd = adc_mod.adc_prologue(q_adc, cents, c_sq, books, nprobe)
+    return {"probes": probes, "pc": pc, "qd": qd, "codes": canvas, "const": ic, "ids": li,
+            "packed": adc_mod.packed_layout(int(books.shape[1]), index.m), "pad": pad,
+            "qpb": qpb}
+
+
+def adc_args(ops):
+    return (ops["probes"], ops["pc"], ops["qd"], ops["codes"], ops["const"], ops["ids"])
+
+
+def adc_calls(ops, kernel, k):
+    """(kernel call, plain call, library yardstick) on the same operands. The
+    yardstick gathers every probed slot's table entries with one
+    torch.gather and sums them (plus torch.topk for the select kernel); it
+    is timed only and never called by the port."""
+    args, packed = adc_args(ops), ops["packed"]
+    if kernel == "adc_scan_select":
+        kern = lambda: adc_cuda.adc_scan_select(*args, k, packed=packed)  # noqa: E731
+        plain = lambda: adc_mod.adc_select_plain(*args, k, packed=packed)  # noqa: E731
+    else:
+        kern = lambda: adc_cuda.adc_scan_dense(*args, packed=packed, qpb=ops["qpb"])  # noqa: E731
+        plain = lambda: adc_mod.adc_dense_plain(*args, packed=packed)  # noqa: E731
+    probes, pc, qd, codes, const, ids = args
+    b, nprobe = probes.shape
+    m, pad = qd.shape[1], ops["pad"]
+    flat = probes.long().reshape(-1)
+
+    def library():
+        c = codes[flat]
+        if packed:
+            c = torch.stack([c & 15, c >> 4], dim=2).reshape(c.shape[0], m, pad)
+        idx = c.long().reshape(b, nprobe, m, pad).permute(0, 2, 1, 3).reshape(b, m, -1)
+        qdot = torch.gather(qd, 2, idx).sum(dim=1)
+        d = (pc.repeat_interleave(pad, dim=1) - 2.0 * qdot) + const[flat].reshape(b, -1)
+        d = torch.where(ids[flat].reshape(b, -1) >= 0, torch.clamp_min(d, 0.0), torch.inf)
+        return torch.topk(d, k, largest=False) if kernel == "adc_scan_select" else d
+
+    return kern, plain, library
+
+
+def adc_bound(ops, kernel, k):
+    """Least time for the scan on this run's operands. Bytes: the codes of
+    the live rows (id >= 0) of the unique probed lists (m bytes each, m/2
+    packed), the constants and ids of all their slots, the QD tables, the
+    probes and coarse distances, the outputs. Work: m table lookups per live
+    row per (query, probe), at the card's shared-memory rate. Returns (ms,
+    what bounds it, unique lists, live share of their slots)."""
+    probes, qd = ops["probes"], ops["qd"]
+    b, nprobe = probes.shape
+    m, ksub = qd.shape[1], qd.shape[2]
+    pad = ops["pad"]
+    uniq_lists = torch.unique(probes).long()
+    uniq = int(uniq_lists.numel())
+    live_per_list = (ops["ids"] >= 0).sum(dim=1)
+    live = int(live_per_list[uniq_lists].sum())
+    live_pairs = int(live_per_list[probes.long()].sum())
+    code_bytes = m // 2 if ops["packed"] else m
+    out_cols = k if kernel == "adc_scan_select" else nprobe * pad
+    nbytes = (live * code_bytes + uniq * pad * 8 + b * m * ksub * 4 + b * nprobe * 8
+              + b * out_cols * 8)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, live_pairs * m / SMEM_LOOKUPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), uniq,
+            live / (uniq * pad))
+
+
+def check_adc_kernel(ops, kernel, k, label):
+    """Kernel against its plain version on one set of operands: bit for bit.
+    Returns max |diff| over finite distances (0.0 when equal)."""
+    kern, plain, _ = adc_calls(ops, kernel, k)
+    saved = adc_counts()
+    kd, ki = kern()
+    restore_adc_counts(saved)
+    pd, pi = plain()
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi), f"{label}: ids differ"
+    assert torch.equal(kd, pd), f"{label}: distances not bit-equal"
+    fin = torch.isfinite(pd)
+    return float((kd[fin] - pd[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def restore_adc_counts(saved):
+    """Put the counts back: launches made to compare or time a kernel are
+    not the path's."""
+    adc_cuda.adc_scan_select.launches = saved["adc_scan_select"]
+    by_qpb = adc_cuda.adc_scan_dense.launches_by_qpb
+    by_qpb[8], by_qpb[1] = saved["adc_scan_dense[qpb=8]"], saved["adc_scan_dense[qpb=1]"]
+    adc_cuda.adc_scan_dense.launches = sum(by_qpb.values())
+
+
+def time_adc(ops, kernel, k, label, card):
+    kern, plain, library = adc_calls(ops, kernel, k)
+    saved = adc_counts()
+    ms = time_ms(kern, 10)
+    restore_adc_counts(saved)
+    plain_ms = time_ms(plain, 3)
+    lib_ms = time_ms(library, 5)
+    bms, by, uniq, live_share = adc_bound(ops, kernel, k)
+    b, nprobe = ops["probes"].shape
+    shape = {"B": b, "nprobe": nprobe, "nlist": ops["codes"].shape[0], "pad": ops["pad"],
+             "m": ops["qd"].shape[1], "ksub": ops["qd"].shape[2], "packed": ops["packed"],
+             "unique_lists": uniq, "live_share": live_share}
+    if kernel == "adc_scan_select":
+        shape["k"] = k
+    else:
+        shape["qpb"] = ops["qpb"]
+    log(f"times {kernel} {label} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library yardstick {lib_ms:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+    return {"label": label, **shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def tie_pairs(dists):
+    """Adjacent exactly equal finite distances in the result rows."""
+    d = np.asarray(dists)
+    return int((np.isfinite(d[:, 1:]) & (d[:, 1:] == d[:, :-1])).sum())
+
+
+# -- phase ivf_pq: IVFPQIndex at 1M x 384 ------------------------------------------------
+
+
+def phase_ivf_pq(device, d, seed, card, corpus):
+    x, q, mask, gt_i, gtm_i = corpus
+    n = x.shape[0]
+    nlist = auto_nlist(n)
+    x_dev = torch.from_numpy(x).to(device)
+    ids_dev = torch.arange(n, dtype=torch.int32, device=device)
+    result = {"nlist": nlist, "routes": []}
+    operands = []
+    errs = {"adc_scan_select": 0.0, "adc_scan_dense": 0.0}
+
+    def run_routes(index, name, cases):
+        for label, qq, k, kw, gt in cases:
+            (gd, gi), secs, launched = check_route_pq(index, qq, k, f"{name} {label}", **kw)
+            rec = recall_at(gi, gt[: qq.shape[0]])
+            log(f"ivf_pq {name} {label}: kernels {launched}, equals the plain route bit for bit, "
+                f"recall@10 {rec:.4f}, exact-tie pairs {tie_pairs(gd)}, search "
+                f"{secs * 1e3:.2f} ms host clock [{card}]")
+            result["routes"].append({"index": name, "case": label, "kernels": launched,
+                                     "recall": rec, "search_ms": secs * 1e3})
+
+    def build(name, **kw):
+        index = IVFPQIndex(dim=d, nlist=nlist, nprobe=16, m=96, device=device, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.train(x_dev)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index.add(x_dev, ids_dev)
+        index.search(q[:1], 10)                                  # stage
+        torch.cuda.synchronize()
+        t_stage = time.perf_counter() - t0
+        st = index._staged
+        log(f"ivf_pq {name}: trained (k-means {nlist} lists + {index.m} codebooks of "
+            f"{index.ksub}) in {t_train:.2f} s, encoded and staged {n} rows in {t_stage:.2f} s, "
+            f"pad {st[7]}, canvas {tuple(st[5].shape)} {st[5].dtype} [{card}]")
+        result[name] = {"train_s": t_train, "stage_s": t_stage, "pad": st[7]}
+        return index
+
+    q100 = np.ascontiguousarray(q[:100])
+    idx = build("m96_ksub256", ksub=256, refine_factor=20)
+    run_routes(idx, "m96_ksub256", [
+        ("B=128 k=10 (shortlist 200, select)", q, 10, {}, gt_i),
+        ("B=128 k=20 (shortlist 400, dense qpb 8)", q, 20, {}, gt_i),
+        ("B=100 k=20 (dense qpb 1)", q100, 20, {}, gt_i),
+        ("B=128 k=10 10% id_mask", q, 10, {"id_mask": mask}, gtm_i),
+        ("B=128 k=20 10% id_mask", q, 20, {"id_mask": mask}, gtm_i),
+    ])
+    assert 20 * 20 > 2 * LANE_K >= 20 * 10
+    operands += [("ivf_pq m96 ksub256", "adc_scan_select", 200, adc_operands(idx, q)),
+                 ("ivf_pq m96 ksub256", "adc_scan_dense", None, adc_operands(idx, q, 8)),
+                 ("ivf_pq m96 ksub256 B=100", "adc_scan_dense", None,
+                  adc_operands(idx, q100, 1)),
+                 # qpb 1 on qpb 8's B=128 operands: the two block shapes timed
+                 # on the same work.
+                 ("ivf_pq m96 ksub256 B=128", "adc_scan_dense", None, adc_operands(idx, q, 1))]
+    # The pure-ADC index on the same quantizer, with 256 duplicated rows:
+    # duplicates tie exactly and keep their slot (probe) order.
+    pure = IVFPQIndex(dim=d, nlist=nlist, nprobe=16, m=96, refine=False, device=device)
+    pure._centroids, pure._codebooks = idx._centroids, idx._codebooks
+    dup_rows = torch.from_numpy(gt_i[:, :2].reshape(-1)).to(device).long()
+    pure.add(torch.cat([x_dev, x_dev[dup_rows]]),
+             torch.arange(n + dup_rows.numel(), dtype=torch.int32, device=device))
+    run_routes(pure, "pure_adc", [("B=128 k=10 (select, probe-order ties)", q, 10, {}, gt_i)])
+    del pure
+    # Tail, removal, restage on the first index.
+    extra, _, _ = clustered_corpus(10_000, d, seed + 5)
+    idx.add(torch.from_numpy(extra).to(device),
+            torch.arange(n, n + extra.shape[0], dtype=torch.int32, device=device))
+    assert idx._tail is not None and idx._tail.count == extra.shape[0]
+    run_routes(idx, "m96_ksub256", [("tail k=10", q, 10, {}, gt_i), ("tail k=20", q, 20, {}, gt_i)])
+    removed = idx.remove_ids(np.arange(0, n, 997))             # restages with the tail
+    assert removed == len(range(0, n, 997)) and idx._tail is None
+    run_routes(idx, "m96_ksub256", [("after remove + restage k=10", q, 10, {}, gt_i),
+                                    ("after remove + restage k=20", q, 20, {}, gt_i)])
+    del idx
+    torch.cuda.empty_cache()
+    idx16 = build("m96_ksub16_packed_bf16", ksub=16, refine_factor=20, refine_dtype="bfloat16")
+    run_routes(idx16, "m96_ksub16_packed_bf16", [
+        ("B=128 k=10 (select)", q, 10, {}, gt_i),
+        ("B=128 k=20 (dense qpb 8)", q, 20, {}, gt_i),
+        ("B=128 k=10 10% id_mask", q, 10, {"id_mask": mask}, gtm_i),
+    ])
+    operands += [("ivf_pq m96 ksub16 packed", "adc_scan_select", 200, adc_operands(idx16, q)),
+                 ("ivf_pq m96 ksub16 packed", "adc_scan_dense", None,
+                  adc_operands(idx16, q, 8))]
+    del idx16, x_dev
+    torch.cuda.empty_cache()
+    return result, operands
+
+
+# -- phase memodb_ivf_pq: MemoDB on IVFPQIndex at 100k notes --------------------------------
+
+
+def pq_keys(db, q_emb, k_adc, card):
+    """Per query: (probe set, ADC shortlist id set) of a MemoDB's index on its
+    own route (the card route through the plain versions, which equal the
+    kernels bit for bit and launch nothing)."""
+    index = db._index()
+    (cents, c_sq, books, lc, li, canvas, ic, _) = index._stage()
+    q = index._rotate_device(torch.from_numpy(q_emb).to(cents.device))
+    nprobe = min(index.nprobe, int(cents.shape[0]))
+    k_adc = min(k_adc, index.ntotal)
+    if card:
+        probes = adc_mod.adc_prologue(q, cents, c_sq, books, nprobe)[0]
+        search = adc_mod.adc_dense_search if k_adc > 2 * LANE_K else adc_mod.adc_full_search
+        with plain_adc():
+            _, ids = search(cents, c_sq, books, canvas, ic, li, q, nprobe, k_adc)
+    else:
+        _, probes = topk_mod.stable_topk(scores_via_matmul(q, cents, c_sq), nprobe)
+        if lc is None:
+            lc = adc_mod.unstage_codes_device(canvas, index.m, int(books.shape[1]))
+        _, ids = index._cpu_route(cents, c_sq, books, lc, li, q, nprobe, k_adc)
+    return [(frozenset(p.tolist()), frozenset(i[i >= 0].tolist()))
+            for p, i in zip(probes.cpu(), ids.cpu())]
+
+
+def phase_memodb_ivf_pq(device, n_records, seed, workdir, card):
+    import os
+
+    records, queries = synthetic_notes(n_records, seed)
+    q_emb = embed_texts(queries, device="cpu")
+    gdir, cdir = workdir / "gpu", workdir / "cpu"
+    gdir.mkdir()
+    cdir.mkdir()
+    os.environ["C99VDB_INDEX"] = "ivf_pq"
+    try:
+        gpu = MemoDB("notes", cwd=str(gdir), device=device)
+        t0 = time.perf_counter()
+        gpu.save_many(records)
+        log(f"memodb_ivf_pq: save_many of {n_records} notes (host mode, nlist 64, m 8, "
+            f"ksub 256) in {time.perf_counter() - t0:.1f} s")
+
+        def copy_card_files():
+            for f in gdir.iterdir():
+                shutil.copy2(f, cdir / f.name)
+
+        copy_card_files()
+        cpu = MemoDB("notes", cwd=str(cdir), device="cpu")
+        stats = {"swaps": 0, "skipped": 0, "compared": 0}
+
+        def both(fn, label, n_q, k_adc):
+            g, c = fn(gpu), fn(cpu)
+            kg = pq_keys(gpu, q_emb[:n_q], k_adc, card=True)
+            kc = pq_keys(cpu, q_emb[:n_q], k_adc, card=False)
+            for qi, (hg, hc) in enumerate(zip(g, c)):
+                if kg[qi] != kc[qi]:
+                    stats["skipped"] += 1
+                    continue
+                stats["swaps"] += compare_hits([hg], [hc], f"{label} query {qi}")
+            stats["compared"] += n_q
+            return g
+
+        def describe(label):
+            index = gpu._index()
+            st = index._stage()
+            log(f"memodb_ivf_pq {label}: {index._mode} mode, nlist {int(st[0].shape[0])}, pad "
+                f"{st[7]}, m {index.m}, nprobe {index.nprobe}, shortlist "
+                f"{10 * index.refine_factor} -> select kernel")
+
+        g = both(lambda db: db.recall_many(queries, k=10), "recall_many", len(queries), 40)
+        assert all(len(h) == 10 for h in g)
+        describe("recall_many")
+        # The filtered fetch is 4k deep: its shortlist is 160.
+        both(lambda db: db.recall_many(queries, k=10, filter="{source: user}"),
+             "recall_many {source: user}", len(queries), 160)
+        both(lambda db: [db.recall(qs, k=10, filter="{priority: {$gte: 3}}", pushdown=True)[:10]
+                         for qs in queries[:8]], "recall(pushdown=True)", 8, 160)
+        victim = gpu.recall_many(queries[:1], k=1)[0][0].doc_id
+        assert gpu.delete(victim) and cpu.delete(victim)
+        g = both(lambda db: db.recall_many(queries, k=10), "recall_many after delete",
+                 len(queries), 40)
+        assert all(h.doc_id != victim for hs in g for h in hs)
+        t0 = time.perf_counter()
+        dropped = gpu.reindex()
+        t_reindex = time.perf_counter() - t0
+        assert dropped == cpu.reindex() == 1
+        log(f"memodb_ivf_pq: reindex (device mode, nlist {auto_nlist(n_records - 1)}) in "
+            f"{t_reindex:.1f} s on the card")
+        copy_card_files()
+        describe("after reindex")
+        both(lambda db: db.recall_many(queries, k=10), "recall_many after reindex",
+             len(queries), 40)
+        share = stats["skipped"] / stats["compared"]
+        assert share <= 0.01, f"memodb_ivf_pq: {stats['skipped']} queries skipped"
+        log(f"memodb_ivf_pq: all steps agree with MemoDB(device='cpu') ({stats['swaps']} tie "
+            f"swaps; {stats['skipped']} of {stats['compared']} query results skipped for "
+            f"differing probe sets or ADC shortlists between the card and CPU routes)")
+        ops = adc_operands(gpu._index(), q_emb)
+        times = []
+        before = adc_counts()
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gpu.recall_many(queries, k=10)
+            times.append(time.perf_counter() - t0)
+        per_call = {k: (v - before[k]) / 5 for k, v in adc_counts().items()}
+        t_med = sorted(times)[len(times) // 2]
+        log(f"memodb_ivf_pq: recall_many 128 queries k=10 median {t_med * 1e3:.2f} ms -> "
+            f"{128 / t_med:.1f} QPS (host clock, {n_records} notes), kernel launches per call "
+            f"{per_call} [{card}]")
+    finally:
+        os.environ.pop("C99VDB_INDEX", None)
+    return ({"qps": 128 / t_med, "per_call": per_call, "reindex_s": t_reindex,
+             "skipped": stats["skipped"], "compared": stats["compared"],
+             "swaps": stats["swaps"]}, ops)
+
+
 # -- main ------------------------------------------------------------------------
 
 
 def build_all():
-    """Build both CUDA sources at once (one nvcc each, in parallel)."""
+    """Build every CUDA source at once (one nvcc each, in parallel)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = ("fused_l2_topk", "ivf_scan")
+    names = ("fused_l2_topk", "ivf_scan", "adc_scan")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
@@ -961,16 +1394,22 @@ def main() -> int:
 
     # 2. kernel against plain
     t0 = time.perf_counter()
-    max_err = phase_kernel(device, n_kernel, d, batches, 20, args.seed)
+    max_err_bf16q = [0.0]
+    max_err = phase_kernel(device, n_kernel, d, batches, 20, args.seed, max_err_bf16q)
     max_err = max(max_err, phase_fixtures(device, d, args.seed))
     log(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
     # 3. FlatIndex end to end (a path: counts reset before, read after)
     t0 = time.perf_counter()
     reset_counts()
-    _, corpus = phase_flat(device, 1_000_000, d, args.seed, card)
+    flat_out, corpus = phase_flat(device, 1_000_000, d, args.seed, card)
     flat_launches = topk_cuda.fused_l2_topk.launches
+    bf16q_launches = topk_cuda.fused_l2_topk.launches_by_mode["int8_bf16q"]
     assert flat_launches > 0, "FlatIndex did not reach the kernel"
+    assert bf16q_launches > 0, "fused_topk(q_int8=False) did not reach the kernel"
+    bf16q_inputs = flat_out["bf16q_inputs"]
+    max_err_bf16q[0] = max(max_err_bf16q[0], check_selection(
+        *bf16q_inputs, exact=False, label="flat int8 q_int8=False operands"))
     log(f"phase flat: {time.perf_counter() - t0:.1f} s")
 
     # 4. MemoDB on the flat index (counts reset before, read after)
@@ -993,11 +1432,19 @@ def main() -> int:
     reset_counts()
     ivf_result, ivf_errs, ivf_ops = phase_ivf(device, d, args.seed, card, corpus)
     ivf_launches = ivf_counts()
-    del corpus
     assert all(v > 0 for v in ivf_launches.values()), f"ivf path launches {ivf_launches}"
     log(f"phase ivf: {time.perf_counter() - t0:.1f} s, kernel launches {ivf_launches}")
 
-    # 6. MemoDB on IVFFlatIndex (counts reset before, read after)
+    # 6. IVFPQIndex at 1M x 384 (counts reset before, read after)
+    t0 = time.perf_counter()
+    reset_counts()
+    pq_result, pq_ops = phase_ivf_pq(device, d, args.seed, card, corpus)
+    pq_launches = adc_counts()
+    del corpus
+    assert all(v > 0 for v in pq_launches.values()), f"ivf_pq path launches {pq_launches}"
+    log(f"phase ivf_pq: {time.perf_counter() - t0:.1f} s, kernel launches {pq_launches}")
+
+    # 7. MemoDB on IVFFlatIndex (counts reset before, read after)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=str(Path.cwd())) as tmp:
         reset_counts()
@@ -1007,6 +1454,23 @@ def main() -> int:
         f"MemoDB(ivf_flat) did not reach the scan kernels: {memo_ivf_launches}")
     log(f"phase memodb_ivf: {time.perf_counter() - t0:.1f} s, kernel launches "
         f"{memo_ivf_launches}")
+
+    # 8. MemoDB on IVFPQIndex (counts reset before, read after)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=str(Path.cwd())) as tmp:
+        reset_counts()
+        memo_pq, memo_pq_ops = phase_memodb_ivf_pq(device, 100_000, args.seed, Path(tmp), card)
+        memo_pq_launches = adc_counts()
+    assert memo_pq_launches["adc_scan_select"] > 0, (
+        f"MemoDB(ivf_pq) did not reach the select kernel: {memo_pq_launches}")
+    log(f"phase memodb_ivf_pq: {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{memo_pq_launches}")
+    pq_ops.append(("memodb_ivf_pq", "adc_scan_select", 40, memo_pq_ops))
+    adc_errs = {}
+    for label, kernel, k, ops in pq_ops:
+        name = kernel if kernel == "adc_scan_select" else f"adc_scan_dense[qpb={ops['qpb']}]"
+        adc_errs[name] = max(adc_errs.get(name, 0.0), check_adc_kernel(ops, kernel, k, label))
+        log(f"{name} {label}: equals plain bit for bit on the path's own operands")
 
     # Each IVF kernel against its plain version on the paths' own operands.
     cases = {"ivf_scan_select": [], "ivf_scan_dense": [], "ivf_scan_dense_int8": []}
@@ -1022,12 +1486,23 @@ def main() -> int:
             note_errs(ivf_errs, {kernel: check_ivf_kernel(ops, kernel, k, f"{kernel} {label}")})
             log(f"{kernel} {label}: agrees with plain on the path's own operands")
 
-    # 7. times
+    # 9. times
     t0 = time.perf_counter()
     main_row = time_case(*main_inputs, card)
     rows = [main_row] + phase_times(device, n_kernel, d, (128, 1024), 20, args.seed, card)
     ivf_rows = {kernel: [time_ivf(ops, kernel, k, label, card) for label, ops, k in items]
                 for kernel, items in cases.items()}
+    adc_rows = {}
+    for label, kernel, k, ops in pq_ops:
+        name = kernel if kernel == "adc_scan_select" else f"adc_scan_dense[qpb={ops['qpb']}]"
+        adc_rows.setdefault(name, []).append(time_adc(ops, kernel, k, label, card))
+    qpb8_ms = next(r["ms"] for r in adc_rows["adc_scan_dense[qpb=8]"]
+                   if r["label"] == "ivf_pq m96 ksub256")
+    qpb1_ms = next(r["ms"] for r in adc_rows["adc_scan_dense[qpb=1]"]
+                   if r["label"] == "ivf_pq m96 ksub256 B=128")
+    log(f"adc_scan_dense on the same 1M B=128 operands: qpb 8 {qpb8_ms:.3f} ms, "
+        f"qpb 1 {qpb1_ms:.3f} ms [{card}]")
+    bf16q_row = time_case(*bf16q_inputs, card)
     log(f"phase times: {time.perf_counter() - t0:.1f} s")
     kernels = [{
         "name": "fused_l2_topk",
@@ -1076,6 +1551,44 @@ def main() -> int:
         })
     kernels[1]["ivf"] = ivf_result
     kernels[1]["memodb_ivf"] = memo_ivf
+    kernels.append({
+        "name": "fused_l2_topk[q_int8=False]",
+        "route": "cuda",
+        "source": "c99_vectordb_tpu_torch/csrc/fused_l2_topk.cu",
+        "replaces": "c99_vectordb_tpu/ops/topk_pallas.py:44 (mode :76-80, :348)",
+        "launches": bf16q_launches,
+        "launches_by_path": {"flat": bf16q_launches},
+        "max_abs_err": max_err_bf16q[0],
+        **{key: bf16q_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+        "shape": {key: bf16q_row[key] for key in ("dtype", "B", "N", "D", "k")},
+        "check": "pass",
+    })
+    adc_replaces = {
+        "adc_scan_select": "c99_vectordb_tpu/ops/adc_pallas.py:201",
+        "adc_scan_dense[qpb=8]": "c99_vectordb_tpu/ops/adc_pallas.py:368",
+        "adc_scan_dense[qpb=1]": "c99_vectordb_tpu/ops/adc_pallas.py:349",
+    }
+    for name in ADC_COUNTS:
+        head = adc_rows[name][0]       # the 1M ivf_pq path's first case for this kernel
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "c99_vectordb_tpu_torch/csrc/adc_scan.cu",
+            "replaces": adc_replaces[name],
+            "launches": pq_launches[name],
+            "launches_by_path": {"ivf_pq": pq_launches[name],
+                                 "memodb_ivf_pq": memo_pq_launches[name]},
+            "max_abs_err": adc_errs[name],
+            **{key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+            "shape": {key: v for key, v in head.items()
+                      if key not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "variants": adc_rows[name],
+            "check": "pass",
+        })
+    kernels[-3]["ivf_pq"] = pq_result
+    kernels[-3]["memodb_ivf_pq"] = memo_pq
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the hand-written fused L2 top-k kernel against
-its plain version, and FlatIndex, embedding and MemoDB on CUDA against the
+its plain version (every mode, int8 codes with bf16 queries included), and
+FlatIndex, embedding and MemoDB on CUDA against the
 same calls on the CPU.
 
 Every test here is marked `cuda` and skips without a card (the kernel has
@@ -79,6 +80,37 @@ def test_kernel_matches_plain(cuda, dtype, k, b):
     else:
         same_up_to_ties(pk.cpu().numpy(), pp.cpu().numpy(), kk.cpu().numpy(),
                         kp.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 20, 200, 1024])
+@pytest.mark.parametrize("b", [1, 70])
+def test_kernel_bf16_queries_on_int8_store_matches_plain(cuda, k, b):
+    """The q_int8=False mode: int8 codes decoded to bf16 against bf16
+    queries, f32 accumulation (another summation order than the plain
+    matmul: 1e-4)."""
+    n, d = 8192 + 37, 384
+    db, norms, scale = _store("int8", n, d, cuda, seed=k + b + 1)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    norms[torch.randperm(n, generator=g, device=cuda)[: n // 4]] = torch.inf
+    q = torch.randn((b, d), generator=g, device=cuda) * scale
+    q_st, rs = topk_cuda.stage_queries(q, db.dtype, q_int8=False)
+    assert q_st.dtype == torch.bfloat16 and rs is None
+    before = dict(topk_cuda.fused_l2_topk.launches_by_mode)
+    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, k)
+    assert topk_cuda.fused_l2_topk.launches_by_mode["int8_bf16q"] == before["int8_bf16q"] + 1
+    pk, pp = topk_cuda.select_plain(q_st, db, norms, k)
+    torch.cuda.synchronize()
+    same_up_to_ties(pk.cpu().numpy(), pp.cpu().numpy(), kk.cpu().numpy(), kp.cpu().numpy(), 1e-4)
+    # Through the fused_topk contract, on integer codes and queries: exact.
+    rng = np.random.default_rng(k)
+    codes = torch.from_numpy(rng.integers(-3, 4, (3000, 64)).astype(np.int8)).to(cuda)
+    cn = (codes.float() ** 2).sum(1)
+    qi = torch.from_numpy(rng.integers(-3, 4, (b, 64)).astype(np.float32)).to(cuda)
+    ids = torch.arange(3000, dtype=torch.int32, device=cuda)
+    kk = min(k, 3000)
+    got = topk_cuda.fused_topk(codes, ids, cn, qi, kk, q_int8=False)
+    want = topk_cuda.fused_topk_reference(codes, ids, cn, qi, kk, q_int8=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -163,14 +163,23 @@ def test_unported_kind_raises(tmp_path, monkeypatch):
     pq.train(pts)
     pq.add(pts, np.arange(300))
     jio.write_index(pq, tmp_path / "pq.memo")
-    with pytest.raises(NotImplementedError, match="index kind 'ivf_pq' not yet ported"):
-        tio.read_index(tmp_path / "pq.memo", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tio.load_index_or_fresh(tmp_path / "pq.memo", dim=8, device="cpu")
-    for kind in ("ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq"):
+    # ivf_pq is ported: the JAX-written file loads (both ways in) and
+    # searches as the JAX package's does.
+    loaded = tio.read_index(tmp_path / "pq.memo", device="cpu")
+    assert loaded.kind == "ivf_pq" and loaded.ntotal == 300
+    again = tio.load_index_or_fresh(tmp_path / "pq.memo", dim=8, device="cpu")
+    np.testing.assert_array_equal(again.ids(), np.arange(300))
+    np.testing.assert_array_equal(loaded.search(pts[:4], 3)[1], pq.search(pts[:4], 3)[1])
+    monkeypatch.setenv("C99VDB_INDEX", "ivf_pq")
+    assert tcommands.make_index(device="cpu").kind == "ivf_pq"
+    for kind in ("sharded_flat", "sharded_ivf", "sharded_ivf_pq"):
         monkeypatch.setenv("C99VDB_INDEX", kind)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tcommands.make_index(device="cpu")
+    with pytest.raises(NotImplementedError, match="index kind 'sharded_ivf' not yet ported"):
+        from c99_vectordb_tpu_torch.models.registry import resolve
+
+        resolve("sharded_ivf")
     monkeypatch.setenv("C99VDB_INDEX", "bogus")
     with pytest.raises(ValueError):
         tcommands.make_index(device="cpu")

@@ -1,5 +1,6 @@
 """PyTorch port, ops/kmeans.py against the JAX package's ops/kmeans.py on the
-CPU (numpy inputs made from a seed, handed to both).
+CPU (numpy inputs made from a seed, handed to both), including the PQ
+subspace trainers `train_kmeans_multi` / `assign_clusters_multi`.
 
 Tolerances: on well-separated blobs the assignments are identical and the
 centroids agree within 1e-4 (both sum the same rows, in another order). On
@@ -131,3 +132,64 @@ def test_errors():
         tk.train_kmeans(np.zeros((3, 8), np.float32), 8, device="cpu")
     with pytest.raises(ValueError):
         tk.train_kmeans(np.zeros((30, 8), np.float32), 4, init="nope", device="cpu")
+
+
+# -- the PQ subspace trainers ------------------------------------------------------
+
+
+def _subs(m, n, d, seed, spread=8.0):
+    """(m, n, d) subspace data with well-separated blobs in each subspace."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((m, 8, d)).astype(np.float32) * spread
+    pick = rng.integers(0, 8, (m, n))
+    return (np.take_along_axis(centers, pick[:, :, None], axis=1)
+            + rng.standard_normal((m, n, d)).astype(np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,n,d,k,seed", [(3, 600, 8, 8, 2), (4, 1000, 4, 8, 0),
+                                          (2, 300, 6, 16, 5)])
+def test_multi_trainers_match_jax(m, n, d, k, seed):
+    subs = _subs(m, n, d, seed)
+    want = jk.train_kmeans_multi(subs, k, iters=5, seed=seed)
+    got = tk.train_kmeans_multi(subs, k, iters=5, seed=seed, device="cpu")
+    assert got.shape == (m, k, d) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(
+        tk.assign_clusters_multi(subs, got, chunk=257, device="cpu"),
+        jk.assign_clusters_multi(subs, want))
+
+
+def test_multi_maximin_and_lloyd_match_jax_programs():
+    """The seeding picks the same rows as the JAX package's vmapped
+    maximin over the padded sample (its mask hides the padding), and one
+    Lloyd program from one init agrees, empty clusters kept."""
+    import jax
+
+    subs = _subs(3, 605, 4, seed=3)
+    padded, valid = jk._pad_rows_multi(subs, 8)
+    init_j = np.asarray(jax.vmap(lambda x, v: jk._maximin_core(x, v, 12), in_axes=(0, None))(
+        jnp.asarray(padded), jnp.asarray(valid)))
+    init_t = tk._maximin_multi(torch.from_numpy(subs), 12).numpy()
+    np.testing.assert_array_equal(init_t, init_j)
+    init = init_t.copy()
+    init[:, 11] = 1e3                                 # gets no rows: stays put
+    padded, valid = jk._pad_rows_multi(subs, 121)
+    want = np.asarray(jk._lloyd_multi_program(3, padded.shape[1], 4, 12, 6, 121)(
+        jnp.asarray(padded), jnp.asarray(valid), jnp.asarray(init)))
+    got = tk._lloyd_multi(torch.from_numpy(subs), torch.from_numpy(init), 6, 121).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[:, 11], init[:, 11])
+
+
+def test_multi_deterministic_tensor_input_and_errors():
+    subs = _subs(2, 400, 4, seed=9)
+    a = tk.train_kmeans_multi(subs, 8, iters=3, seed=1, device="cpu")
+    b = tk.train_kmeans_multi(torch.from_numpy(subs), 8, iters=3, seed=1, out_device=True)
+    assert isinstance(b, torch.Tensor)
+    np.testing.assert_array_equal(a, b.numpy())
+    out = tk.assign_clusters_multi(torch.from_numpy(subs), b, out_device=True)
+    assert isinstance(out, torch.Tensor) and out.dtype == torch.int32 and out.shape == (2, 400)
+    assert tk.assign_clusters_multi(np.zeros((2, 0, 4), np.float32), a,
+                                    device="cpu").shape == (2, 0)
+    with pytest.raises(ValueError, match="at least"):
+        tk.train_kmeans_multi(subs[:, :5], 8, device="cpu")

@@ -215,15 +215,57 @@ def test_ranked_programs_match_jax_on_exact_ties(monkeypatch):
     tdb, tids, tvalid, tq = (torch.from_numpy(a) for a in (db, ids, valid, q))
     for r in range(q.shape[0]):
         jd, ji = jdist.ranked_program(cap, d)(db, ids, valid, q[r])
-        td, ti = tdist.ranked_program(tdb, tids, tvalid, tq[r])
+        td, ti = tdist.ranked_program(tdb, tids, tvalid, tq[r], in_id_order=True)
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     jd, ji = jdist.ranked_many_program(cap, d, q.shape[0])(db, ids, valid, q)
     # A small budget forces several chunks; rows must not depend on it.
     monkeypatch.setattr(tdist, "RANKED_MANY_BUDGET_BYTES", 2 * cap * 20)
-    td, ti = tdist.ranked_many_program(tdb, tids, tvalid, tq)
+    td, ti = tdist.ranked_many_program(tdb, tids, tvalid, tq, in_id_order=True)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     np.testing.assert_allclose(
         tdist.scores_via_matmul(tq, tdb, torch.from_numpy(norms))[:, valid].numpy(),
         np.asarray(jdist.scores_via_matmul(q, db, norms))[:, valid], rtol=0, atol=0)
+    # Rows in any order (an inverted-list canvas, a positional refine store)
+    # are put in id order first (the default): the (distance, id) ranking
+    # is the same, and the same as on the store already in id order.
+    perm = np.random.default_rng(6).permutation(cap)
+    pdb, pids, pvalid = (torch.from_numpy(np.ascontiguousarray(a[perm]))
+                         for a in (db, ids, valid))
+    for r in range(q.shape[0]):
+        td, ti = tdist.ranked_program(pdb, pids, pvalid, tq[r])
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji)[r])
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd)[r])
+    td, ti = tdist.ranked_many_program(pdb, pids, pvalid, tq)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fused_topk_bf16_queries_on_int8_store_match_jax_kernel(case):
+    """The q_int8=False mode: int8 codes decoded to bf16 against bf16
+    queries (-2 q rounded to bf16), f32 accumulation."""
+    db, ids, norms, q, k, tile = _fixture(case, "int8", np.random.default_rng(8))
+    jd, ji, jr = jax_fused_topk(
+        jnp.asarray(db, dtype=jnp.int8), jnp.asarray(ids), jnp.asarray(norms), jnp.asarray(q), k,
+        tile_n=tile, q_int8=False, return_rows=True)
+    jd, ji, jr = np.asarray(jd), np.asarray(ji), np.asarray(jr)
+    args = (torch.from_numpy(db).to(torch.int8), torch.from_numpy(ids), torch.from_numpy(norms),
+            torch.from_numpy(q), k)
+    td, ti, tr = (x.numpy() for x in topk_cuda.fused_topk_reference(
+        *args, q_int8=False, return_rows=True))
+    np.testing.assert_array_equal(np.isinf(td), np.isinf(jd))
+    if case == "random":
+        same_up_to_ties(jd, ji, td, ti, 1e-5)       # summation order
+    else:                                           # integer data: every sum exact
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(td, jd)
+        np.testing.assert_array_equal(tr, jr)
+    q_st, rs = topk_cuda.stage_queries(torch.from_numpy(q), torch.int8, q_int8=False)
+    assert q_st.dtype == torch.bfloat16 and rs is None
+    before = dict(topk_cuda.fused_l2_topk.launches_by_mode)
+    wd, wi = topk_cuda.fused_topk(*args, q_int8=False)
+    assert topk_cuda.fused_l2_topk.launches_by_mode == before
+    np.testing.assert_array_equal(wd.numpy(), td)
+    np.testing.assert_array_equal(wi.numpy(), ti)
