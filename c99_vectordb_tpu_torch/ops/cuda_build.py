@@ -45,23 +45,26 @@ def source_path(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(source_path(name).read_bytes())
+    for d in defines:
+        h.update(b"\0" + d.encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def ptxas_log(name: str) -> Path:
+def ptxas_log(name: str, defines: tuple[str, ...] = ()) -> Path:
     """The `-Xptxas -v` report written beside the library by `build`."""
-    path = library_path(name)
+    path = library_path(name, defines)
     return path.with_name(path.stem + ".ptxas.txt")
 
 
-def build(name: str) -> tuple[Path, float]:
-    """Compile csrc/<name>.cu if its source-keyed library is missing.
-    Returns (library path, seconds spent compiling; 0.0 when cached).
-    Raises if nvcc is missing or the build fails. Builds of different
-    sources may run in parallel threads (each runs its own nvcc)."""
-    out = library_path(name)
+def build(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, float]:
+    """Compile csrc/<name>.cu if its library (keyed by the source and the
+    preprocessor `defines`, each "NAME=VALUE", used only by diagnostic
+    builds) is missing. Returns (library path, seconds spent compiling;
+    0.0 when cached). Raises if nvcc is missing or the build fails. Builds
+    may run in parallel threads (each runs its own nvcc)."""
+    out = library_path(name, defines)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -69,7 +72,8 @@ def build(name: str) -> tuple[Path, float]:
     src = source_path(name)
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src),
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(f"-D{d}" for d in defines),
+        "-o", str(tmp), str(src),
     ]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -79,7 +83,7 @@ def build(name: str) -> tuple[Path, float]:
             f"nvcc failed building {src.name} (exit {res.returncode}):\n"
             f"{res.stdout}\n{res.stderr}"
         )
-    ptxas_log(name).write_text(res.stderr)
+    ptxas_log(name, defines).write_text(res.stderr)
     tmp.replace(out)
     return out, seconds
 

@@ -13,9 +13,14 @@ Layers:
     (keys (B, k) f32, positions (B, k) int32) with (inf, INT32_MAX) in
     unfilled slots. Modes: f32, bf16 and int8 stores with queries of the
     same type, and int8 codes with bf16 queries (the codes decode to bf16,
-    exactly). A CUDA tensor launches the kernel (or raises); a CPU
-    tensor takes the plain version `select_plain`. `fused_l2_topk.launches`
-    counts kernel launches, `fused_l2_topk.launches_by_mode` by mode.
+    exactly). The two bf16 products (bf16 store; int8 codes with bf16
+    queries) run on the tensor cores (mma.sync m16n8k16 bf16 -> f32, the
+    queries resident in shared memory, store chunks through a cp.async
+    ring); f32 and int8 x int8 run on the CUDA cores (FMA, __dp4a). The
+    source note says what bounds each. A CUDA tensor launches the kernel
+    (or raises); a CPU tensor takes the plain version `select_plain`.
+    `fused_l2_topk.launches` counts kernel launches,
+    `fused_l2_topk.launches_by_mode` by mode.
   - `fused_topk(db, ids, sq_norms, queries, k, q_int8=None)`: the JAX
     package's `fused_topk` contract: query staging, the selection above,
     and the epilogue (+ ||q||^2, clamp at 0, positions -> ids).
@@ -45,7 +50,7 @@ _MODES = {
 
 def _load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 3, {
+    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 4, {
         "fused_l2_topk": ([ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp], ci),
         "fused_l2_topk_splits": ([ci, ci, ci], ci),
     })

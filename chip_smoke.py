@@ -6,12 +6,16 @@
 Phases (any failure raises and exits non-zero; none is caught):
   1. build       nvcc builds csrc/fused_l2_topk.cu, csrc/ivf_scan.cu and
                  csrc/adc_scan.cu, in parallel, into
-                 c99_vectordb_tpu_torch/_build/.
+                 c99_vectordb_tpu_torch/_build/. fused_l2_topk runs its two
+                 bf16 products (bf16 store; int8 codes with bf16 queries) on
+                 the tensor cores (mma.sync) and its f32 and int8 x int8
+                 modes on the CUDA cores.
   2. kernel      fused_l2_topk against its plain torch version on the card,
                  for the f32, bf16 and int8 stores (and int8 codes with bf16
                  queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
-                 1024, 100}, k=20, plus fixtures (duplicate rows, +inf padding
-                 and masked norms, k above the live rows, deep k).
+                 1024, 100}, k=20, plus fixtures for every mode (duplicate
+                 rows, +inf padding and masked norms, k above the live rows,
+                 deep k).
   3. flat        FlatIndex on 1,000,000 seeded clustered unit vectors (D=384),
                  each scan dtype, B=128, k=10: strict recall@10 = 1.0 against a
                  float64 (distance, id) ground truth, unfiltered and with a 10%
@@ -52,8 +56,10 @@ Phases (any failure raises and exits non-zero; none is caught):
                  skipped.
   9. times       every kernel, its plain version and a library yardstick
                  (never used by the port) beside the bound, on the paths' own
-                 operands; each IVF and ADC kernel is first held against its
-                 plain version on them.
+                 operands, and the flat kernel in each mode (int8 codes with
+                 bf16 queries included) on 1M x 384 seeded Gaussian stores at
+                 B = 128 and 1024; each IVF and ADC kernel is first held
+                 against its plain version on them.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -192,10 +198,14 @@ def phase_kernel(device, n, d, batches, k, seed, max_err_bf16q):
 
 def phase_fixtures(device, d, seed):
     """Duplicate rows, +inf padding/masked norms, k above the live rows,
-    ragged N, and deep k (lists in shared and in global memory)."""
+    ragged N, and deep k (lists in shared and in global memory), for every
+    mode; "int8_bf16q" is the int8 store with bf16 queries (q_int8=False)."""
     max_err = 0.0
     g = torch.Generator(device=device).manual_seed(seed + 7)
-    for dt in ("float32", "bfloat16", "int8"):
+    for mode in ("float32", "bfloat16", "int8", "int8_bf16q"):
+        dt = "int8" if mode == "int8_bf16q" else mode
+        q_int8 = False if mode == "int8_bf16q" else None
+        exact = mode == "int8"
         # Every row identical: the lowest positions must win, in order.
         n = 4096
         base = torch.randn((1, d), generator=g, device=device)
@@ -206,35 +216,34 @@ def phase_fixtures(device, d, seed):
         else:
             db = base.repeat(n, 1).to(getattr(torch, dt)).contiguous()
             norms = (db.float() * db.float()).sum(1)
-        q_st, rs = topk_cuda.stage_queries(base.repeat(3, 1), db.dtype)
+        q_st, rs = topk_cuda.stage_queries(base.repeat(3, 1), db.dtype, q_int8)
         kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, 16, rs)
-        assert kp[:, :16].tolist() == [list(range(16))] * 3, f"{dt}: duplicate rows"
+        assert kp[:, :16].tolist() == [list(range(16))] * 3, f"{mode}: duplicate rows"
         max_err = max(max_err, check_selection(q_st, db, norms, 16, rs,
-                                               exact=(dt == "int8"), label=f"{dt} dup"))
+                                               exact=exact, label=f"{mode} dup"))
         # +inf norms (padding and masked rows, including the nearest ones) and
         # k above the live rows, at a ragged N.
         n = 5000
         made = make_store(n, d, dt, device, seed + 11)
         db, norms = made[0], made[1].clone()
         q = torch.randn((37, d), generator=g, device=device)
-        q_st, rs = topk_cuda.stage_queries(q * made[2] if dt == "int8" else q, db.dtype)
+        q_st, rs = topk_cuda.stage_queries(q * made[2] if dt == "int8" else q, db.dtype, q_int8)
         _, near = topk_cuda.select_plain(q_st, db, norms, 3, rs)
         norms[near.flatten().long()] = torch.inf
         norms[torch.randperm(n, generator=g, device=device)[: n // 3]] = torch.inf
         max_err = max(max_err, check_selection(q_st, db, norms, 50, rs,
-                                               exact=(dt == "int8"), label=f"{dt} masked"))
+                                               exact=exact, label=f"{mode} masked"))
         live = torch.zeros(n, dtype=torch.bool, device=device)
         live[torch.randperm(n, generator=g, device=device)[:7]] = True
         few = torch.where(live, made[1], torch.inf)
         kk, kp = topk_cuda.fused_l2_topk(q_st, db, few, 20, rs)
         assert bool(torch.isinf(kk[:, 7:]).all()) and bool((kp[:, 7:] == 2**31 - 1).all())
         max_err = max(max_err, check_selection(q_st, db, few, 20, rs,
-                                               exact=(dt == "int8"), label=f"{dt} k>live"))
+                                               exact=exact, label=f"{mode} k>live"))
         for deep in (200, 1024):
             max_err = max(max_err, check_selection(
-                q_st, db, made[1], deep, rs,
-                exact=(dt == "int8"), label=f"{dt} k={deep}"))
-        log(f"fixtures {dt}: duplicates, +inf norms, k > live rows, k=200/1024 agree")
+                q_st, db, made[1], deep, rs, exact=exact, label=f"{mode} k={deep}"))
+        log(f"fixtures {mode}: duplicates, +inf norms, k > live rows, k=200/1024 agree")
     return max_err
 
 
@@ -506,11 +515,14 @@ def time_case(q_st, db, norms, k, rs, card):
     plain = time_ms(lambda: topk_cuda.select_plain(q_st, db, norms, k, rs), iters)
     lib = time_ms(library_call(q_st, db, norms, k, rs, dt), iters)
     bms, by = bound(n, d, b, k, dt)
-    log(f"times {dt:8s} B={b:5d} N={n} D={d} k={k}: kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, library yardstick (matmul + topk) {lib:.3f} ms, "
-        f"bound {bms:.3f} ms ({by}) [{card}]")
-    return {"dtype": dt, "B": b, "N": n, "D": d, "k": k, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": bms, "bound_by": by}
+    product = "mma" if dt in ("bfloat16", "int8_bf16q") else "cuda_core"
+    log(f"times {dt:10s} B={b:5d} N={n} D={d} k={k} ({product}): kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, library yardstick (matmul + topk) {lib:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}); kernel / bound {ms / bms:.2f}, kernel / library "
+        f"{ms / lib:.3f} [{card}]")
+    return {"dtype": dt, "B": b, "N": n, "D": d, "k": k, "product": product, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
+            "kernel_over_bound": ms / bms, "kernel_over_library": ms / lib}
 
 
 def phase_times(device, n, d, batches, k, seed, card):
@@ -525,6 +537,9 @@ def phase_times(device, n, d, batches, k, seed, card):
                 q = q * made[2]
             q_st, rs = topk_cuda.stage_queries(q, db.dtype)
             rows.append(time_case(q_st, db, norms, k, rs, card))
+            if dt == "int8":   # the same codes with bf16 queries (q_int8=False)
+                q_st, _ = topk_cuda.stage_queries(q, db.dtype, q_int8=False)
+                rows.append(time_case(q_st, db, norms, k, None, card))
         del db, norms, made
         torch.cuda.empty_cache()
     return rows
@@ -1404,7 +1419,9 @@ def main() -> int:
     reset_counts()
     flat_out, corpus = phase_flat(device, 1_000_000, d, args.seed, card)
     flat_launches = topk_cuda.fused_l2_topk.launches
-    bf16q_launches = topk_cuda.fused_l2_topk.launches_by_mode["int8_bf16q"]
+    flat_by_mode = dict(topk_cuda.fused_l2_topk.launches_by_mode)
+    bf16q_launches = flat_by_mode["int8_bf16q"]
+    log(f"flat path launches by mode: {flat_by_mode}")
     assert flat_launches > 0, "FlatIndex did not reach the kernel"
     assert bf16q_launches > 0, "fused_topk(q_int8=False) did not reach the kernel"
     bf16q_inputs = flat_out["bf16q_inputs"]
@@ -1511,6 +1528,7 @@ def main() -> int:
         "replaces": "c99_vectordb_tpu/ops/topk_pallas.py:44",
         "launches": main_launches,
         "launches_by_path": {"memodb": main_launches, "flat": flat_launches},
+        "launches_by_mode": {"flat": flat_by_mode},
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -59,12 +59,19 @@ def _store(dtype, n, d, device, seed):
     return x.to(getattr(torch, dtype)).contiguous(), (x * x).sum(1), None
 
 
+# k: 128 / 129 straddle the shared-memory / global list boundary; b = 129
+# leaves a ragged query tile; d = 392 a partial last feature chunk.
+KS = [1, 20, 128, 129, 200, 1024]
+BS = [1, 70, 129]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("k", [1, 20, 200, 1024])
-@pytest.mark.parametrize("b", [1, 70])
-def test_kernel_matches_plain(cuda, dtype, k, b):
-    n, d = 8192 + 37, 384                       # ragged last row tile
-    db, norms, scale = _store(dtype, n, d, cuda, seed=k + b)
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("b", BS)
+@pytest.mark.parametrize("d", [384, 392])
+def test_kernel_matches_plain(cuda, dtype, k, b, d):
+    n = 8192 + 37                               # ragged last row tile
+    db, norms, scale = _store(dtype, n, d, cuda, seed=k + b + d)
     g = torch.Generator(device=cuda).manual_seed(3)
     norms[torch.randperm(n, generator=g, device=cuda)[: n // 4]] = torch.inf
     q = torch.randn((b, d), generator=g, device=cuda)
@@ -82,14 +89,15 @@ def test_kernel_matches_plain(cuda, dtype, k, b):
                         kp.cpu().numpy(), 1e-4)
 
 
-@pytest.mark.parametrize("k", [1, 20, 200, 1024])
-@pytest.mark.parametrize("b", [1, 70])
-def test_kernel_bf16_queries_on_int8_store_matches_plain(cuda, k, b):
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("b", BS)
+@pytest.mark.parametrize("d", [384, 392])
+def test_kernel_bf16_queries_on_int8_store_matches_plain(cuda, k, b, d):
     """The q_int8=False mode: int8 codes decoded to bf16 against bf16
     queries, f32 accumulation (another summation order than the plain
-    matmul: 1e-4)."""
-    n, d = 8192 + 37, 384
-    db, norms, scale = _store("int8", n, d, cuda, seed=k + b + 1)
+    matmul: 1e-4). d = 392 rows are not 16-byte aligned (plain loader)."""
+    n = 8192 + 37
+    db, norms, scale = _store("int8", n, d, cuda, seed=k + b + d + 1)
     g = torch.Generator(device=cuda).manual_seed(5)
     norms[torch.randperm(n, generator=g, device=cuda)[: n // 4]] = torch.inf
     q = torch.randn((b, d), generator=g, device=cuda) * scale
@@ -113,18 +121,25 @@ def test_kernel_bf16_queries_on_int8_store_matches_plain(cuda, k, b):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_odd_width_and_exact_ties(cuda, dtype):
-    """D not a multiple of the kernel's slice; integer rows with many exact
-    ties must come back in position order, exactly as the plain version."""
-    g = np.random.default_rng(4)
-    db = torch.from_numpy(g.integers(-2, 3, (3000, 21)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8_bf16q"])
+@pytest.mark.parametrize("d", [21, 40, 1600])
+@pytest.mark.parametrize("k", [50, 129])
+def test_kernel_odd_width_and_exact_ties(cuda, dtype, d, k):
+    """D not a multiple of the kernel's slice (21: rows not 16-byte aligned;
+    40: aligned bf16 rows, unaligned int8 rows; 1600: queries too wide to
+    stay resident in shared memory); integer rows with many exact ties must
+    come back in position order, exactly as the plain version."""
+    g = np.random.default_rng(4 + d)
+    db = torch.from_numpy(g.integers(-2, 3, (3000, d)).astype(np.float32)).to(cuda)
     norms = (db * db).sum(1)
-    q = torch.from_numpy(g.integers(-2, 3, (9, 21)).astype(np.float32)).to(cuda)
-    q_st, _ = topk_cuda.stage_queries(q, getattr(torch, dtype))
-    db = db.to(getattr(torch, dtype))
-    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, 50)
-    pk, pp = topk_cuda.select_plain(q_st, db, norms, 50)
+    q = torch.from_numpy(g.integers(-2, 3, (9, d)).astype(np.float32)).to(cuda)
+    store = torch.int8 if dtype == "int8_bf16q" else getattr(torch, dtype)
+    q_st, _ = topk_cuda.stage_queries(q, store, q_int8=False)
+    db = db.to(store)
+    before = topk_cuda.fused_l2_topk.launches_by_mode[dtype]
+    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, k)
+    assert topk_cuda.fused_l2_topk.launches_by_mode[dtype] == before + 1
+    pk, pp = topk_cuda.select_plain(q_st, db, norms, k)
     assert torch.equal(kk, pk) and torch.equal(kp, pp)
 
 
