@@ -33,59 +33,98 @@
 // per-split sorted lists by (key, position) into the final k.
 //
 // How pass 1 forms the keys depends on the product's type:
-//   - bf16 x bf16 -> f32 (mode 1, bf16 store; mode 3, int8 codes with bf16
-//     queries): tensor cores, scan_topk_mma_kernel. The block's queries are
-//     staged once as bf16 and stay resident in shared memory for the whole
-//     split (64 x 392 bf16 = 49 KB at D = 384; above ~1,340 columns they
-//     no longer fit and come through the ring beside the store instead).
-//     Store tiles arrive in DK-column chunks through a STAGES-deep ring of
-//     16-byte cp.async.cg copies, so the next chunks load while the
-//     current one multiplies. Mode 1 copies bf16 rows; mode 3 copies the
-//     raw int8 codes (half of bf16's bytes, a quarter of f32's) and one
-//     cooperative pass decodes each chunk once into a bf16 tile in shared
-//     memory (exact), so both modes share one product path. Rows that are
-//     not 16-byte aligned (D % 8 != 0 for bf16, D % 16 != 0 for int8, or
-//     an unaligned base) take a plain zero-filling loader into the same
-//     layout. Each warp owns a 16-query x 32-row piece of the tile and runs
-//     mma.sync.m16n8k16 bf16 -> f32 on fragments loaded with ldmatrix: A is
+//   - f32 x f32 (mode 0, the default store) and bf16 x bf16 -> f32 (mode 1,
+//     bf16 store; mode 3, int8 codes with bf16 queries): tensor cores,
+//     scan_topk_mma_kernel. Store tiles arrive in DK-column chunks (64 bf16
+//     or 32 f32 columns) through a STAGES-deep ring of 16-byte cp.async.cg
+//     copies, so the next chunks load while the current one multiplies.
+//     The bf16 modes stage the block's queries once and keep them resident
+//     in shared memory for the whole split (64 x 392 bf16 = 49 KB at
+//     D = 384; above ~1,340 columns they come through the ring beside the
+//     store instead). Modes 0 and 1 copy their rows as they are; mode 3
+//     copies the raw int8 codes (half of bf16's bytes, a quarter of f32's)
+//     and one cooperative pass decodes each chunk once into a bf16 tile in
+//     shared memory (exact), so modes 1 and 3 share one product path. Rows
+//     that are not 16-byte aligned (D % 4 != 0 for f32, D % 8 != 0 for
+//     bf16, D % 16 != 0 for int8, or an unaligned base) take a plain
+//     zero-filling loader into the same layout. Each warp owns a 16-query x
+//     32-row piece of the tile and loads its fragments with ldmatrix: A is
 //     the row-major queries, B the store rows, which a row-major (N, D)
 //     store already lays out as the "col" operand (nothing is transposed).
-//     Padded 144-byte chunk rows keep every ldmatrix phase on distinct banks.
-//   - f32 (mode 0) and int8 x int8 (mode 2): CUDA cores, scan_topk_kernel:
-//     DK-wide slices of both operands are loaded synchronously into
-//     transposed shared tiles and a 4x4 register micro-tile per thread runs
-//     FMA (f32) or __dp4a (int8, exact int32).
+//     Chunk rows are padded by 16 bytes to 16 mod 128 bytes, which keeps
+//     every ldmatrix phase on distinct banks.
+//     bf16: mma.sync.m16n8k16 bf16 -> f32 (every product exact in f32).
+//     f32: 3xTF32 on mma.sync.m16n8k8 tf32 -> f32. Each element x splits
+//     into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with
+//     ties away from zero (cvt.rna's rounding, done with an integer add and
+//     a mask, which measured 5% faster than cvt), and each fragment pair adds
+//     lo.hi, hi.lo, then hi.hi, always in that order (deterministic; lo.lo,
+//     below f32's rounding, is dropped). One TF32 pass keeps 11 significant
+//     bits and errs past the 1e-4 tolerance of the keys; three keep f32's
+//     accuracy (tests/test_torch_tf32_split.py emulates both). The three
+//     products of each 8-column k step go into a fresh accumulator, and one
+//     f32 add (round to nearest) takes its sum into the key's: mma.sync does
+//     not round its adds into an accumulator to nearest, and a chain over
+//     all of D drifted the keys of rows that mix magnitudes of 1e-3 to 1e3
+//     past the tolerance on the card (the mixed_magnitudes case of
+//     tests/test_torch_cuda.py). Once a
+//     chunk of the store and of the queries has landed, one cooperative pass
+//     rewrites it in place as its hi parts and writes its lo parts beside
+//     it, so every element is split once per block, not once per warp that
+//     reads it; the k steps then load hi and lo fragments with
+//     ldmatrix.b16, whose 32-bit pairs are exactly the tf32 m16n8k8
+//     fragments (A: (g, t), (g+8, t), (g, t+4), (g+8, t+4); B: (k t, n g),
+//     (k t+4, n g); g = lane / 4, t = lane % 4), so the f32 tiles load like
+//     the bf16 ones, 32 bytes of k per step. The f32 queries stream through
+//     the ring beside the store (64 x 384 f32 = 99 KB would leave room for
+//     one block per SM): 3 stages of 32-column chunks, their lo parts, the
+//     keys tile and the lists take 98 KB at k = 20, so two blocks of 8 warps
+//     share an SM, which measured 10-12% faster than resident queries at
+//     one block per SM, although every query tile is read again from L2 for
+//     each row tile. A chunk with no ragged edge runs its k steps with no
+//     guard between them, so the steps' mma.sync chains overlap.
+//   - int8 x int8 (mode 2): CUDA cores, scan_topk_kernel: DKW-word slices of
+//     both operands are loaded synchronously into transposed shared tiles
+//     and a 4x4 register micro-tile per thread runs __dp4a (exact int32).
 //
 // Bound on the NVIDIA H100 80GB HBM3 (the SXM part; published at 700 W:
 // 3.35 TB/s; tensor cores 495 TFLOP/s TF32, 989 TFLOP/s bf16, 1,979 TOP/s
 // int8) at N = 1,048,576 rows of D = 384. The f32 scan only builds the
 // shortlist that the exact f32 rerank corrects, so TF32 tensor cores are
-// admissible for it and its bound takes the TF32 rate.
+// admissible for it and its bound takes the TF32 rate; 3xTF32 runs three
+// TF32 products, so its own floor is three times that operation bound.
 // Bytes: the store once plus its norms (f32 1.61 GB -> 0.48 ms,
 // bf16 0.81 GB -> 0.24 ms, int8 0.41 GB -> 0.12 ms). Operations: 2*B*N*D
 // (B = 128: 0.103 TFLOP -> f32 0.21 ms, bf16 0.10 ms, int8 0.05 ms;
-// B = 1024: 0.82 TFLOP -> f32 1.67 ms, bf16 0.83 ms, int8 0.42 ms). So every
-// store is bound by bytes at B = 128 and by operations at B = 1024. The
-// mma.sync path moves the bf16 products off the CUDA cores (where they ran
-// at ~15 TFLOP/s) and overlaps loads with products, which is what B = 128
-// needs; at B = 1024 the full tensor-core rate needs wgmma fed by TMA, a
-// later step. What holds the mma.sync path back now (PERF.md, measured with
+// B = 1024: 0.82 TFLOP -> f32 1.67 ms (3xTF32: 5.0 ms), bf16 0.83 ms, int8
+// 0.42 ms). So every store is bound by bytes at B = 128 and by operations
+// at B = 1024. The mma.sync path moves the products off the CUDA cores and
+// overlaps loads with products, which is what B = 128 needs; at B = 1024
+// the full tensor-core rate needs wgmma fed by TMA, a later step. What
+// holds the mma.sync path back (PERF.md, measured with
 // tools/flat_mma_breakdown.py): at B = 128 the warp selection, which runs
-// between the tiles' products, takes about half of the time; at B = 1024
-// every one of the 16 query tiles reads the store again from L2. Two
-// blocks of 8 warps share an SM at small k (about 105 KB of shared memory
-// each at k = 20), and the split count keeps the grid to one wave. Modes 0
-// and 2 still run on the CUDA cores (mma.sync TF32 or 3xTF32, and m16n8k32
-// s8, are their next step). chip_smoke.py computes the bound for each
-// run's shapes and times every mode beside it.
+// between the tiles' products, takes about half of the bf16 modes' time;
+// at B = 1024 every one of the 16 query tiles reads the store again from
+// L2. The f32 mode, with three products per fragment pair, spends most of
+// its time in mma.sync. Two blocks of 8 warps share an SM at small k
+// (about 105 KB of shared memory each for bf16, 98 KB for f32, at k = 20),
+// and the split count keeps the grid to one wave. Mode 2 still runs on the
+// CUDA cores (m16n8k32 s8 on the same ring is its next step). chip_smoke.py
+// computes the bound for each run's shapes and times every mode beside it.
+// Registers (ptxas -v of the shipped build, printed by chip_smoke.py):
+// scan_topk_mma_kernel<0> 128, <1> and <3> 127 each (the launch bounds cap
+// them at 128 for two blocks per SM), scan_topk_kernel 80,
+// merge_splits_kernel 26; nothing spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 // Build-time switches of the tensor-core path, for tools/flat_mma_breakdown.py
-// only (the shipped build takes these defaults): the ring's shape, and two
-// diagnostic cuts that skip the products or the selection (results wrong).
+// only (the shipped build takes these defaults): the ring's shape (FL2_DK
+// columns per chunk for the bf16 modes, FL2_STAGES deep) and two diagnostic
+// cuts that skip the products or the selection (results wrong).
 #ifndef FL2_DK
 #define FL2_DK 64
 #endif
@@ -104,21 +143,33 @@ namespace {
 constexpr int QT = 64;            // queries per block
 constexpr int RT = 64;            // store rows per tile
 constexpr int NT = 256;           // threads per block (8 warps)
-constexpr int DKF = 32;           // feature slice, f32 elements (mode 0)
 constexpr int DKW = 16;           // feature slice, int8 as 4-byte words (64 values)
 constexpr int TS = QT + 4;        // padded tile stride (keeps 16-byte rows)
 constexpr int SMEM_LIST_MAX = 128;
 constexpr int MAX_SPLITS = 128;   // 4 per lane in the merge pass
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int INT_MAXV = 0x7fffffff;
-static_assert(QT == RT, "the slice loaders stage QT rows for both operands");
+static_assert(QT == RT, "the slice and chunk loaders stage QT rows for both operands");
 
-// The tensor-core path (modes 1 and 3).
-constexpr int DK = FL2_DK;        // feature columns per ring stage
-constexpr int SKP = DK + 8;       // padded bf16 chunk row (144 bytes at DK = 64)
-constexpr int STAGES = FL2_STAGES;   // ring depth
-constexpr size_t SMEM_MAX = 232448;   // dynamic shared memory a block may use
-static_assert((RT * DK / 16) % NT == 0, "whole 16-byte int8 copies per thread per chunk");
+// The tensor-core path (modes 0, 1 and 3).
+constexpr int STAGES = FL2_STAGES;           // ring depth
+constexpr size_t SMEM_MAX = 232448;          // dynamic shared memory a block may use
+constexpr int F32_DK = 32;                   // f32 columns per ring chunk
+
+// Per-mode shapes of the tensor-core path. T: the product operand's element
+// (f32 for mode 0; bf16 bits for modes 1 and 3, whose int8 codes decode to
+// bf16); DKC: feature columns per ring chunk; V: elements per 16 bytes; SK:
+// the padded chunk row, DKC + V elements (16 mod 128 bytes).
+template <int MODE>
+struct Op {
+    using T = typename std::conditional<MODE == 0, float, uint16_t>::type;
+    static constexpr int DKC = MODE == 0 ? F32_DK : FL2_DK;
+    static constexpr int V = 16 / (int)sizeof(T);
+    static constexpr int SK = DKC + V;
+    static_assert((RT * DKC / V) % NT == 0, "whole 16-byte copies per thread per chunk");
+    static_assert(DKC % (2 * V) == 0, "whole 32-byte k steps per chunk");
+};
+static_assert((RT * FL2_DK / 16) % NT == 0, "whole 16-byte int8 copies per thread per chunk");
 
 // -- sorted per-query lists and their selection (every mode) ------------------
 
@@ -212,24 +263,11 @@ __device__ __forceinline__ void lists_flush(const Lists& L, int B, int q0) {
     }
 }
 
-// -- CUDA-core pass 1 (modes 0 and 2) ------------------------------------------
+// -- CUDA-core pass 1 (mode 2: int8 store, int8 queries) ---------------------------
 
-// Stage a (rows x DKF) slice of a row-major (n_rows, D) matrix into the
-// transposed float tile t[DKF][TS]; out-of-range entries are 0.
-__device__ __forceinline__ void load_slice_f(const float* __restrict__ src, int row0, int n_rows,
-                                             int D, int c0, float* t) {
-#pragma unroll
-    for (int i = 0; i < (QT * DKF) / NT; ++i) {
-        int idx = threadIdx.x + NT * i;
-        int r = idx / DKF, c = idx % DKF;
-        float v = 0.f;
-        if (row0 + r < n_rows && c0 + c < D)
-            v = src[(int64_t)(row0 + r) * D + c0 + c];
-        t[c * TS + r] = v;
-    }
-}
-
-// Same for int8 rows read as packed 4-byte words (D % 4 == 0).
+// Stage a (rows x DKW words) slice of a row-major (n_rows, D) int8 matrix,
+// read as packed 4-byte words (D % 4 == 0), into the transposed tile
+// t[DKW][TS]; out-of-range words are 0.
 __device__ __forceinline__ void load_slice_w(const int8_t* __restrict__ src, int row0, int n_rows,
                                              int DW, int w0, int* t) {
 #pragma unroll
@@ -243,19 +281,17 @@ __device__ __forceinline__ void load_slice_w(const int8_t* __restrict__ src, int
     }
 }
 
-// MODE 0: f32 store, 2: int8 store with int8 queries. TQ / T: query / store
-// element types.
-template <int MODE, typename TQ, typename T>
+// q: int8 queries with per-row scales rs; x: the int8 store.
 __global__ void __launch_bounds__(NT)
-scan_topk_kernel(const TQ* __restrict__ q, const T* __restrict__ x,
+scan_topk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x,
                  const float* __restrict__ norms, const float* __restrict__ rs,
                  int B, int N, int D, int K, int rows_per_split,
                  float* __restrict__ part_k, int* __restrict__ part_p) {
     extern __shared__ __align__(16) unsigned char smem[];
     float* keys_s = reinterpret_cast<float*>(smem);                 // [QT][RT + 1]
-    float* tq = keys_s + QT * (RT + 1);                              // [DKF][TS]
-    float* tx = tq + DKF * TS;                                       // [DKF][TS]
-    float* list_base_k = tx + DKF * TS;
+    int* tq = reinterpret_cast<int*>(keys_s + QT * (RT + 1));        // [DKW][TS]
+    int* tx = tq + DKW * TS;                                         // [DKW][TS]
+    float* list_base_k = reinterpret_cast<float*>(tx + DKW * TS);
 
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * QT;
@@ -268,64 +304,39 @@ scan_topk_kernel(const TQ* __restrict__ q, const T* __restrict__ x,
     const Lists lists{list_base_k, reinterpret_cast<int*>(list_base_k + QT * K), part_k, part_p,
                       ((int64_t)split * B + q0) * K, K, K <= SMEM_LIST_MAX};
     lists_init(lists, B, q0);
-    float qscale[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (MODE == 2) {
+    float qscale[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qscale[i] = (q0 + ty4 + i < B) ? rs[q0 + ty4 + i] : 0.f;
-    }
+    for (int i = 0; i < 4; ++i) qscale[i] = (q0 + ty4 + i < B) ? rs[q0 + ty4 + i] : 0.f;
     __syncthreads();
 
+    const int DW = D / 4;
     for (int r0 = row_begin; r0 < row_end; r0 += RT) {
-        float accf[4][4];
-        int acci[4][4];
+        int acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) { accf[i][j] = 0.f; acci[i][j] = 0; }
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
-        if constexpr (MODE == 2) {
-            const int DW = D / 4;
-            int* tqi = reinterpret_cast<int*>(tq);
-            int* txi = reinterpret_cast<int*>(tx);
-            for (int w0 = 0; w0 < DW; w0 += DKW) {
-                load_slice_w(reinterpret_cast<const int8_t*>(q), q0, B, DW, w0, tqi);
-                load_slice_w(reinterpret_cast<const int8_t*>(x), r0, row_end, DW, w0, txi);
-                __syncthreads();
+        for (int w0 = 0; w0 < DW; w0 += DKW) {
+            load_slice_w(q, q0, B, DW, w0, tq);
+            load_slice_w(x, r0, row_end, DW, w0, tx);
+            __syncthreads();
 #pragma unroll 4
-                for (int w = 0; w < DKW; ++w) {
-                    const int4 a = *reinterpret_cast<const int4*>(tqi + w * TS + ty4);
-                    const int4 b = *reinterpret_cast<const int4*>(txi + w * TS + tx4);
-                    const int av[4] = {a.x, a.y, a.z, a.w};
-                    const int bv[4] = {b.x, b.y, b.z, b.w};
+            for (int w = 0; w < DKW; ++w) {
+                const int4 a = *reinterpret_cast<const int4*>(tq + w * TS + ty4);
+                const int4 b = *reinterpret_cast<const int4*>(tx + w * TS + tx4);
+                const int av[4] = {a.x, a.y, a.z, a.w};
+                const int bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-                    for (int i = 0; i < 4; ++i)
+                for (int i = 0; i < 4; ++i)
 #pragma unroll
-                        for (int j = 0; j < 4; ++j) acci[i][j] = __dp4a(av[i], bv[j], acci[i][j]);
-                }
-                __syncthreads();
+                    for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
             }
-        } else {
-            for (int c0 = 0; c0 < D; c0 += DKF) {
-                load_slice_f(q, q0, B, D, c0, tq);
-                load_slice_f(x, r0, row_end, D, c0, tx);
-                __syncthreads();
-#pragma unroll 8
-                for (int c = 0; c < DKF; ++c) {
-                    const float4 a = *reinterpret_cast<const float4*>(tq + c * TS + ty4);
-                    const float4 b = *reinterpret_cast<const float4*>(tx + c * TS + tx4);
-                    const float av[4] = {a.x, a.y, a.z, a.w};
-                    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-#pragma unroll
-                        for (int j = 0; j < 4; ++j) accf[i][j] = fmaf(av[i], bv[j], accf[i][j]);
-                }
-                __syncthreads();
-            }
+            __syncthreads();
         }
 
-        // Keys of this tile. The int8 key is rounded twice (product, then
-        // sum) exactly as the plain version computes it, never fused.
+        // Keys of this tile, rounded twice (product, then sum) exactly as
+        // the plain version computes them, never fused.
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int row = r0 + tx4 + j;
@@ -333,9 +344,7 @@ scan_topk_kernel(const TQ* __restrict__ q, const T* __restrict__ x,
             const float nrm = live ? norms[row] : 0.f;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-                float key;
-                if constexpr (MODE == 2) key = __fadd_rn(__fmul_rn((float)acci[i][j], qscale[i]), nrm);
-                else key = __fadd_rn(nrm, accf[i][j]);
+                const float key = __fadd_rn(__fmul_rn((float)acc[i][j], qscale[i]), nrm);
                 keys_s[(ty4 + i) * (RT + 1) + tx4 + j] = live ? key : __int_as_float(0x7f800000);
             }
         }
@@ -346,7 +355,7 @@ scan_topk_kernel(const TQ* __restrict__ q, const T* __restrict__ x,
     lists_flush(lists, B, q0);
 }
 
-// -- tensor-core pass 1 (modes 1 and 3) ------------------------------------------
+// -- tensor-core pass 1 (modes 0, 1 and 3) -----------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -374,56 +383,143 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Shared-memory layout of scan_topk_mma_kernel, computed alike on the host
-// (to size the launch) and in the kernel (to place its buffers).
+// d += a (16x8 tf32, row) . b (8x8 tf32, col), f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 stored mantissa bits): to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite x; the low 13 bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+    return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = hi + lo + (below f32's rounding), hi and lo exact TF32 values.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(__fsub_rn(x, hi));
+}
+
+// Split a landed f32 chunk (64 rows, stride Op<0>::SK) in place into its
+// hi parts, its lo parts going to lo (same layout), 4 elements per copy.
+__device__ __forceinline__ void split_chunk(float* t, float* lo) {
+    constexpr int DKC = F32_DK, SK = DKC + 4;
+#pragma unroll
+    for (int i = 0; i < (RT * DKC / 4) / NT; ++i) {
+        const int idx = threadIdx.x + NT * i;
+        const int o = idx / (DKC / 4) * SK + (idx % (DKC / 4)) * 4;
+        float4 v = *reinterpret_cast<const float4*>(t + o), l;
+        split_tf32(v.x, v.x, l.x);
+        split_tf32(v.y, v.y, l.y);
+        split_tf32(v.z, v.z, l.z);
+        split_tf32(v.w, v.w, l.w);
+        *reinterpret_cast<float4*>(t + o) = v;
+        *reinterpret_cast<float4*>(lo + o) = l;
+    }
+}
+
+// acc[p] += a . b of piece p (b01: pieces 0 and 1, b23: 2 and 3) in 3xTF32
+// from split fragments: lo.hi, hi.lo, then hi.hi, in this order for every
+// piece, into a fresh accumulator, whose sum one f32 add (round to nearest)
+// puts into acc. The tensor cores do not round their adds into an
+// accumulator to nearest, so a chain of mma.sync over all of D drifts with
+// the running sum's magnitude.
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4][4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh01)[4],
+                                           const unsigned (&bh23)[4], const unsigned (&bl01)[4],
+                                           const unsigned (&bl23)[4]) {
+    const unsigned bh[8] = {bh01[0], bh01[1], bh01[2], bh01[3], bh23[0], bh23[1], bh23[2], bh23[3]};
+    const unsigned bl[8] = {bl01[0], bl01[1], bl01[2], bl01[3], bl23[0], bl23[1], bl23[2], bl23[3]};
+    float step[4][4] = {};
+#pragma unroll
+    for (int p = 0; p < 4; ++p) mma_tf32(step[p], al, bh[2 * p], bh[2 * p + 1]);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) mma_tf32(step[p], ah, bl[2 * p], bl[2 * p + 1]);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) mma_tf32(step[p], ah, bh[2 * p], bh[2 * p + 1]);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][e] = __fadd_rn(acc[p][e], step[p][e]);
+}
+
+// Shared-memory layout of scan_topk_mma_kernel<MODE>, computed alike on the
+// host (to size the launch) and in the kernel (to place its buffers).
 struct MmaLayout {
     int x_bytes;       // the store chunk of a stage
     int stage_bytes;   // the store chunk, then (streamed queries) the query chunk
     int dqs;           // row stride of the resident queries (elements)
-    size_t ring, dec, qs, keys, lists, total;
+    size_t ring;       // STAGES stages
+    size_t aux;        // mode 3: the decoded bf16 chunk; mode 0: the lo parts of
+                       // the split store chunk, then of the query chunk
+    size_t qs, keys, lists, total;
 };
 
-__host__ __device__ inline MmaLayout mma_layout(int mode, int D, int K, bool q_res, bool smem_lists) {
+template <int MODE>
+__host__ __device__ inline MmaLayout mma_layout(int D, int K, bool q_res, bool smem_lists) {
+    using O = Op<MODE>;
+    constexpr int es = sizeof(typename O::T);
     MmaLayout L;
-    L.x_bytes = mode == 1 ? RT * SKP * 2 : RT * DK;
-    L.stage_bytes = L.x_bytes + (q_res ? 0 : QT * SKP * 2);
-    L.dqs = (D + DK - 1) / DK * DK + 8;   // 16 mod 128 bytes: ldmatrix rows on distinct banks
+    L.x_bytes = MODE == 3 ? RT * O::DKC : RT * O::SK * es;
+    L.stage_bytes = L.x_bytes + (q_res ? 0 : QT * O::SK * es);
+    L.dqs = (D + O::DKC - 1) / O::DKC * O::DKC + O::V;   // 16 mod 128 bytes, as SK
     size_t o = 0;
     L.ring = o; o += (size_t)STAGES * L.stage_bytes;
-    L.dec = o; o += mode == 3 ? RT * SKP * 2 : 0;
-    L.qs = o; o += q_res ? (size_t)QT * L.dqs * 2 : 0;
+    L.aux = o; o += MODE == 3 ? RT * O::SK * 2 : MODE == 0 ? (RT + QT) * O::SK * es : 0;
+    L.qs = o; o += q_res ? (size_t)QT * L.dqs * es : 0;
     L.keys = o; o += sizeof(float) * QT * (RT + 1);
     L.lists = o; o += smem_lists ? (size_t)QT * K * (sizeof(float) + sizeof(int)) : 0;
     L.total = o;
     return L;
 }
 
-// One DK-column chunk of 64 bf16 rows [row0, row_lim) into dst (stride
-// SKP), zero past row_lim and D: 16-byte cp.async when rows are aligned,
-// else a plain loader.
-__device__ __forceinline__ void load_chunk_bf16(const uint16_t* __restrict__ src, int row0,
-                                                int row_lim, int D, int c0, uint16_t* dst,
-                                                bool async) {
+// Where the launch puts the queries and the lists: resident queries when
+// they fit (bf16 only; f32 queries always stream through the ring), then
+// the lists in shared memory when they fit beside them.
+struct MmaPlan {
+    bool q_res, smem_lists;
+    size_t smem;
+};
+
+template <int MODE>
+MmaPlan mma_plan(int D, int K) {
+    const bool q_res = MODE != 0 && mma_layout<MODE>(D, K, true, false).total <= SMEM_MAX;
+    const bool smem_lists = K <= SMEM_LIST_MAX && mma_layout<MODE>(D, K, q_res, true).total <= SMEM_MAX;
+    return {q_res, smem_lists, mma_layout<MODE>(D, K, q_res, smem_lists).total};
+}
+
+// One DKC-column chunk of 64 rows [row0, row_lim) of a row-major (., D)
+// f32 or bf16 matrix into dst (stride SK), zero past row_lim and D:
+// 16-byte cp.async when rows are aligned, else a plain loader.
+template <int MODE>
+__device__ __forceinline__ void load_chunk(const typename Op<MODE>::T* __restrict__ src, int row0,
+                                           int row_lim, int D, int c0, typename Op<MODE>::T* dst,
+                                           bool async) {
+    using O = Op<MODE>;
     if (async) {
 #pragma unroll
-        for (int i = 0; i < (RT * DK / 8) / NT; ++i) {
+        for (int i = 0; i < (RT * O::DKC / O::V) / NT; ++i) {
             const int idx = threadIdx.x + NT * i;
-            const int r = idx / (DK / 8), c = (idx % (DK / 8)) * 8;
+            const int r = idx / (O::DKC / O::V), c = (idx % (O::DKC / O::V)) * O::V;
             const bool ok = row0 + r < row_lim && c0 + c < D;
-            cp_async16(dst + r * SKP + c, ok ? src + (int64_t)(row0 + r) * D + c0 + c : src, ok);
+            cp_async16(dst + r * O::SK + c, ok ? src + (int64_t)(row0 + r) * D + c0 + c : src, ok);
         }
     } else {
-        for (int idx = threadIdx.x; idx < RT * DK; idx += NT) {
-            const int r = idx / DK, c = idx % DK;
+        for (int idx = threadIdx.x; idx < RT * O::DKC; idx += NT) {
+            const int r = idx / O::DKC, c = idx % O::DKC;
             const bool ok = row0 + r < row_lim && c0 + c < D;
-            dst[r * SKP + c] = ok ? src[(int64_t)(row0 + r) * D + c0 + c] : (uint16_t)0;
+            dst[r * O::SK + c] = ok ? src[(int64_t)(row0 + r) * D + c0 + c] : typename O::T(0);
         }
     }
 }
 
-// The same for raw int8 codes into dst (stride DK bytes).
+// The same for raw int8 codes into dst (stride FL2_DK bytes).
 __device__ __forceinline__ void load_chunk_i8(const int8_t* __restrict__ src, int row0, int row_lim,
                                               int D, int c0, int8_t* dst, bool async) {
+    constexpr int DK = FL2_DK;
     if (async) {
 #pragma unroll
         for (int i = 0; i < (RT * DK / 16) / NT; ++i) {
@@ -441,8 +537,9 @@ __device__ __forceinline__ void load_chunk_i8(const int8_t* __restrict__ src, in
     }
 }
 
-// Decode a raw int8 chunk to bf16 (stride SKP), exactly: 16 codes per copy.
+// Decode a raw int8 chunk to bf16 (stride Op<3>::SK), exactly: 16 codes per copy.
 __device__ __forceinline__ void decode_chunk(const int8_t* raw, uint16_t* dec) {
+    constexpr int DK = FL2_DK;
 #pragma unroll
     for (int i = 0; i < (RT * DK / 16) / NT; ++i) {
         const int idx = threadIdx.x + NT * i;
@@ -460,35 +557,38 @@ __device__ __forceinline__ void decode_chunk(const int8_t* raw, uint16_t* dec) {
             out[2 * j] = *reinterpret_cast<const unsigned*>(&lo);
             out[2 * j + 1] = *reinterpret_cast<const unsigned*>(&hi);
         }
-        uint4* d = reinterpret_cast<uint4*>(dec + r * SKP + c);
+        uint4* d = reinterpret_cast<uint4*>(dec + r * Op<3>::SK + c);
         d[0] = make_uint4(out[0], out[1], out[2], out[3]);
         d[1] = make_uint4(out[4], out[5], out[6], out[7]);
     }
 }
 
-// MODE 1: bf16 store; 3: int8 codes (decoded to bf16). Queries are bf16.
-// q_res: the query tile is resident (else it streams through the ring);
-// smem_lists: the lists are in shared memory; x_async / q_async: rows are
-// 16-byte aligned and load with cp.async.
+// MODE 0: f32 store and queries (3xTF32); 1: bf16 store; 3: int8 codes
+// (decoded to bf16) with bf16 queries. q_res: the query tile is resident
+// (else it streams through the ring; always for mode 0); smem_lists: the lists are in shared
+// memory; x_async / q_async: rows are 16-byte aligned and load with cp.async.
 template <int MODE>
 __global__ void __launch_bounds__(NT, 2)
-scan_topk_mma_kernel(const uint16_t* __restrict__ q, const void* __restrict__ xv,
+scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
                      const float* __restrict__ norms, int B, int N, int D, int K,
                      int rows_per_split, int q_res, int smem_lists, int x_async, int q_async,
                      float* __restrict__ part_k, int* __restrict__ part_p) {
+    using O = Op<MODE>;
+    using T = typename O::T;
     extern __shared__ __align__(16) unsigned char smem[];
-    const MmaLayout L = mma_layout(MODE, D, K, q_res, smem_lists);
+    const MmaLayout L = mma_layout<MODE>(D, K, q_res, smem_lists);
+    const T* q = static_cast<const T*>(qv);
     float* keys_s = reinterpret_cast<float*>(smem + L.keys);
     float* list_base_k = reinterpret_cast<float*>(smem + L.lists);
-    uint16_t* qs = reinterpret_cast<uint16_t*>(smem + L.qs);
-    uint16_t* dec = reinterpret_cast<uint16_t*>(smem + L.dec);
+    T* qs = reinterpret_cast<T*>(smem + L.qs);
+    T* aux = reinterpret_cast<T*>(smem + L.aux);
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int q0 = blockIdx.x * QT;
     const int split = blockIdx.y;
     const int row_begin = split * rows_per_split;
     const int row_end = min(N, row_begin + rows_per_split);
-    const int n_chunks = (D + DK - 1) / DK;
+    const int n_chunks = (D + O::DKC - 1) / O::DKC;
     const int n_tiles = row_end > row_begin ? (row_end - row_begin + RT - 1) / RT : 0;
     const int total = n_tiles * n_chunks;   // ring steps: (tile, chunk) in order
 
@@ -496,25 +596,25 @@ scan_topk_mma_kernel(const uint16_t* __restrict__ q, const void* __restrict__ xv
                       ((int64_t)split * B + q0) * K, K, smem_lists != 0};
     lists_init(lists, B, q0);
     if (q_res) {
-        const int dqp = L.dqs - 8;
+        const int dqp = L.dqs - O::V;
         for (int idx = tid; idx < QT * dqp; idx += NT) {
             const int r = idx / dqp, c = idx % dqp;
-            qs[r * L.dqs + c] = (q0 + r < B && c < D) ? q[(int64_t)(q0 + r) * D + c] : (uint16_t)0;
+            qs[r * L.dqs + c] = (q0 + r < B && c < D) ? q[(int64_t)(q0 + r) * D + c] : T(0);
         }
     }
 
     auto issue = [&](int step) {
         unsigned char* st = smem + L.ring + (size_t)(step % STAGES) * L.stage_bytes;
         const int r0 = row_begin + (step / n_chunks) * RT;
-        const int c0 = (step % n_chunks) * DK;
-        if constexpr (MODE == 1)
-            load_chunk_bf16(static_cast<const uint16_t*>(xv), r0, row_end, D, c0,
-                            reinterpret_cast<uint16_t*>(st), x_async);
-        else
+        const int c0 = (step % n_chunks) * O::DKC;
+        if constexpr (MODE == 3)
             load_chunk_i8(static_cast<const int8_t*>(xv), r0, row_end, D, c0,
                           reinterpret_cast<int8_t*>(st), x_async);
+        else
+            load_chunk<MODE>(static_cast<const T*>(xv), r0, row_end, D, c0,
+                             reinterpret_cast<T*>(st), x_async);
         if (!q_res)
-            load_chunk_bf16(q, q0, B, D, c0, reinterpret_cast<uint16_t*>(st + L.x_bytes), q_async);
+            load_chunk<MODE>(q, q0, B, D, c0, reinterpret_cast<T*>(st + L.x_bytes), q_async);
     };
 
     // Warp (wq, wr) owns queries wq*16 .. +15 and tile rows wr*32 .. +31:
@@ -550,31 +650,60 @@ scan_topk_mma_kernel(const uint16_t* __restrict__ q, const void* __restrict__ xv
                 }
             }
         }
-        const uint16_t* bt = reinterpret_cast<const uint16_t*>(st);
+        const T* bt = reinterpret_cast<const T*>(st);
+        const T* at = q_res ? qs + chunk * O::DKC : reinterpret_cast<const T*>(st + L.x_bytes);
         if constexpr (MODE == 3) {
-            decode_chunk(reinterpret_cast<const int8_t*>(st), dec);
+            decode_chunk(reinterpret_cast<const int8_t*>(st), aux);
             __syncthreads();
-            bt = dec;
+            bt = aux;
         }
-        const uint16_t* at = q_res ? qs + chunk * DK : reinterpret_cast<const uint16_t*>(st + L.x_bytes);
-        const int as = q_res ? L.dqs : SKP;
-        const int kw = min(DK, D - chunk * DK);
-        // ldmatrix row addresses: A's four 8x8 pieces are (rows 0-7 | 8-15) x
-        // (k 0-7 | 8-15); B's are (n 0-7, k 0-7), (n 0-7, k 8-15), then n 8-15.
-        const uint16_t* a_ptr = at + (wq * 16 + (lane & 15)) * as + (lane >> 4) * 8;
-        const uint16_t* b_ptr = bt + (wr * 32 + (lane >> 4) * 8 + (lane & 7)) * SKP + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int kk = 0; kk < DK; kk += 16) {
-            if (kk < kw && !FL2_NO_MMA) {
+        if constexpr (MODE == 0) {
+            // Split the store chunk and the query chunk once for the
+            // block: hi in place, lo into aux.
+            split_chunk(const_cast<float*>(bt), aux);
+            split_chunk(const_cast<float*>(at), aux + RT * O::SK);
+            __syncthreads();
+        }
+        const int as = q_res ? L.dqs : O::SK;
+        const int kw = min(O::DKC, D - chunk * O::DKC);
+        // ldmatrix row addresses, 16 bytes each: A's four pieces are (rows
+        // 0-7 | 8-15) x (bytes 0-15 | 16-31) of a 32-byte k step; B's are
+        // (n 0-7, bytes 0-15), (n 0-7, bytes 16-31), then n 8-15 alike.
+        // bf16 reads them as 8x8 b16 matrices (k16), f32 as 8x4 f32 (k8).
+        const int a_off = (wq * 16 + (lane & 15)) * as + (lane >> 4) * O::V;
+        const int b_off = (wr * 32 + (lane >> 4) * 8 + (lane & 7)) * O::SK + ((lane >> 3) & 1) * O::V;
+        // One 32-byte k step of the warp's four pieces.
+        auto k_step = [&](int kk) {
+            if constexpr (MODE == 0) {
+                unsigned ah[4], al[4], bh01[4], bh23[4], bl01[4], bl23[4];
+                ldmatrix_x4(ah, at + a_off + kk);
+                ldmatrix_x4(al, aux + RT * O::SK + a_off + kk);
+                ldmatrix_x4(bh01, bt + b_off + kk);
+                ldmatrix_x4(bh23, bt + b_off + 16 * O::SK + kk);
+                ldmatrix_x4(bl01, aux + b_off + kk);
+                ldmatrix_x4(bl23, aux + b_off + 16 * O::SK + kk);
+                mma_3xtf32(acc, ah, al, bh01, bh23, bl01, bl23);
+            } else {
                 unsigned a[4], b01[4], b23[4];
-                ldmatrix_x4(a, a_ptr + kk);
-                ldmatrix_x4(b01, b_ptr + kk);
-                ldmatrix_x4(b23, b_ptr + 16 * SKP + kk);
+                ldmatrix_x4(a, at + a_off + kk);
+                ldmatrix_x4(b01, bt + b_off + kk);
+                ldmatrix_x4(b23, bt + b_off + 16 * O::SK + kk);
                 mma_bf16(acc[0], a, b01[0], b01[1]);
                 mma_bf16(acc[1], a, b01[2], b01[3]);
                 mma_bf16(acc[2], a, b23[0], b23[1]);
                 mma_bf16(acc[3], a, b23[2], b23[3]);
             }
+        };
+        if (FL2_NO_MMA) {
+        } else if (MODE == 0 && kw == O::DKC) {
+            // A whole chunk, with no guard between its k steps, so that they
+            // overlap (each f32 k step is a chain of three mma.sync).
+#pragma unroll
+            for (int kk = 0; kk < O::DKC; kk += 2 * O::V) k_step(kk);
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < O::DKC; kk += 2 * O::V)
+                if (kk < kw) k_step(kk);
         }
 
         if (chunk == n_chunks - 1) {
@@ -650,18 +779,17 @@ merge_splits_kernel(const float* __restrict__ part_k, const int* __restrict__ pa
 
 int rows_per_split(int N, int S) { return ((N + S - 1) / S + RT - 1) / RT * RT; }
 
-template <int MODE, typename TQ, typename T>
-cudaError_t launch_scan(const void* q, const void* x, const float* norms, const float* rs,
-                        int B, int N, int D, int K, int S, float* part_k, int* part_p,
-                        cudaStream_t stream) {
-    size_t smem = sizeof(float) * (QT * (RT + 1) + 2 * DKF * TS);
+cudaError_t launch_scan_i8(const void* q, const void* x, const float* norms, const float* rs,
+                           int B, int N, int D, int K, int S, float* part_k, int* part_p,
+                           cudaStream_t stream) {
+    size_t smem = sizeof(float) * QT * (RT + 1) + sizeof(int) * 2 * DKW * TS;
     if (K <= SMEM_LIST_MAX) smem += (sizeof(float) + sizeof(int)) * (size_t)QT * K;
-    cudaError_t err = cudaFuncSetAttribute(scan_topk_kernel<MODE, TQ, T>,
+    cudaError_t err = cudaFuncSetAttribute(scan_topk_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((B + QT - 1) / QT, S);
-    scan_topk_kernel<MODE, TQ, T><<<grid, NT, smem, stream>>>(
-        static_cast<const TQ*>(q), static_cast<const T*>(x), norms, rs, B, N, D, K,
+    scan_topk_kernel<<<grid, NT, smem, stream>>>(
+        static_cast<const int8_t*>(q), static_cast<const int8_t*>(x), norms, rs, B, N, D, K,
         rows_per_split(N, S), part_k, part_p);
     return cudaGetLastError();
 }
@@ -669,22 +797,19 @@ cudaError_t launch_scan(const void* q, const void* x, const float* norms, const 
 template <int MODE>
 cudaError_t launch_scan_mma(const void* q, const void* x, const float* norms, int B, int N, int D,
                             int K, int S, float* part_k, int* part_p, cudaStream_t stream) {
-    // Resident queries when they fit; then the lists in shared memory when
-    // they fit beside them.
-    const bool q_res = mma_layout(MODE, D, K, true, false).total <= SMEM_MAX;
-    const bool smem_lists = K <= SMEM_LIST_MAX && mma_layout(MODE, D, K, q_res, true).total <= SMEM_MAX;
-    const size_t smem = mma_layout(MODE, D, K, q_res, smem_lists).total;
-    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-    const int vec = MODE == 1 ? 8 : 16;   // elements per 16-byte copy
-    const bool x_async = reinterpret_cast<uintptr_t>(x) % 16 == 0 && D % vec == 0;
-    const bool q_async = reinterpret_cast<uintptr_t>(q) % 16 == 0 && D % 8 == 0;
+    const MmaPlan plan = mma_plan<MODE>(D, K);
+    if (plan.smem > SMEM_MAX) return cudaErrorInvalidValue;
+    const int x_vec = MODE == 3 ? 16 : Op<MODE>::V;   // elements per 16-byte copy
+    const bool x_async = reinterpret_cast<uintptr_t>(x) % 16 == 0 && D % x_vec == 0;
+    const bool q_async = reinterpret_cast<uintptr_t>(q) % 16 == 0 && D % Op<MODE>::V == 0;
     cudaError_t err = cudaFuncSetAttribute(scan_topk_mma_kernel<MODE>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)plan.smem);
     if (err != cudaSuccess) return err;
     dim3 grid((B + QT - 1) / QT, S);
-    scan_topk_mma_kernel<MODE><<<grid, NT, smem, stream>>>(
-        static_cast<const uint16_t*>(q), x, norms, B, N, D, K, rows_per_split(N, S), q_res,
-        smem_lists, x_async, q_async, part_k, part_p);
+    scan_topk_mma_kernel<MODE><<<grid, NT, plan.smem, stream>>>(
+        q, x, norms, B, N, D, K, rows_per_split(N, S), plan.q_res, plan.smem_lists, x_async,
+        q_async, part_k, part_p);
     return cudaGetLastError();
 }
 
@@ -692,16 +817,30 @@ cudaError_t launch_scan_mma(const void* q, const void* x, const float* norms, in
 
 extern "C" {
 
-int fused_l2_topk_abi_version() { return 4; }
+int fused_l2_topk_abi_version() { return 5; }
 
-// The number S of splits of the store for B queries over N rows on a card
-// of `sms` multiprocessors: (query tiles x splits) fills the card at most
-// twice over (the tensor-core pass holds two blocks per SM at small k, so
-// the grid is one wave with no tail), with at least one row tile per split.
-int fused_l2_topk_splits(int B, int N, int sms) {
+// The number S of splits of the store for B queries over N rows of D
+// columns at depth K, in mode `dtype`, on a card of `sms` multiprocessors:
+// (query tiles x splits) fills each SM with as many pass-1 blocks as fit
+// on it at once, so the grid is one wave with no tail, with at least one
+// row tile per split. Modes 1-3 count two blocks per SM (the bf16 layout
+// at small k); mode 0 as many as the CUDA occupancy query reports for its
+// shared memory at (D, K): two at k = 20, one where lists in shared memory
+// leave no room for a second.
+int fused_l2_topk_splits(int dtype, int B, int N, int D, int K, int sms) {
+    int per_sm = 2;
+    if (dtype == 0) {
+        const size_t smem = mma_plan<0>(D, K).smem;
+        if (cudaFuncSetAttribute(scan_topk_mma_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_topk_mma_kernel<0>, NT, smem) !=
+                cudaSuccess ||
+            per_sm < 1)
+            per_sm = 1;
+    }
     const int q_tiles = (B + QT - 1) / QT;
     const int row_tiles = (N + RT - 1) / RT;
-    int s = 2 * sms / q_tiles;
+    int s = per_sm * sms / q_tiles;
     if (s > row_tiles) s = row_tiles;
     if (s > MAX_SPLITS) s = MAX_SPLITS;
     return s < 1 ? 1 : s;
@@ -720,16 +859,15 @@ int fused_l2_topk(int dtype, const void* q, const void* x, const void* norms, co
     if (dtype == 2 && D % 4 != 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* nr = static_cast<const float*>(norms);
-    const float* r = static_cast<const float*>(rs);
     float* pk = static_cast<float*>(part_k);
     int* pp = static_cast<int*>(part_p);
     cudaError_t err;
     if (dtype == 0)
-        err = launch_scan<0, float, float>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
+        err = launch_scan_mma<0>(q, x, nr, B, N, D, K, S, pk, pp, st);
     else if (dtype == 1)
         err = launch_scan_mma<1>(q, x, nr, B, N, D, K, S, pk, pp, st);
     else if (dtype == 2)
-        err = launch_scan<2, int8_t, int8_t>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
+        err = launch_scan_i8(q, x, nr, static_cast<const float*>(rs), B, N, D, K, S, pk, pp, st);
     else if (dtype == 3)
         err = launch_scan_mma<3>(q, x, nr, B, N, D, K, S, pk, pp, st);
     else

@@ -13,12 +13,12 @@ Layers:
     (keys (B, k) f32, positions (B, k) int32) with (inf, INT32_MAX) in
     unfilled slots. Modes: f32, bf16 and int8 stores with queries of the
     same type, and int8 codes with bf16 queries (the codes decode to bf16,
-    exactly). The two bf16 products (bf16 store; int8 codes with bf16
-    queries) run on the tensor cores (mma.sync m16n8k16 bf16 -> f32, the
-    queries resident in shared memory, store chunks through a cp.async
-    ring); f32 and int8 x int8 run on the CUDA cores (FMA, __dp4a). The
-    source note says what bounds each. A CUDA tensor launches the kernel
-    (or raises); a CPU tensor takes the plain version `select_plain`.
+    exactly). The f32 and the two bf16 products (bf16 store; int8 codes
+    with bf16 queries) run on the tensor cores (mma.sync: 3xTF32 m16n8k8
+    for f32, m16n8k16 bf16 -> f32; store chunks through a cp.async ring);
+    int8 x int8 runs on the CUDA cores (__dp4a). The source note says what
+    bounds each. A CUDA tensor launches the kernel (or raises); a CPU
+    tensor takes the plain version `select_plain`.
     `fused_l2_topk.launches` counts kernel launches,
     `fused_l2_topk.launches_by_mode` by mode.
   - `fused_topk(db, ids, sq_norms, queries, k, q_int8=None)`: the JAX
@@ -50,9 +50,9 @@ _MODES = {
 
 def _load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 4, {
+    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 5, {
         "fused_l2_topk": ([ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp], ci),
-        "fused_l2_topk_splits": ([ci, ci, ci], ci),
+        "fused_l2_topk_splits": ([ci, ci, ci, ci, ci, ci], ci),
     })
 
 
@@ -126,7 +126,7 @@ def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
     if k < 1 or n < 1:
         raise ValueError(f"fused_l2_topk: need k >= 1 and a non-empty store (k={k}, N={n})")
     lib = _load()
-    splits = lib.fused_l2_topk_splits(b, n, _sm_count(db.device.index))
+    splits = lib.fused_l2_topk_splits(mode[0], b, n, d, k, _sm_count(db.device.index))
     part_k = torch.empty((splits, b, k), dtype=torch.float32, device=db.device)
     part_p = torch.empty((splits, b, k), dtype=torch.int32, device=db.device)
     out_k = torch.empty((b, k), dtype=torch.float32, device=db.device)

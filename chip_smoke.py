@@ -6,10 +6,10 @@
 Phases (any failure raises and exits non-zero; none is caught):
   1. build       nvcc builds csrc/fused_l2_topk.cu, csrc/ivf_scan.cu and
                  csrc/adc_scan.cu, in parallel, into
-                 c99_vectordb_tpu_torch/_build/. fused_l2_topk runs its two
-                 bf16 products (bf16 store; int8 codes with bf16 queries) on
-                 the tensor cores (mma.sync) and its f32 and int8 x int8
-                 modes on the CUDA cores.
+                 c99_vectordb_tpu_torch/_build/. fused_l2_topk runs its f32
+                 product (3xTF32) and its two bf16 products (bf16 store; int8
+                 codes with bf16 queries) on the tensor cores (mma.sync) and
+                 its int8 x int8 mode on the CUDA cores.
   2. kernel      fused_l2_topk against its plain torch version on the card,
                  for the f32, bf16 and int8 stores (and int8 codes with bf16
                  queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
@@ -169,8 +169,13 @@ def check_selection(q_st, db, norms, k, rs, exact: bool, label: str):
     return max_err
 
 
-def phase_kernel(device, n, d, batches, k, seed, max_err_bf16q):
-    max_err = 0.0
+def note_err(errs, mode, err):
+    errs[mode] = max(errs.get(mode, 0.0), err)
+
+
+def phase_kernel(device, n, d, batches, k, seed, errs):
+    """Every mode against the plain version at (n, d); each mode's max
+    |key diff| goes into errs."""
     for dt in ("float32", "bfloat16", "int8"):
         made = make_store(n, d, dt, device, seed)
         db, norms = made[0], made[1]
@@ -182,25 +187,23 @@ def phase_kernel(device, n, d, batches, k, seed, max_err_bf16q):
             q_st, rs = topk_cuda.stage_queries(q, db.dtype)
             err = check_selection(q_st, db, norms, k, rs,
                                   exact=(dt == "int8"), label=f"{dt} B={b}")
-            max_err = max(max_err, err)
+            note_err(errs, dt, err)
             log(f"kernel {dt:8s} N={n} D={d} B={b:5d} k={k}: agrees with plain "
                 f"(max |key diff| {err:.3e})")
             if dt == "int8":
                 q_st, _ = topk_cuda.stage_queries(q, db.dtype, q_int8=False)
                 err = check_selection(q_st, db, norms, k, None, exact=False,
                                       label=f"int8 bf16 queries B={b}")
-                max_err_bf16q[0] = max(max_err_bf16q[0], err)
+                note_err(errs, "int8_bf16q", err)
                 log(f"kernel int8 codes, bf16 queries (q_int8=False) N={n} D={d} B={b:5d} "
                     f"k={k}: agrees with plain (max |key diff| {err:.3e})")
         del db, norms, made
-    return max_err
 
 
-def phase_fixtures(device, d, seed):
+def phase_fixtures(device, d, seed, errs):
     """Duplicate rows, +inf padding/masked norms, k above the live rows,
     ragged N, and deep k (lists in shared and in global memory), for every
     mode; "int8_bf16q" is the int8 store with bf16 queries (q_int8=False)."""
-    max_err = 0.0
     g = torch.Generator(device=device).manual_seed(seed + 7)
     for mode in ("float32", "bfloat16", "int8", "int8_bf16q"):
         dt = "int8" if mode == "int8_bf16q" else mode
@@ -219,8 +222,8 @@ def phase_fixtures(device, d, seed):
         q_st, rs = topk_cuda.stage_queries(base.repeat(3, 1), db.dtype, q_int8)
         kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, 16, rs)
         assert kp[:, :16].tolist() == [list(range(16))] * 3, f"{mode}: duplicate rows"
-        max_err = max(max_err, check_selection(q_st, db, norms, 16, rs,
-                                               exact=exact, label=f"{mode} dup"))
+        note_err(errs, mode, check_selection(q_st, db, norms, 16, rs,
+                                             exact=exact, label=f"{mode} dup"))
         # +inf norms (padding and masked rows, including the nearest ones) and
         # k above the live rows, at a ragged N.
         n = 5000
@@ -231,20 +234,19 @@ def phase_fixtures(device, d, seed):
         _, near = topk_cuda.select_plain(q_st, db, norms, 3, rs)
         norms[near.flatten().long()] = torch.inf
         norms[torch.randperm(n, generator=g, device=device)[: n // 3]] = torch.inf
-        max_err = max(max_err, check_selection(q_st, db, norms, 50, rs,
-                                               exact=exact, label=f"{mode} masked"))
+        note_err(errs, mode, check_selection(q_st, db, norms, 50, rs,
+                                             exact=exact, label=f"{mode} masked"))
         live = torch.zeros(n, dtype=torch.bool, device=device)
         live[torch.randperm(n, generator=g, device=device)[:7]] = True
         few = torch.where(live, made[1], torch.inf)
         kk, kp = topk_cuda.fused_l2_topk(q_st, db, few, 20, rs)
         assert bool(torch.isinf(kk[:, 7:]).all()) and bool((kp[:, 7:] == 2**31 - 1).all())
-        max_err = max(max_err, check_selection(q_st, db, few, 20, rs,
-                                               exact=exact, label=f"{mode} k>live"))
+        note_err(errs, mode, check_selection(q_st, db, few, 20, rs,
+                                             exact=exact, label=f"{mode} k>live"))
         for deep in (200, 1024):
-            max_err = max(max_err, check_selection(
+            note_err(errs, mode, check_selection(
                 q_st, db, made[1], deep, rs, exact=exact, label=f"{mode} k={deep}"))
         log(f"fixtures {mode}: duplicates, +inf norms, k > live rows, k=200/1024 agree")
-    return max_err
 
 
 # -- phase 3: FlatIndex end to end ---------------------------------------------
@@ -500,6 +502,15 @@ def library_call(q_st, db, norms, k, rs, dt):
                               k, largest=False)
 
 
+# How pass 1 of fused_l2_topk forms each mode's products (csrc/fused_l2_topk.cu).
+PRODUCT_ROUTE = {
+    "float32": "tensor cores, mma.sync m16n8k8 tf32, 3xTF32",
+    "bfloat16": "tensor cores, mma.sync m16n8k16 bf16",
+    "int8_bf16q": "tensor cores, mma.sync m16n8k16 bf16",
+    "int8": "CUDA cores, __dp4a",
+}
+
+
 def time_case(q_st, db, norms, k, rs, card):
     """Kernel, plain version and library yardstick on the same staged
     operands (CUDA-event means), beside the bound."""
@@ -515,14 +526,17 @@ def time_case(q_st, db, norms, k, rs, card):
     plain = time_ms(lambda: topk_cuda.select_plain(q_st, db, norms, k, rs), iters)
     lib = time_ms(library_call(q_st, db, norms, k, rs, dt), iters)
     bms, by = bound(n, d, b, k, dt)
-    product = "mma" if dt in ("bfloat16", "int8_bf16q") else "cuda_core"
-    log(f"times {dt:10s} B={b:5d} N={n} D={d} k={k} ({product}): kernel {ms:.4f} ms, "
+    row = {"dtype": dt, "B": b, "N": n, "D": d, "k": k, "product": PRODUCT_ROUTE[dt], "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
+           "kernel_over_bound": ms / bms, "kernel_over_library": ms / lib}
+    floor = ""
+    if dt == "float32":   # 3xTF32 runs three TF32 products: their own floor (log only)
+        floor = f", 3xTF32 product floor {3 * 2 * b * n * d / PEAK_OPS_PER_S[dt] * 1e3:.4f} ms"
+    log(f"times {dt:10s} B={b:5d} N={n} D={d} k={k} ({row['product']}): kernel {ms:.4f} ms, "
         f"plain {plain:.4f} ms, library yardstick (matmul + topk) {lib:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}); kernel / bound {ms / bms:.2f}, kernel / library "
+        f"bound {bms:.4f} ms ({by}){floor}; kernel / bound {ms / bms:.2f}, kernel / library "
         f"{ms / lib:.3f} [{card}]")
-    return {"dtype": dt, "B": b, "N": n, "D": d, "k": k, "product": product, "ms": ms,
-            "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
-            "kernel_over_bound": ms / bms, "kernel_over_library": ms / lib}
+    return row
 
 
 def phase_times(device, n, d, batches, k, seed, card):
@@ -1384,7 +1398,7 @@ def build_all():
         ptxas = cuda_build.ptxas_log(name)
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"  ptxas: {line.strip()}")
 
 
@@ -1409,9 +1423,9 @@ def main() -> int:
 
     # 2. kernel against plain
     t0 = time.perf_counter()
-    max_err_bf16q = [0.0]
-    max_err = phase_kernel(device, n_kernel, d, batches, 20, args.seed, max_err_bf16q)
-    max_err = max(max_err, phase_fixtures(device, d, args.seed))
+    errs = {}   # max |key diff| by mode
+    phase_kernel(device, n_kernel, d, batches, 20, args.seed, errs)
+    phase_fixtures(device, d, args.seed, errs)
     log(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
     # 3. FlatIndex end to end (a path: counts reset before, read after)
@@ -1425,7 +1439,7 @@ def main() -> int:
     assert flat_launches > 0, "FlatIndex did not reach the kernel"
     assert bf16q_launches > 0, "fused_topk(q_int8=False) did not reach the kernel"
     bf16q_inputs = flat_out["bf16q_inputs"]
-    max_err_bf16q[0] = max(max_err_bf16q[0], check_selection(
+    note_err(errs, "int8_bf16q", check_selection(
         *bf16q_inputs, exact=False, label="flat int8 q_int8=False operands"))
     log(f"phase flat: {time.perf_counter() - t0:.1f} s")
 
@@ -1437,8 +1451,8 @@ def main() -> int:
         main_launches = topk_cuda.fused_l2_topk.launches
     assert main_launches > 0, "MemoDB did not reach the kernel"
     q_st, db = main_inputs[:2]
-    max_err = max(max_err, check_selection(*main_inputs, exact=db.dtype == torch.int8,
-                                           label="memodb operands"))
+    note_err(errs, str(db.dtype).removeprefix("torch."), check_selection(
+        *main_inputs, exact=db.dtype == torch.int8, label="memodb operands"))
     log(f"kernel {str(db.dtype).removeprefix('torch.'):8s} N={db.shape[0]} D={db.shape[1]} "
         f"B={q_st.shape[0]:5d} k={main_inputs[3]}: agrees with plain on the MemoDB "
         f"path's own operands")
@@ -1529,7 +1543,8 @@ def main() -> int:
         "launches": main_launches,
         "launches_by_path": {"memodb": main_launches, "flat": flat_launches},
         "launches_by_mode": {"flat": flat_by_mode},
-        "max_abs_err": max_err,
+        "max_abs_err": max(errs[m] for m in ("float32", "bfloat16", "int8")),
+        "max_abs_err_by_mode": errs,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1576,7 +1591,7 @@ def main() -> int:
         "replaces": "c99_vectordb_tpu/ops/topk_pallas.py:44 (mode :76-80, :348)",
         "launches": bf16q_launches,
         "launches_by_path": {"flat": bf16q_launches},
-        "max_abs_err": max_err_bf16q[0],
+        "max_abs_err": errs["int8_bf16q"],
         **{key: bf16q_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
         "shape": {key: bf16q_row[key] for key in ("dtype", "B", "N", "D", "k")},

@@ -143,6 +143,59 @@ def test_kernel_odd_width_and_exact_ties(cuda, dtype, d, k):
     assert torch.equal(kk, pk) and torch.equal(kp, pp)
 
 
+REL_TOL = 1e-4   # chip_smoke.REL_TOL: |key diff| <= REL_TOL * max(|key|, 1)
+
+
+def _tf32_hazard_operands(case, n, b, seed):
+    """Seeded (store, queries) for the f32 mode's 3xTF32 products:
+    unit_norm: MemoDB's regime, unit rows and queries around 1,024 shared
+    centres (about 8 rows each), so the selected keys (1 - 2 cos) run from
+    about -1 to 1 and cross 0;
+    mixed_magnitudes: elements of 1e-3 to 1e3 within every row and query,
+    where keys come from large products that cancel;
+    wide_768: Gaussian at D = 768, twice the chunks of D = 384 per tile
+    (its 64 f32 queries, 197 KB, would not fit resident in shared memory
+    beside the ring; they stream through it, as at every width)."""
+    rng = np.random.default_rng(seed)
+    d = 768 if case == "wide_768" else 384
+    if case == "unit_norm":
+        centres = rng.standard_normal((1024, d))
+        spread = rng.uniform(0.05, 2.0, (n, 1))
+        x = centres[rng.integers(0, 1024, n)] + spread * rng.standard_normal((n, d))
+        q = centres[rng.integers(0, 1024, b)] + 0.3 * rng.standard_normal((b, d))
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    elif case == "mixed_magnitudes":
+        x = rng.standard_normal((n, d)) * 10.0 ** rng.uniform(-3, 3, (n, d))
+        q = rng.standard_normal((b, d)) * 10.0 ** rng.uniform(-3, 3, (b, d))
+    else:
+        x = rng.standard_normal((n, d))
+        q = rng.standard_normal((b, d))
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["unit_norm", "mixed_magnitudes", "wide_768"])
+def test_f32_tensor_core_keys_within_rel_tol(cuda, case):
+    """The f32 mode's keys (3xTF32 on the tensor cores) against the plain
+    f32 version, |diff| <= REL_TOL * max(|key|, 1), with positions equal
+    except inside groups of keys tied within that tolerance."""
+    n, b, k = 8192 + 37, 129, 20
+    x, q = _tf32_hazard_operands(case, n, b, seed=len(case))
+    db = torch.from_numpy(x).to(cuda)
+    norms = (db * db).sum(1)
+    q_st, _ = topk_cuda.stage_queries(torch.from_numpy(q).to(cuda), db.dtype)
+    before = topk_cuda.fused_l2_topk.launches_by_mode["float32"]
+    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, k)
+    assert topk_cuda.fused_l2_topk.launches_by_mode["float32"] == before + 1
+    pk, pp = topk_cuda.select_plain(q_st, db, norms, k)
+    torch.cuda.synchronize()
+    if case == "unit_norm":
+        assert float(pk.min()) < 0.0 < float(pk.max())
+    want, got = pk.cpu().numpy(), kk.cpu().numpy()
+    assert np.all(np.abs(got - want) <= REL_TOL * np.maximum(np.abs(want), 1.0))
+    same_up_to_ties(want, pp.cpu().numpy(), got, kp.cpu().numpy(), REL_TOL)
+
+
 def test_kernel_rejects_bad_operands(cuda):
     db, norms, _ = _store("float32", 1024, 64, cuda, seed=1)
     q = torch.randn((4, 64), device=cuda)

@@ -4,18 +4,22 @@
     python3 tools/flat_mma_breakdown.py [--seed 1234] [--k 20]
 
 Builds csrc/fused_l2_topk.cu as it ships and in diagnostic variants (the
-FL2_* preprocessor switches of its source note), then times the bf16-store
-mode and the int8-codes-with-bf16-queries mode on 1,048,576 x 384 seeded
-Gaussian stores at B = 128 and 1024 (CUDA-event means, k = 20):
+FL2_* preprocessor switches of its source note), then times the three
+tensor-core modes: the f32 store (3xTF32), the bf16 store and the int8
+codes with bf16 queries, on 1,048,576 x 384 seeded Gaussian stores at
+B = 128 and 1024, and the f32 store at MemoDB's 131,072 rows at B = 128
+(CUDA-event means, k = 20):
   - shipped:    the kernel as built by ops/cuda_build.py;
   - no_select:  the products and keys, without the warp selection;
   - no_mma:     the ring and the selection, without the products;
   - ring_only:  the cp.async ring alone (loads, decode, keys tile);
-  - stages4, dk128_stages2: other ring shapes.
-The variants that compute the contract (shipped, stages4, dk128_stages2) are
-first held against the plain version (chip_smoke.check_selection). Prints the
-card line from nvidia-smi first, then one line per variant with its
-registers per thread. Needs a CUDA card and nvcc.
+  - stages4, dk128_stages2: other ring shapes (dk128 for the bf16 modes;
+    f32 keeps its 32-column chunks).
+The variants that compute the contract (all but the FL2_NO_* cuts) are
+first held against the plain version at B = 128 (chip_smoke.check_selection).
+Prints the card line from nvidia-smi first, then one line per variant and
+the ptxas lines of its build (each kernel's registers and spill bytes).
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -59,23 +63,24 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     cases = []
-    for dt in ("bfloat16", "int8"):
-        made = cs.make_store(1 << 20, 384, dt, device, args.seed)
+    for dt, n, batches in (("float32", 131_072, (128,)), ("float32", 1 << 20, (128, 1024)),
+                           ("bfloat16", 1 << 20, (128, 1024)), ("int8", 1 << 20, (128, 1024))):
+        made = cs.make_store(n, 384, dt, device, args.seed)
         g = torch.Generator(device=device).manual_seed(args.seed + 1)
-        for b in (128, 1024):
+        for b in batches:
             q = torch.randn((b, 384), generator=g, device=device)
             if dt == "int8":
                 q = q * made[2]
             q_st, _ = topk_cuda.stage_queries(q, made[0].dtype, q_int8=False)
-            label = "bf16" if dt == "bfloat16" else "int8_bf16q"
-            cases.append((f"{label} B={b}", q_st, made[0], made[1]))
+            label = {"float32": "f32", "bfloat16": "bf16", "int8": "int8_bf16q"}[dt]
+            cases.append((f"{label} N={n} B={b}", q_st, made[0], made[1]))
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, defines in VARIANTS.items():
         lib = ctypes.CDLL(str(paths[name]))
         lib.fused_l2_topk.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.fused_l2_topk.restype = ci
-        lib.fused_l2_topk_splits.argtypes = [ci, ci, ci]
+        lib.fused_l2_topk_splits.argtypes = [ci, ci, ci, ci, ci, ci]
         lib.fused_l2_topk_splits.restype = ci
         topk_cuda._load = lambda lib=lib: lib
         parts = []
@@ -86,10 +91,10 @@ def main() -> int:
             ms = cs.time_ms(lambda: topk_cuda.fused_l2_topk(q_st, db, norms, args.k),
                             20 if q_st.shape[0] <= 128 else 5)
             parts.append(f"{label} {ms:.4f} ms")
-        regs = [line.split("Used ")[-1].split(",")[0]
-                for line in cuda_build.ptxas_log("fused_l2_topk", defines).read_text().splitlines()
-                if "registers" in line]
-        print(f"{name:14s} " + ", ".join(parts) + f" | registers (per kernel) {regs}", flush=True)
+        print(f"{name:14s} " + ", ".join(parts), flush=True)
+        for line in cuda_build.ptxas_log("fused_l2_topk", defines).read_text().splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
     return 0
 
 
