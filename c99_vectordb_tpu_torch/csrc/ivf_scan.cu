@@ -7,7 +7,7 @@
 // with queries per block as a parameter:
 //
 //   ivf_select_kernel      <- _ivf_scan_kernel (:113) and
-//                             _ivf_scan_kernel_multi (:202)
+//   (+ ivf_merge_kernel)      _ivf_scan_kernel_multi (:202)
 //   ivf_dense_kernel       <- _ivf_scan_kernel_dense (:362)
 //   ivf_dense_int8_kernel  <- _ivf_scan_kernel_dense_int8 (:462) and
 //                             _ivf_scan_kernel_dense_int8_multi (:496)
@@ -36,38 +36,59 @@
 //                unsorted by a tail fold change nothing). Padding (inf,
 //                INT_MAX) never enters; a masked row (inf norm, real id)
 //                may fill an underfilled list, as in the Pallas kernel.
-//                Unfilled slots come back as (inf, -1).
+//                Unfilled slots come back as (inf, -1). An optional
+//                (nlist,) high-water mark hwm (one past each list's last
+//                occupied slot, models/devbuild.py list_hwm) stops the scan
+//                of every list there: the slots past it hold id -1, which
+//                never enters, so results do not depend on it.
 //
-// The distance of one (query, row) pair is computed by ONE device routine
-// (tile_dists) for both f32/bf16 kernels, with the same per-row summation
-// order, so the select and dense routes return bit-identical distances.
-//
-// Design (simple and right first). A block of 256 threads streams a list
-// in tiles of RT = 64 rows through shared memory (one contiguous block of
-// rows, 16-byte loads, converted to f32 for bf16); each row's dot product
-// is split over 4 threads, each a contiguous quarter of D, and the four
-// partial sums are added in a fixed order. The select kernel gives each
-// block `qpb` queries in turn and walks each query's nprobe lists in a
-// loop inside the block (the TPU's sequential probe axis; there is no
-// scalar prefetch on Hopper, so the block reads its own probe ids); warp 0
-// merges each tile into the query's sorted list, in shared memory for
-// k <= 1024 and in the output rows otherwise. The dense kernels give each
-// block one (query group, probe, row tile).
+// Every f32/bf16 distance is (q_sq + sqn) - 2 * ip, clamped at 0
+// (l2_dist), with ip summed per row as four contiguous quarters of D, FMAs
+// in index order, added ((p0 + p1) + p2) + p3: the select and dense routes
+// return bit-identical distances.
 //
 // Bound on the NVIDIA H100 80GB HBM3 (published at 700 W: 3.35 TB/s;
-// tensor cores 495 TFLOP/s TF32, 989 TFLOP/s bf16, 1,979 TOP/s int8). The
-// work is a (1, D) x (D, pad) product per (query, probe): 2 * pad * D
-// operations for pad * D * itemsize bytes, so every variant is bound by
-// the bytes of the lists it reads, counted on the unique probed lists (a
-// list probed by several queries of a batch need only be read once). At
-// 1M x 384, nlist 4096, pad 1152, B = 128, nprobe 16, the 1,591 unique
-// lists hold 2.8 GB of f32 -> 0.85 ms. This first version keeps every
-// product on the CUDA cores and reads each probed list once per query
-// that probes it; chip_smoke.py times it against the bound (PERF.md).
+// tensor cores 495 TFLOP/s TF32, 989 TFLOP/s bf16, 1,979 TOP/s int8; 67
+// TFLOP/s f32 on the CUDA cores). The work is a (1, D) x (D, rows) product
+// per (query, probe): 2 * D operations per row for D * itemsize bytes, so
+// every variant is bound by the bytes of the live rows it reads, counted
+// once per unique probed list. At 1M x 384, nlist 4096, B = 128, nprobe
+// 16, the live rows of the 1,591 unique lists hold 0.6 GB of f32 -> 0.18
+// ms (chip_smoke.py computes the bound of each run).
+//
+// Select design (what held the first version back, and the answer):
+//   - One block per query walked all 16 probed lists, so at B = 128 the
+//     grid was one block per SM. Now the grid is (query groups of qpb,
+//     probe groups of G): each block scans a contiguous range of the
+//     query's probes and writes its own sorted top-K to a (B, G, K)
+//     scratch; ivf_merge_kernel merges each query's G lists exactly
+//     (select_merge.cuh states why the split is exact). The wrapper sizes
+//     G from the occupancy query (ops/ivf_scan_cuda.py probe_groups).
+//   - Each list was walked to `pad`, 4.8x its live rows at 1M. Now the
+//     block stops at the list's high-water mark.
+//   - Each 64-row tile was loaded synchronously, then scored. Now 32-row
+//     tiles stream through two shared-memory buffers with 16-byte
+//     cp.async (the next tile but one is in flight while a tile is scored
+//     and selected); a row's smem stride is D plus 16 bytes, so rows stay
+//     aligned and eight consecutive rows' 16-byte reads hit distinct
+//     banks. 128 threads: warp p sums quarter p of all 32 rows of a tile,
+//     lane r one row, so f32 at D = 384 takes 102 KB and two blocks fit on
+//     an SM.
+//   - Warp 0 inserted candidates one at a time while seven warps waited.
+//     Now a tile's admitted candidates are compacted, ranked and merged
+//     into the running list by every thread (select_merge.cuh merge_tile).
+//   Rows that are not 16-byte aligned (D % 16 for f32, D % 32 for bf16)
+//   take a synchronous loader and scalar reads with the same arithmetic.
+//
+// The dense kernels give each block one (query group, probe, row tile):
+// a block of 256 threads streams its 64-row tile through shared memory
+// and scores each row by four threads (tile_dists).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "select_merge.cuh"
 
 namespace {
 
@@ -75,8 +96,6 @@ constexpr int NT = 256;            // threads per block (8 warps)
 constexpr int RT = 64;             // list rows per tile
 constexpr int PARTS = NT / RT;     // threads per row's dot product
 constexpr int SMEM_K_MAX = 1024;   // select lists in shared memory up to this k
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int INT_MAXV = 0x7fffffff;
 constexpr size_t SMEM_LIMIT = 232448;   // 227 KB per block on sm_90
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -139,6 +158,13 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
     }
 }
 
+// The distance of one row from its summed dot product ip: each operation
+// rounded on its own, so nvcc contracts nothing and every kernel that
+// calls it returns the same bits.
+__device__ __forceinline__ float l2_dist(float q_sq, float sqn, float ip) {
+    return fmaxf(__fsub_rn(__fadd_rn(q_sq, sqn), __fmul_rn(2.0f, ip)), 0.0f);
+}
+
 // The shared distance routine of the f32/bf16 kernels. Scores the `rows`
 // list rows starting at flat row `row0` of (nlist * pad, D) `lists`
 // against the staged query qs (D floats) and writes dist/raw id of row r
@@ -169,99 +195,239 @@ __device__ void tile_dists(const T* __restrict__ lists, int64_t row0, int rows, 
         for (int j = 1; j < PARTS; ++j) ip = __fadd_rn(ip, part[j * RT + r]);
         const int64_t row = row0 + r;
         const int id = ids[row];
-        float d = __fsub_rn(__fadd_rn(q_sq, sqn[row]), __fmul_rn(2.0f, ip));
-        d = fmaxf(d, 0.0f);
-        td[r] = id >= 0 ? d : inf_f();
+        td[r] = id >= 0 ? l2_dist(q_sq, sqn[row], ip) : inf_f();
         ti[r] = id;
     }
     __syncthreads();
 }
 
-__device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
-    return ad < bd || (ad == bd && ai < bi);
+// -- the select kernel and its merge ------------------------------------------------------
+
+constexpr int SNT = 128;             // select: threads per block (4 warps)
+constexpr int SRT = 32;              // select: list rows per tile, one per lane
+static_assert(SNT / SRT == PARTS, "the select kernel splits each row as tile_dists does");
+
+// Smem row stride (elements) of a select tile: D plus 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ int tile_stride(int D) {
+    return D + 16 / (int)sizeof(T);
 }
 
-// Insert (d, id) into the warp's lex-sorted list lk/lp of length K if it
-// beats the last entry. Ids are unique, so the insertion point is the
-// count of entries lex-below the candidate.
-__device__ __forceinline__ void warp_insert(float* lk, int* lp, int K, float d, int id, int lane) {
-    if (!lex_less(d, id, lk[K - 1], lp[K - 1])) return;   // warp-uniform
-    int cnt = 0;
-    for (int j = lane; j < K; j += 32) cnt += lex_less(lk[j], lp[j], d, id) ? 1 : 0;
-    const int at = __reduce_add_sync(FULL, cnt);
-    for (int base = ((K - 2) / 32) * 32; K >= 2 && base >= 0; base -= 32) {
-        const int j = base + lane;
-        const bool act = j >= at && j <= K - 2;
-        float vk = 0.f;
-        int vp = 0;
-        if (act) { vk = lk[j]; vp = lp[j]; }
-        __syncwarp();
-        if (act) { lk[j + 1] = vk; lp[j + 1] = vp; }
-        __syncwarp();
-        if (base <= at) break;
-    }
-    if (lane == 0) { lk[at] = d; lp[at] = id; }
-    __syncwarp();
+// Rows load with 16-byte cp.async and are read 16 bytes at a time when
+// every quarter of D is a whole number of 16-byte steps.
+template <typename T>
+__host__ __device__ __forceinline__ bool vec_rows(int D) {
+    return D % (4 * (16 / (int)sizeof(T))) == 0;
 }
+
+// Copy `rows` consecutive list rows from src into the tile dst (stride
+// tile_stride): 16-byte cp.async, or a plain synchronous loader.
+template <typename T, bool VEC>
+__device__ __forceinline__ void issue_tile(const T* __restrict__ src, int rows, int D, T* dst) {
+    const int SD = tile_stride<T>(D);
+    if (VEC) {
+        constexpr int V = 16 / (int)sizeof(T);
+        const int cpr = D / V;
+        const int total = rows * cpr;
+        for (int i = threadIdx.x; i < total; i += SNT) {
+            const int r = i / cpr, c = (i - r * cpr) * V;
+            sel::cp_async16(dst + r * SD + c, src + (int64_t)r * D + c);
+        }
+    } else {
+        const int total = rows * D;
+        for (int i = threadIdx.x; i < total; i += SNT) {
+            const int r = i / D, c = i - r * D;
+            dst[r * SD + c] = src[i];
+        }
+    }
+}
+
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&x)[4]) {
+    x[0] = __uint_as_float(raw.x); x[1] = __uint_as_float(raw.y);
+    x[2] = __uint_as_float(raw.z); x[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&x)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        x[2 * j] = f.x;
+        x[2 * j + 1] = f.y;
+    }
+}
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One quarter of a row's dot product: FMAs over [c0, c1) in index order,
+// from acc = 0 (tile_dists' order).
+template <typename T, bool VEC>
+__device__ __forceinline__ float part_dot(const T* xr, const float* qs, int c0, int c1) {
+    float acc = 0.f;
+    if (VEC) {
+        constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll 2
+        for (int c = c0; c < c1; c += V) {
+            float x[V], qv[V];
+            unpack16(*reinterpret_cast<const uint4*>(xr + c), x);
+#pragma unroll
+            for (int e = 0; e < V; e += 4) {
+                const float4 f = *reinterpret_cast<const float4*>(qs + c + e);
+                qv[e] = f.x; qv[e + 1] = f.y; qv[e + 2] = f.z; qv[e + 3] = f.w;
+            }
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc = fmaf(qv[e], x[e], acc);
+        }
+    } else {
+        for (int c = c0; c < c1; ++c) acc = fmaf(qs[c], to_f(xr[c]), acc);
+    }
+    return acc;
+}
+
+// Shared memory of the select kernel at (D, K): two row tiles, the query,
+// the partial sums, the candidates and (when they fit) the two lists.
+struct SelectPlan {
+    size_t smem;
+    bool lists_in_smem;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(NT)
+SelectPlan select_plan(int D, int K) {
+    const size_t fixed = 2 * (size_t)SRT * tile_stride<T>(D) * sizeof(T) +
+                         sizeof(float) * ((size_t)((D + 3) / 4 * 4) + PARTS * SRT + 4 * SRT + 4);
+    const size_t lists = 2 * (size_t)K * (sizeof(float) + sizeof(int));
+    const bool in = K <= SMEM_K_MAX && fixed + lists <= SMEM_LIMIT;
+    return {fixed + (in ? lists : 0), in};
+}
+
+// grid (ceil(B / qpb), G). Block (qg, g) takes queries qg * qpb + j in
+// turn and, for each, the probe ranks [g * per, (g + 1) * per) of it;
+// it leaves the query's K best of those in part (B, G, K) as (dist, id'),
+// or, when G == 1, the final (dist, id) in out. Lists past SMEM_K_MAX
+// live in part and work (B, G, K) instead of shared memory.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(SNT)
 ivf_select_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                   const float* __restrict__ q_sq, const T* __restrict__ lists,
                   const float* __restrict__ sqn, const int* __restrict__ ids,
-                  int B, int nprobe, int pad, int D, int K, int qpb,
-                  float* __restrict__ out_d, int* __restrict__ out_i) {
+                  const int* __restrict__ hwm, int B, int nprobe, int pad, int D, int K, int qpb,
+                  int G, int per, int smem_lists, float* part_d, int* part_t, float* work_d,
+                  int* work_t, float* out_d, int* out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
-    float* xs = reinterpret_cast<float*>(smem);        // [RT][D + 1]
-    float* qs = xs + RT * (D + 1);                      // [D]
-    float* part = qs + D;                               // [PARTS][RT]
-    float* td = part + PARTS * RT;                      // [RT]
-    int* ti = reinterpret_cast<int*>(td + RT);          // [RT]
-    float* sk = reinterpret_cast<float*>(ti + RT);      // [K] when K <= SMEM_K_MAX
-    int* sp = reinterpret_cast<int*>(sk + K);
-    const bool smem_list = K <= SMEM_K_MAX;
+    const int SD = tile_stride<T>(D);
+    T* xb0 = reinterpret_cast<T*>(smem);
+    T* xb1 = xb0 + SRT * SD;
+    float* qs = reinterpret_cast<float*>(xb1 + SRT * SD);   // [D], 16-byte aligned
+    float* part = qs + (D + 3) / 4 * 4;                      // [PARTS][SRT]
+    float* cd = part + PARTS * SRT;                          // admitted candidates
+    int* ct = reinterpret_cast<int*>(cd + SRT);
+    float* sd = reinterpret_cast<float*>(ct + SRT);          // ... sorted
+    int* st = reinterpret_cast<int*>(sd + SRT);
+    int* s_cnt = st + SRT;                                   // [4]
+    float* l0d = reinterpret_cast<float*>(s_cnt + 4);        // [K] x 4 when smem_lists
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = blockIdx.y;
+    const int p0 = g * per, p1 = min(nprobe, p0 + per);
+    const int chunk = (D + PARTS - 1) / PARTS;
+    const int c0 = warp * chunk, c1 = min(D, c0 + chunk);
 
     for (int j = 0; j < qpb; ++j) {
         const int b = blockIdx.x * qpb + j;
         if (b >= B) break;
-        float* lk = smem_list ? sk : out_d + (int64_t)b * K;
-        int* lp = smem_list ? sp : out_i + (int64_t)b * K;
-        for (int i = threadIdx.x; i < K; i += NT) { lk[i] = inf_f(); lp[i] = INT_MAXV; }
-        for (int c = threadIdx.x; c < D; c += NT) qs[c] = q_as_store(q[(int64_t)b * D + c], lists);
-        const float qsq = q_sq[b];
-        __syncthreads();
-        for (int p = 0; p < nprobe; ++p) {
-            const int64_t base = (int64_t)probes[(int64_t)b * nprobe + p] * pad;
-            for (int s0 = 0; s0 < pad; s0 += RT) {
-                const int rows = min(RT, pad - s0);
-                tile_dists(lists, base + s0, rows, D, qs, qsq, sqn, ids, xs, part, td, ti);
-                if (warp == 0) {
-#pragma unroll
-                    for (int h = 0; h < RT / 32; ++h) {
-                        const int r = lane + 32 * h;
-                        const float d = r < rows ? td[r] : inf_f();
-                        const int id = (r < rows && ti[r] >= 0) ? ti[r] : INT_MAXV;
-                        unsigned m = __ballot_sync(FULL, lex_less(d, id, lk[K - 1], lp[K - 1]));
-                        while (m) {
-                            const int src = __ffs(m) - 1;
-                            m &= m - 1;
-                            warp_insert(lk, lp, K, __shfl_sync(FULL, d, src),
-                                        __shfl_sync(FULL, id, src), lane);
-                        }
-                    }
-                }
-                __syncthreads();
-            }
+        const int64_t slot = ((int64_t)b * G + g) * K;
+        sel::Lists L;
+        if (smem_lists) {
+            L = {l0d, reinterpret_cast<int*>(l0d + K), l0d + 2 * K,
+                 reinterpret_cast<int*>(l0d + 3 * K)};
+        } else {
+            L = {part_d + slot, part_t + slot, work_d + slot, work_t + slot};
         }
-        for (int i = threadIdx.x; i < K; i += NT) {
-            const int id = lp[i];
-            out_d[(int64_t)b * K + i] = lk[i];
-            out_i[(int64_t)b * K + i] = id == INT_MAXV ? -1 : id;
+        sel::list_init<SNT>(L, K);
+        for (int c = threadIdx.x; c < D; c += SNT) qs[c] = q_as_store(q[(int64_t)b * D + c], lists);
+        const float qsq = q_sq[b];
+        const int* prb = probes + (int64_t)b * nprobe;
+        __syncthreads();
+
+        sel::ListTile cur{p0 - 1, 0, 0, 0};
+        sel::next_tile(cur, 0, p1, prb, hwm, pad);
+        sel::ListTile ld = cur;
+        for (int s = 0; s < 2; ++s) {          // two tiles in flight
+            if (ld.p < p1) {
+                issue_tile<T, VEC>(lists + (ld.base + ld.s0) * D, min(SRT, ld.n - ld.s0), D,
+                                   s ? xb1 : xb0);
+                sel::next_tile(ld, SRT, p1, prb, hwm, pad);
+            }
+            sel::cp_async_commit();
+        }
+        int buf = 0;
+        while (cur.p < p1) {
+            sel::cp_async_wait<1>();
+            __syncthreads();
+            T* xb = buf ? xb1 : xb0;
+            const int rows = min(SRT, cur.n - cur.s0);
+            part[warp * SRT + lane] =
+                lane < rows && !SEL_NO_SCORE ? part_dot<T, VEC>(xb + lane * SD, qs, c0, c1) : 0.f;
+            __syncthreads();                   // the tile is read: refill it
+            if (ld.p < p1) {
+                issue_tile<T, VEC>(lists + (ld.base + ld.s0) * D, min(SRT, ld.n - ld.s0), D, xb);
+                sel::next_tile(ld, SRT, p1, prb, hwm, pad);
+            }
+            sel::cp_async_commit();
+            bool admit = false;
+            float d = sel::inf_f();
+            int t = sel::INT_MAXV;
+            if (threadIdx.x < rows) {
+                float ip = part[lane];
+#pragma unroll
+                for (int k = 1; k < PARTS; ++k) ip = __fadd_rn(ip, part[k * SRT + lane]);
+                const int64_t row = cur.base + cur.s0 + lane;
+                const int id = ids[row];
+                if (id >= 0) {
+                    d = l2_dist(qsq, sqn[row], ip);
+                    t = id;
+                }
+                admit = sel::lex_less(d, t, L.d[K - 1], L.t[K - 1]);
+            }
+            if (SEL_NO_SELECT) {
+                if (admit) cd[lane] = d;
+            } else {
+                const int c = sel::compact<SNT>(admit, d, t, cd, ct, s_cnt);
+                if (c > 0) sel::merge_tile<SNT>(L, K, cd, ct, c, sd, st);
+            }
+            sel::next_tile(cur, SRT, p1, prb, hwm, pad);
+            buf ^= 1;
+        }
+        sel::cp_async_wait<0>();
+        for (int i = threadIdx.x; i < K; i += SNT) {
+            const float d = L.d[i];
+            const int t = L.t[i];
+            if (G == 1) {
+                out_d[(int64_t)b * K + i] = d;
+                out_i[(int64_t)b * K + i] = t == sel::INT_MAXV ? -1 : t;
+            } else {
+                part_d[slot + i] = d;
+                part_t[slot + i] = t;
+            }
         }
         __syncthreads();
     }
 }
+
+// One block per query: the exact merge of its G partial lists.
+__global__ void __launch_bounds__(sel::MERGE_NT)
+ivf_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_t, int G, int K,
+                 float* __restrict__ out_d, int* __restrict__ out_i) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int64_t b = blockIdx.x;
+    float* od = out_d + b * K;
+    int* oi = out_i + b * K;
+    sel::merge_groups(part_d + b * G * K, part_t + b * G * K, G, K, smem,
+                      [=](int i, float d, int t) {
+                          od[i] = d;
+                          oi[i] = t == sel::INT_MAXV ? -1 : t;
+                      });
+}
+
+// -- the dense kernels ------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -359,22 +525,6 @@ cudaError_t set_smem(K kernel, size_t smem) {
 }
 
 template <typename T>
-cudaError_t launch_select(const void* probes, const void* q, const void* q_sq, const void* lists,
-                          const void* sqn, const void* ids, int B, int nprobe, int pad, int D,
-                          int K, int qpb, void* out_d, void* out_i, cudaStream_t st) {
-    size_t smem = f_smem(D);
-    if (K <= SMEM_K_MAX) smem += (sizeof(float) + sizeof(int)) * (size_t)K;
-    cudaError_t err = set_smem(ivf_select_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    ivf_select_kernel<T><<<(B + qpb - 1) / qpb, NT, smem, st>>>(
-        static_cast<const int*>(probes), static_cast<const float*>(q),
-        static_cast<const float*>(q_sq), static_cast<const T*>(lists),
-        static_cast<const float*>(sqn), static_cast<const int*>(ids), B, nprobe, pad, D, K, qpb,
-        static_cast<float*>(out_d), static_cast<int*>(out_i));
-    return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_dense(const void* probes, const void* q, const void* q_sq, const void* lists,
                          const void* sqn, const void* ids, int B, int nprobe, int pad, int D,
                          void* out_d, void* out_i, cudaStream_t st) {
@@ -392,28 +542,111 @@ cudaError_t launch_dense(const void* probes, const void* q, const void* q_sq, co
     return cudaGetLastError();
 }
 
+template <typename T, bool VEC>
+cudaError_t launch_select(const void* probes, const void* q, const void* q_sq, const void* lists,
+                          const void* sqn, const void* ids, const void* hwm, int B, int nprobe,
+                          int pad, int D, int K, int qpb, int G, void* part_d, void* part_t,
+                          void* work_d, void* work_t, void* out_d, void* out_i, cudaStream_t st) {
+    const SelectPlan plan = select_plan<T>(D, K);
+    if (!plan.lists_in_smem && (work_d == nullptr || work_t == nullptr))
+        return cudaErrorInvalidValue;
+    if (G > 1 && (part_d == nullptr || part_t == nullptr)) return cudaErrorInvalidValue;
+    cudaError_t err = set_smem(ivf_select_kernel<T, VEC>, plan.smem);
+    if (err != cudaSuccess) return err;
+    const size_t msmem = sel::merge_smem_bytes(G, K);
+    if (G > 1 && (err = set_smem(ivf_merge_kernel, msmem)) != cudaSuccess) return err;
+    // With one group the kernel's lists and results live in out.
+    float* pd = static_cast<float*>(G > 1 ? part_d : out_d);
+    int* pt = static_cast<int*>(G > 1 ? part_t : out_i);
+    const dim3 grid((B + qpb - 1) / qpb, G);
+    ivf_select_kernel<T, VEC><<<grid, SNT, plan.smem, st>>>(
+        static_cast<const int*>(probes), static_cast<const float*>(q),
+        static_cast<const float*>(q_sq), static_cast<const T*>(lists),
+        static_cast<const float*>(sqn), static_cast<const int*>(ids),
+        static_cast<const int*>(hwm), B, nprobe, pad, D, K, qpb, G, (nprobe + G - 1) / G,
+        plan.lists_in_smem ? 1 : 0, pd, pt, static_cast<float*>(work_d),
+        static_cast<int*>(work_t), static_cast<float*>(out_d), static_cast<int*>(out_i));
+    if ((err = cudaGetLastError()) != cudaSuccess || G == 1) return err;
+    ivf_merge_kernel<<<B, sel::MERGE_NT, msmem, st>>>(pd, pt, G, K, static_cast<float*>(out_d),
+                                                        static_cast<int*>(out_i));
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_select(const void* lists, int D, bool vec, const void* probes, const void* q,
+                            const void* q_sq, const void* sqn, const void* ids, const void* hwm,
+                            int B, int nprobe, int pad, int K, int qpb, int G, void* part_d,
+                            void* part_t, void* work_d, void* work_t, void* out_d, void* out_i,
+                            cudaStream_t st) {
+    if (vec)
+        return launch_select<T, true>(probes, q, q_sq, lists, sqn, ids, hwm, B, nprobe, pad, D, K,
+                                      qpb, G, part_d, part_t, work_d, work_t, out_d, out_i, st);
+    return launch_select<T, false>(probes, q, q_sq, lists, sqn, ids, hwm, B, nprobe, pad, D, K,
+                                   qpb, G, part_d, part_t, work_d, work_t, out_d, out_i, st);
+}
+
+template <typename T>
+cudaError_t select_occupancy(int D, int K, int* out) {
+    const SelectPlan plan = select_plan<T>(D, K);
+    cudaError_t err;
+    if (vec_rows<T>(D)) {
+        if ((err = set_smem(ivf_select_kernel<T, true>, plan.smem)) != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ivf_select_kernel<T, true>,
+                                                            SNT, plan.smem);
+    } else {
+        if ((err = set_smem(ivf_select_kernel<T, false>, plan.smem)) != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ivf_select_kernel<T, false>,
+                                                            SNT, plan.smem);
+    }
+    out[1] = plan.lists_in_smem ? 1 : 0;
+    out[2] = sel::max_merge_groups(K, SMEM_LIMIT);
+    return err;
+}
+
 }  // namespace
 
 extern "C" {
 
-int ivf_scan_abi_version() { return 1; }
+int ivf_scan_abi_version() { return 2; }
+
+// The select kernel's residency at (dtype, D, K): out[0] = blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] = 1 when its
+// lists live in shared memory (else the launch needs work scratch),
+// out[2] = the most probe groups its merge holds. Returns the CUDA error
+// code.
+int ivf_select_occupancy(int dtype, int D, int K, int* out) {
+    if (D <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return (int)select_occupancy<float>(D, K, out);
+    if (dtype == 1) return (int)select_occupancy<__nv_bfloat16>(D, K, out);
+    return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = f32 lists, 1 = bf16 lists. probes (B, nprobe) int32; q (B, D)
 // f32 (unstaged); q_sq (B,) f32; lists (nlist, pad, D); sqn/ids (nlist,
-// pad) f32/int32; out_d/out_i (B, K). Returns the CUDA error code (0 on
-// success).
+// pad) f32/int32; hwm (nlist,) int32 or null (= pad); G probe groups
+// (G = ceil(nprobe / ceil(nprobe / G))); part_d/part_t (B, G, K) scratch
+// when G > 1; work_d/work_t (B, G, K) scratch when the lists do not fit
+// in shared memory (ivf_select_occupancy); out_d/out_i (B, K). Launches
+// the select kernel, then (G > 1) the merge. Returns the CUDA error code
+// (0 on success).
 int ivf_scan_select(int dtype, const void* probes, const void* q, const void* q_sq,
-                    const void* lists, const void* sqn, const void* ids, int B, int nprobe,
-                    int pad, int D, int K, int qpb, void* out_d, void* out_i, void* stream) {
-    if (B <= 0 || nprobe <= 0 || pad <= 0 || D <= 0 || K <= 0 || qpb <= 0)
+                    const void* lists, const void* sqn, const void* ids, const void* hwm, int B,
+                    int nprobe, int pad, int D, int K, int qpb, int G, void* part_d,
+                    void* part_t, void* work_d, void* work_t, void* out_d, void* out_i,
+                    void* stream) {
+    if (B <= 0 || nprobe <= 0 || pad <= 0 || D <= 0 || K <= 0 || qpb <= 0 ||
+        !sel::valid_groups(nprobe, G))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool aligned = (reinterpret_cast<uintptr_t>(lists) & 15) == 0;
     if (dtype == 0)
-        return (int)launch_select<float>(probes, q, q_sq, lists, sqn, ids, B, nprobe, pad, D, K,
-                                         qpb, out_d, out_i, st);
+        return (int)dispatch_select<float>(lists, D, aligned && vec_rows<float>(D), probes, q,
+                                           q_sq, sqn, ids, hwm, B, nprobe, pad, K, qpb, G,
+                                           part_d, part_t, work_d, work_t, out_d, out_i, st);
     if (dtype == 1)
-        return (int)launch_select<__nv_bfloat16>(probes, q, q_sq, lists, sqn, ids, B, nprobe, pad,
-                                                 D, K, qpb, out_d, out_i, st);
+        return (int)dispatch_select<__nv_bfloat16>(
+            lists, D, aligned && vec_rows<__nv_bfloat16>(D), probes, q, q_sq, sqn, ids, hwm, B,
+            nprobe, pad, K, qpb, G, part_d, part_t, work_d, work_t, out_d, out_i, st);
     return (int)cudaErrorInvalidValue;
 }
 

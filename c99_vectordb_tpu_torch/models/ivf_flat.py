@@ -179,6 +179,7 @@ class IVFFlatIndex:
         self._n_dev = 0
         self._centroids = None          # numpy (host mode) or tensor (device mode)
         self._staged = None
+        self._hwm = None                # (nlist,) int32 list_hwm of the staged ids
         self._cap_valid = False         # staged assignment respects pad_cap
         self._tail: GrowTail | None = None
         self._restage_needed = False
@@ -282,6 +283,7 @@ class IVFFlatIndex:
 
     def _reset_staging(self) -> None:
         self._staged = None
+        self._hwm = None
         self._cap_valid = False
         self._tail = None
         self._restage_needed = False
@@ -413,7 +415,7 @@ class IVFFlatIndex:
             else:
                 li, removed, list_sqn = apply_removal(li, table, list_sqn)
             if removed:
-                self._staged = (centroids, c_sq, store, li, list_sqn, id_lookup, pad, scan_extra)
+                self._put_staged((centroids, c_sq, store, li, list_sqn, id_lookup, pad, scan_extra))
                 self._n_dev -= removed
                 self._ranked_cache = None
                 self._mask_cache.clear()
@@ -431,6 +433,13 @@ class IVFFlatIndex:
         return removed
 
     # -- staging -------------------------------------------------------------------------
+
+    def _put_staged(self, staged) -> None:
+        """Keep a staging and the high-water marks of its list ids, where
+        the select kernel stops; every change to the staged ids comes
+        through here."""
+        self._staged = staged
+        self._hwm = list_hwm(staged[3]).to(torch.int32)
 
     def _stage(self):
         if self._staged is None or self._restage_needed:
@@ -508,7 +517,7 @@ class IVFFlatIndex:
                               fold_scatter(scan_extra[1], tvecs, order, lists, slots))
         id_lookup = canvas_id_lookup(li, int(li.max()))
         self._list_counts = (li >= 0).sum(dim=1)
-        self._staged = (centroids, c_sq, store, li, list_sqn, id_lookup, pad, scan_extra)
+        self._put_staged((centroids, c_sq, store, li, list_sqn, id_lookup, pad, scan_extra))
         self._cap_valid = bool(self.pad_cap)
         return True
 
@@ -567,7 +576,7 @@ class IVFFlatIndex:
         else:
             codes, dim_scale, dec_sqn = _sq8_stage(store, li)
             scan_extra = ("int8", codes, dim_scale, dec_sqn)
-        self._staged = (centroids, c_sq, store, li, list_sqn, id_lookup, pad, scan_extra)
+        self._put_staged((centroids, c_sq, store, li, list_sqn, id_lookup, pad, scan_extra))
 
     def _stage_host(self):
         """Host-mode staging (the CLI scale): bucket on the host, push once.
@@ -613,7 +622,7 @@ class IVFFlatIndex:
             scan_extra = ("int8", codes, dim_scale, dec_sqn)
             store = lv_dev if self.rerank_dtype == "float32" else lv_dev.to(torch.bfloat16)
         del lv_dev
-        self._staged = (
+        self._put_staged((
             self._centroids_dev(),
             self._on_device(c_sq.astype(np.float32)),
             store,
@@ -622,7 +631,7 @@ class IVFFlatIndex:
             build_id_lookup(self._ids, self.device, rows=bucket_row),
             pad,
             scan_extra,
-        )
+        ))
 
     # -- search --------------------------------------------------------------------------------
 
@@ -678,7 +687,7 @@ class IVFFlatIndex:
             else:
                 dense = width <= DENSE_MAX_BF16 if scan is None else scan == "dense"
                 _, si = ivf_full_search(centroids, c_sq, scan_extra[1], list_sqn, list_ids, q,
-                                        nprobe_eff, ks, dense=dense)
+                                        nprobe_eff, ks, dense=dense, hwm=self._hwm)
                 if id_mask is not None:
                     si = mask_shortlist_ids(si, id_mask)
                 dists, out_ids = exact_rerank_staged(flat_store, id_lookup, si, q, k)
@@ -686,7 +695,7 @@ class IVFFlatIndex:
             # f32 lists: the scan's true-f32 distances are the answer.
             dense = width <= DENSE_MAX_F32 if scan is None else scan == "dense"
             dists, out_ids = ivf_full_search(centroids, c_sq, list_vecs, list_sqn, list_ids, q,
-                                             nprobe_eff, k, dense=dense)
+                                             nprobe_eff, k, dense=dense, hwm=self._hwm)
             if id_mask is not None:
                 # The select kernel lets masked rows (+inf, real id) fill an
                 # underfilled list; they must not come back as results.

@@ -71,6 +71,7 @@ from .devbuild import (
     capped_assign_incremental,
     corpus_geometry,
     is_device_array,
+    list_hwm,
     mask_norms,
     mask_rows,
     mask_shortlist_ids,
@@ -230,6 +231,7 @@ class IVFPQIndex:
         self._centroids = None              # numpy, or a tensor once on the device
         self._codebooks = None              # numpy, or a tensor (m, ksub_eff, dsub)
         self._staged = None
+        self._hwm = None                    # (nlist,) int32 list_hwm of the staged ids
         self._staged_refine = None
         self._cap_valid = False
         self._refine_rows = 0               # rows materialized (positional layout)
@@ -290,6 +292,7 @@ class IVFPQIndex:
 
     def _reset_staging(self) -> None:
         self._staged = None
+        self._hwm = None
         self._staged_refine = None
         self._cap_valid = False
         self._tail = None
@@ -522,8 +525,8 @@ class IVFPQIndex:
             table = removal_table(ids, self.device)
             li, removed, item_const = apply_removal(li, table, item_const)
             if removed:
-                self._staged = (centroids, c_sq, codebooks, list_codes, li, canvas, item_const,
-                                pad)
+                self._put_staged((centroids, c_sq, codebooks, list_codes, li, canvas, item_const,
+                                  pad))
                 if self.refine and self._staged_refine is not None:
                     store, lookup, ids_arr, valid = self._staged_refine
                     ids_arr, _ = apply_removal(ids_arr, table)
@@ -596,6 +599,13 @@ class IVFPQIndex:
             raise ValueError("no raw rows retained (refine=False device mode)")
         return self._dev_vecs.consolidated(), self._dev_ids.consolidated(torch.int32)
 
+    def _put_staged(self, staged) -> None:
+        """Keep a staging and the high-water marks of its list ids, where
+        the select kernel stops; every change to the staged ids comes
+        through here."""
+        self._staged = staged
+        self._hwm = list_hwm(staged[4]).to(torch.int32)
+
     def _stage(self):
         if self._staged is None or self._restage_needed:
             if self._mode == "device":
@@ -654,8 +664,8 @@ class IVFPQIndex:
         # The unpacked codes serve only the CPU route: on the card they are
         # kept for the shapes that take it.
         keep_unpacked = self.device.type != "cuda" or not kernel_shape(ksub_eff, self.m)
-        self._staged = (centroids, (centroids * centroids).sum(dim=1), codebooks,
-                        list_codes if keep_unpacked else None, li, canvas, item_const, pad)
+        self._put_staged((centroids, (centroids * centroids).sum(dim=1), codebooks,
+                          list_codes if keep_unpacked else None, li, canvas, item_const, pad))
         for store in (self._dev_vecs, self._dev_ids, self._dev_assign, self._dev_codes):
             store.clear()
 
@@ -725,11 +735,11 @@ class IVFPQIndex:
             canvas = np.ascontiguousarray(pack_nibbles(canvas))
         item_const = build_item_constants(centroids, assign_eff, codes_eff, codebooks, order,
                                            sorted_lists, slots, nlist_eff, pad)
-        self._staged = (
+        self._put_staged((
             self._centroids_dev(), self._on_device(c_sq.astype(np.float32)),
             self._codebooks_dev(), self._on_device(list_codes), self._on_device(list_ids),
             self._on_device(canvas), self._on_device(item_const), pad,
-        )
+        ))
 
     # -- search ----------------------------------------------------------------------------
 
@@ -765,10 +775,13 @@ class IVFPQIndex:
         k_adc = min(k * self.refine_factor, self.ntotal) if self.refine else k
         k_adc = max(k_adc, k)
         if card_route and kernel_shape(ksub_eff, self.m):
-            dense = self.refine and k_adc > 2 * LANE_K
-            search = adc_dense_search if dense else adc_full_search
-            dists, out_ids = search(centroids, c_sq, codebooks, canvas, item_const, list_ids,
-                                    q_adc, nprobe_eff, k_adc)
+            if self.refine and k_adc > 2 * LANE_K:
+                dists, out_ids = adc_dense_search(centroids, c_sq, codebooks, canvas, item_const,
+                                                  list_ids, q_adc, nprobe_eff, k_adc)
+            else:
+                dists, out_ids = adc_full_search(centroids, c_sq, codebooks, canvas, item_const,
+                                                 list_ids, q_adc, nprobe_eff, k_adc,
+                                                 hwm=self._hwm)
             if id_mask is not None:
                 # Masked rows can pad the dense shortlist as +inf entries
                 # with REAL ids; the rerank would re-score them finitely.

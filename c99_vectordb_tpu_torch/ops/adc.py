@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .adc_cuda import adc_scan_dense, adc_scan_select
+from .select_common import ids_below_hwm
 from .topk import stable_topk
 
 # Rows of item constants one device-build step decodes at once.
@@ -166,10 +167,13 @@ def adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed: bo
     return out_d, out_i
 
 
-def adc_select_plain(probes, probe_coarse, qd, codes, item_const, ids, k: int, packed: bool):
+def adc_select_plain(probes, probe_coarse, qd, codes, item_const, ids, k: int, packed: bool,
+                     hwm=None):
     """Plain version of the select kernel: the dense estimates, then the
     first k of a stable sort by distance in (probe rank, slot) order;
-    +inf candidates never enter (unfilled slots are (inf, -1))."""
+    +inf candidates never enter (unfilled slots are (inf, -1)). Slots at
+    or past hwm are padding."""
+    ids = ids_below_hwm(ids, hwm)
     d2, i2 = adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed)
     if d2.shape[1] < k:
         extra = k - d2.shape[1]
@@ -200,13 +204,15 @@ def adc_prologue(queries, centroids, c_sq, codebooks, nprobe: int):
 
 
 def adc_full_search(centroids, c_sq, codebooks, canvas, item_const, list_ids, queries,
-                    nprobe: int, k: int):
+                    nprobe: int, k: int, *, hwm=None):
     """Prologue + select kernel: (dists (B, k), ids (B, k)) by the stable
-    (probe order) rule of the module doc."""
+    (probe order) rule of the module doc. hwm: the lists' high-water marks
+    (models/devbuild.list_hwm of list_ids), where the kernel stops; None
+    scans to pad."""
     m, ksub = codebooks.shape[0], codebooks.shape[1]
     probes, pc, qd = adc_prologue(queries, centroids, c_sq, codebooks, nprobe)
     return adc_scan_select(probes, pc, qd, canvas, item_const, list_ids, k,
-                           packed=packed_layout(ksub, m))
+                           packed=packed_layout(ksub, m), hwm=hwm)
 
 
 def adc_dense_search(centroids, c_sq, codebooks, canvas, item_const, list_ids, queries,

@@ -9,9 +9,15 @@ launches in `<wrapper>.launches`; the dense one also by queries per block
 in `adc_scan_dense.launches_by_qpb`.
 
   - `adc_scan_select(probes, probe_coarse, qd, codes, item_const, ids, k,
-    packed)`: per query, the first k candidates of a stable sort by the ADC
-    estimate in (probe rank, slot) order, (inf, -1) in unfilled slots
-    (row 7 of the kernel table: `_adc_kernel`);
+    packed, hwm=None)`: per query, the first k candidates of a stable
+    sort by the ADC estimate in (probe rank, slot) order, (inf, -1) in
+    unfilled slots (row 7 of the kernel table: `_adc_kernel`). hwm
+    (nlist,) int32: each list's high-water mark (slots at or past it are
+    padding and are not read); None = pad. The probes split into
+    contiguous groups, each scanned by its own block, then merged exactly
+    (select kernel + merge, one counted launch); the group count comes
+    from the kernel's occupancy as the IVF select kernel's does
+    (ops/select_common.probe_groups; tests force it with `_groups`);
   - `adc_scan_dense(..., packed, qpb=1)`: every probed slot's estimate and
     raw id, (B, nprobe * pad) (`_adc_dense_kernel` at qpb 1,
     `_adc_dense_kernel_multi` at qpb 8).
@@ -26,19 +32,26 @@ contiguous, on one device; ksub <= 256.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, select_common
+
+
+def signatures() -> dict:
+    """{exported function: (argtypes, restype)} of csrc/adc_scan.cu."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return {
+        "adc_select_occupancy": ([ci, ci, ci, ci, vp], ci),
+        "adc_scan_select": ([vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                             vp, vp, vp, vp, vp, vp, vp], ci),
+        "adc_scan_dense": ([vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp], ci),
+    }
 
 
 def _load() -> ctypes.CDLL:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    args = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp]
-    return cuda_build.load("adc_scan", "adc_scan_abi_version", 1, {
-        "adc_scan_select": (args, ci),
-        "adc_scan_dense": (args, ci),
-    })
+    return cuda_build.load("adc_scan", "adc_scan_abi_version", 2, signatures())
 
 
 def _check(name, probes, probe_coarse, qd, codes, item_const, ids, packed: bool):
@@ -76,36 +89,61 @@ def _check(name, probes, probe_coarse, qd, codes, item_const, ids, packed: bool)
     return b, nprobe, pad, m, ksub
 
 
-def _launch(fn_name, probes, probe_coarse, qd, codes, item_const, ids, b, nprobe, pad, m, ksub,
-            packed, last, out_d, out_i):
+@functools.cache
+def _select_occupancy(m: int, ksub: int, packed: bool, k: int,
+                      device_index: int) -> tuple[int, bool, int]:
     lib = _load()
-    dev = codes.device
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn_name)(
-            probes.data_ptr(), probe_coarse.data_ptr(), qd.data_ptr(), codes.data_ptr(),
-            item_const.data_ptr(), ids.data_ptr(), b, nprobe, pad, m, ksub, int(packed), last,
-            out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        err = lib.adc_select_occupancy(m, ksub, int(packed), k, out)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"adc_select_occupancy failed: CUDA error {err}")
+    return max(1, out[0]), bool(out[1]), out[2]
 
 
-def adc_scan_select(probes, probe_coarse, qd, codes, item_const, ids, k: int, packed: bool):
+def select_plan(b: int, nprobe: int, m: int, ksub: int, packed: bool, k: int, device,
+                _groups: int | None = None) -> dict:
+    """How `adc_scan_select` launches on `device` for these shapes: probe
+    groups, blocks, blocks per SM (occupancy query), SMs, where the running
+    lists live (ops/select_common.select_plan)."""
+    return select_common.select_plan(
+        lambda index: _select_occupancy(m, ksub, bool(packed), k, index), b, nprobe, k, 1,
+        device, _groups)
+
+
+def adc_scan_select(probes, probe_coarse, qd, codes, item_const, ids, k: int, packed: bool,
+                    hwm=None, _groups: int | None = None):
     """The first k (dist (B, k) f32, ids (B, k) int32) per query (see the
     module doc)."""
     if codes.device.type == "cpu":
         from .adc import adc_select_plain
 
-        return adc_select_plain(probes, probe_coarse, qd, codes, item_const, ids, k, packed)
+        return adc_select_plain(probes, probe_coarse, qd, codes, item_const, ids, k, packed,
+                                hwm=hwm)
     b, nprobe, pad, m, ksub = _check("adc_scan_select", probes, probe_coarse, qd, codes,
                                      item_const, ids, packed)
+    select_common.check_hwm("adc_scan_select", hwm, codes.shape[0], codes.device)
     if k < 1:
         raise ValueError(f"adc_scan_select: k must be >= 1 (got {k})")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=codes.device)
+    if nprobe * pad > 0x7FFFFFFF:
+        raise ValueError(f"adc_scan_select: nprobe * pad must fit int32 ({nprobe} * {pad})")
+    dev = codes.device
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
-    _launch("adc_scan_select", probes, probe_coarse, qd, codes, item_const, ids, b, nprobe, pad,
-            m, ksub, packed, k, out_d, out_i)
+    lib = _load()
+    plan = select_plan(b, nprobe, m, ksub, packed, k, dev, _groups)
+    g = plan["groups"]
+    scratch, _keep = select_common.select_scratch(b, g, k, plan["lists_in_smem"], dev)
+    with torch.cuda.device(dev):
+        err = lib.adc_scan_select(
+            probes.data_ptr(), probe_coarse.data_ptr(), qd.data_ptr(), codes.data_ptr(),
+            item_const.data_ptr(), ids.data_ptr(), None if hwm is None else hwm.data_ptr(), b,
+            nprobe, pad, m, ksub, int(packed), k, g, *scratch, out_d.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adc_scan_select launch failed: CUDA error {err}")
     adc_scan_select.launches += 1
     return out_d, out_i
 
@@ -127,8 +165,14 @@ def adc_scan_dense(probes, probe_coarse, qd, codes, item_const, ids, packed: boo
     out_i = torch.empty((b, nprobe * pad), dtype=torch.int32, device=codes.device)
     if b == 0:
         return out_d, out_i
-    _launch("adc_scan_dense", probes, probe_coarse, qd, codes, item_const, ids, b, nprobe, pad,
-            m, ksub, packed, qpb, out_d, out_i)
+    lib = _load()
+    with torch.cuda.device(codes.device):
+        err = lib.adc_scan_dense(
+            probes.data_ptr(), probe_coarse.data_ptr(), qd.data_ptr(), codes.data_ptr(),
+            item_const.data_ptr(), ids.data_ptr(), b, nprobe, pad, m, ksub, int(packed), qpb,
+            out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adc_scan_dense launch failed: CUDA error {err}")
     adc_scan_dense.launches += 1
     adc_scan_dense.launches_by_qpb[qpb] = adc_scan_dense.launches_by_qpb.get(qpb, 0) + 1
     return out_d, out_i

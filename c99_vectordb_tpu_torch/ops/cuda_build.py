@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA sources (csrc/*.cu).
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface, keyed by a hash of the source, into `_build/`, and
+plain C interface, keyed by a hash of the source and of the shared headers
+(csrc/*.cuh), into `_build/`, and
 loaded with ctypes. Nothing is built at import: the first launch of a
 kernel (or an explicit `build`) compiles it, and a missing nvcc or a
 failed build raises there.
@@ -47,6 +48,8 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared headers a source may include
+        h.update(header.read_bytes())
     for d in defines:
         h.update(b"\0" + d.encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"

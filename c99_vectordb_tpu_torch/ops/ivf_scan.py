@@ -22,6 +22,7 @@ import torch
 
 from .distances import INT32_MAX
 from .ivf_scan_cuda import ivf_scan_dense, ivf_scan_dense_int8, ivf_scan_select
+from .select_common import ids_below_hwm
 from .topk import merge_topk, stable_topk
 
 # Bytes of gathered f32 list rows one plain-version step may hold.
@@ -77,11 +78,13 @@ def lex_topk(dists, tie_ids, k: int):
     return torch.gather(dists, -1, by_d), torch.gather(tie_ids, -1, by_d)
 
 
-def scan_select_plain(probes, queries, q_sq, lists, sqn, ids, k: int):
+def scan_select_plain(probes, queries, q_sq, lists, sqn, ids, k: int, hwm=None):
     """Plain version of the select kernel: the dense distances, then the k
     smallest by (dist, id') with id' = INT32_MAX for padding, so a masked
     row (+inf norm, real id) can fill an underfilled list while padding
-    cannot; INT32_MAX comes back as -1."""
+    cannot; INT32_MAX comes back as -1. Slots at or past hwm are
+    padding."""
+    ids = ids_below_hwm(ids, hwm)
     d2, i2 = scan_dense_plain(probes, queries, q_sq, lists, sqn, ids)
     d, i = lex_topk(d2, torch.where(i2 >= 0, i2, INT32_MAX), k)
     return d, torch.where(i == INT32_MAX, -1, i)
@@ -121,18 +124,20 @@ def coarse_probes(queries, centroids, c_sq, nprobe: int):
 
 
 def ivf_full_search(centroids, c_sq, list_vecs, list_sqn, list_ids, queries,
-                    nprobe: int, k: int, *, dense: bool = False, qpb: int = 1):
+                    nprobe: int, k: int, *, dense: bool = False, qpb: int = 1, hwm=None):
     """Coarse probes, then the list scan: (dists (B, k), ids (B, k)) ascending
     by (distance, id), (inf, -1) in empty slots. dense=True takes the dense
     kernel and merge_topk (bit-identical distances); list_vecs may be f32 or
-    bf16 (the query is then rounded to bf16)."""
+    bf16 (the query is then rounded to bf16). hwm: the lists' high-water
+    marks (models/devbuild.list_hwm of list_ids), where the select kernel
+    stops; None scans to pad."""
     q = queries.to(torch.float32).contiguous()
     probes = coarse_probes(q, centroids, c_sq, nprobe)
     q_sq = (q * q).sum(dim=1)
     if dense:
         d2, i2 = ivf_scan_dense(probes, q, q_sq, list_vecs, list_sqn, list_ids)
         return merge_topk(d2, i2, k)
-    return ivf_scan_select(probes, q, q_sq, list_vecs, list_sqn, list_ids, k, qpb)
+    return ivf_scan_select(probes, q, q_sq, list_vecs, list_sqn, list_ids, k, qpb, hwm=hwm)
 
 
 def sq8_stage_queries(queries, dim_scale):

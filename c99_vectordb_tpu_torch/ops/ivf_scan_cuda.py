@@ -7,10 +7,17 @@ it with ctypes. Each wrapper takes the plain version (ops/ivf_scan.py)
 for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
 Each wrapper counts its launches in `<wrapper>.launches`.
 
-  - `ivf_scan_select(probes, queries, q_sq, lists, sqn, ids, k, qpb=1)`:
-    per query, the k nearest (dist, id) over its probed lists, lowest id
-    first on ties, (inf, -1) in unfilled slots (rows 2 and 3 of the
-    kernel table: `_ivf_scan_kernel`, `_ivf_scan_kernel_multi`);
+  - `ivf_scan_select(probes, queries, q_sq, lists, sqn, ids, k, qpb=1,
+    hwm=None)`: per query, the k nearest (dist, id) over its
+    probed lists, lowest id first on ties, (inf, -1) in unfilled slots
+    (rows 2 and 3 of the kernel table: `_ivf_scan_kernel`,
+    `_ivf_scan_kernel_multi`). hwm (nlist,) int32: each list's high-water
+    mark (slots at or past it are padding and are not read); None = pad.
+    The probes of each query split into contiguous groups, each scanned
+    by its own block, then merged exactly (one launch of the select
+    kernel and one of its merge, counted as one launch); the group count
+    comes from the kernel's occupancy (ops/select_common.probe_groups;
+    tests force it with `_groups`);
   - `ivf_scan_dense(probes, queries, q_sq, lists, sqn, ids)`: every
     probed slot's distance and raw id, (B, nprobe * pad)
     (`_ivf_scan_kernel_dense`);
@@ -27,21 +34,29 @@ int8 with per-row scales rs (B,) f32. All contiguous, on one device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, select_common
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _load() -> ctypes.CDLL:
+def signatures() -> dict:
+    """{exported function: (argtypes, restype)} of csrc/ivf_scan.cu."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.load("ivf_scan", "ivf_scan_abi_version", 1, {
-        "ivf_scan_select": ([ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp], ci),
+    return {
+        "ivf_select_occupancy": ([ci, ci, ci, vp], ci),
+        "ivf_scan_select": ([ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                             vp, vp, vp, vp, vp, vp, vp], ci),
         "ivf_scan_dense": ([ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp], ci),
         "ivf_scan_dense_int8": ([vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp], ci),
-    })
+    }
+
+
+def _load() -> ctypes.CDLL:
+    return cuda_build.load("ivf_scan", "ivf_scan_abi_version", 2, signatures())
 
 
 def _check(name, probes, rows, lists, list_aux, want_lists):
@@ -78,29 +93,58 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def ivf_scan_select(probes, queries, q_sq, lists, sqn, ids, k: int, qpb: int = 1):
+@functools.cache
+def _select_occupancy(dtype_code: int, d: int, k: int,
+                      device_index: int) -> tuple[int, bool, int]:
+    lib = _load()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        err = lib.ivf_select_occupancy(dtype_code, d, k, out)
+    if err != 0:
+        raise RuntimeError(f"ivf_select_occupancy failed: CUDA error {err}")
+    return max(1, out[0]), bool(out[1]), out[2]
+
+
+def select_plan(b: int, nprobe: int, d: int, k: int, dtype, device, qpb: int = 1,
+                _groups: int | None = None) -> dict:
+    """How `ivf_scan_select` launches on `device` for these shapes: probe
+    groups, blocks, blocks per SM (occupancy query), SMs, where the running
+    lists live (ops/select_common.select_plan)."""
+    return select_common.select_plan(
+        lambda index: _select_occupancy(_DTYPE_CODE[dtype], d, k, index), b, nprobe, k, qpb,
+        device, _groups)
+
+
+def ivf_scan_select(probes, queries, q_sq, lists, sqn, ids, k: int, qpb: int = 1, hwm=None,
+                    _groups: int | None = None):
     """The k nearest (dist (B, k) f32, ids (B, k) int32) per query over its
     probed lists (see the module doc)."""
     if lists.device.type == "cpu":
         from .ivf_scan import scan_select_plain
 
-        return scan_select_plain(probes, queries, q_sq, lists, sqn, ids, k)
-    b, nprobe, _, pad, d = _check(
+        return scan_select_plain(probes, queries, q_sq, lists, sqn, ids, k, hwm=hwm)
+    b, nprobe, nlist, pad, d = _check(
         "ivf_scan_select", probes,
         [(queries, lambda b, d: (b, d), torch.float32), (q_sq, lambda b, d: (b,), torch.float32)],
         lists, (sqn, ids), _DTYPE_CODE)
+    select_common.check_hwm("ivf_scan_select", hwm, nlist, lists.device)
     if k < 1 or qpb < 1:
         raise ValueError(f"ivf_scan_select: need k >= 1 and qpb >= 1 (k={k}, qpb={qpb})")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=lists.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=lists.device)
+    dev = lists.device
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
     lib = _load()
-    with torch.cuda.device(lists.device):
+    plan = select_plan(b, nprobe, d, k, lists.dtype, dev, qpb, _groups)
+    g = plan["groups"]
+    scratch, _keep = select_common.select_scratch(b, g, k, plan["lists_in_smem"], dev)
+    with torch.cuda.device(dev):
         err = lib.ivf_scan_select(
             _DTYPE_CODE[lists.dtype], probes.data_ptr(), queries.data_ptr(), q_sq.data_ptr(),
-            lists.data_ptr(), sqn.data_ptr(), ids.data_ptr(), b, nprobe, pad, d, k, qpb,
-            out_d.data_ptr(), out_i.data_ptr(), _stream(lists.device))
+            lists.data_ptr(), sqn.data_ptr(), ids.data_ptr(),
+            None if hwm is None else hwm.data_ptr(), b, nprobe, pad, d, k, qpb, g, *scratch,
+            out_d.data_ptr(), out_i.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"ivf_scan_select launch failed: CUDA error {err}")
     ivf_scan_select.launches += 1

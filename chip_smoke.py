@@ -5,11 +5,13 @@
 
 Phases (any failure raises and exits non-zero; none is caught):
   1. build       nvcc builds csrc/fused_l2_topk.cu, csrc/ivf_scan.cu and
-                 csrc/adc_scan.cu, in parallel, into
-                 c99_vectordb_tpu_torch/_build/. fused_l2_topk runs its f32
-                 product (3xTF32) and its two bf16 products (bf16 store; int8
-                 codes with bf16 queries) on the tensor cores (mma.sync) and
-                 its int8 x int8 mode on the CUDA cores.
+                 csrc/adc_scan.cu (both with csrc/select_merge.cuh), in
+                 parallel, into c99_vectordb_tpu_torch/_build/. fused_l2_topk
+                 runs its f32 product (3xTF32) and its two bf16 products (bf16
+                 store; int8 codes with bf16 queries) on the tensor cores
+                 (mma.sync) and its int8 x int8 mode on the CUDA cores. The IVF
+                 and ADC select kernels split each query's probes over blocks,
+                 stop each list at its high-water mark and merge exactly.
   2. kernel      fused_l2_topk against its plain torch version on the card,
                  for the f32, bf16 and int8 stores (and int8 codes with bf16
                  queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
@@ -56,10 +58,14 @@ Phases (any failure raises and exits non-zero; none is caught):
                  skipped.
   9. times       every kernel, its plain version and a library yardstick
                  (never used by the port) beside the bound, on the paths' own
-                 operands, and the flat kernel in each mode (int8 codes with
-                 bf16 queries included) on 1M x 384 seeded Gaussian stores at
-                 B = 128 and 1024; each IVF and ADC kernel is first held
-                 against its plain version on them.
+                 operands (the select kernels with the path's high-water marks,
+                 scan and merge timed as one call), and the flat kernel in each
+                 mode (int8 codes with bf16 queries included) on 1M x 384
+                 seeded Gaussian stores at B = 128 and 1024; each IVF and ADC
+                 kernel is first held against its plain version on them. The
+                 select kernels also log their grid (probe groups, blocks per
+                 SM); tools/select_breakdown.py times them at other group
+                 counts and in diagnostic builds.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -70,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -589,7 +596,8 @@ class plain_kernels:
     def __enter__(self):
         self.saved = (ivf_scan.ivf_scan_select, ivf_scan.ivf_scan_dense,
                       ivf_scan.ivf_scan_dense_int8)
-        ivf_scan.ivf_scan_select = (lambda *a, qpb=1: ivf_scan.scan_select_plain(*a[:7]))
+        ivf_scan.ivf_scan_select = (
+            lambda *a, qpb=1, hwm=None: ivf_scan.scan_select_plain(*a[:7], hwm=hwm))
         ivf_scan.ivf_scan_dense = ivf_scan.scan_dense_plain
         ivf_scan.ivf_scan_dense_int8 = (
             lambda *a, qpb=1: ivf_scan.scan_dense_int8_plain(*a[:6]))
@@ -743,11 +751,12 @@ def phase_ivf(device, d, seed, card, corpus):
 
 def staged_operands(index, q, nprobe):
     """The scan operands of an index's card route at `nprobe` (staged
-    lists, probes, staged queries) for the times phase."""
+    lists, probes, staged queries, the lists' high-water marks) for the
+    times phase."""
     (centroids, c_sq, store, li, sqn, _, pad, extra) = index._stage()
     qd = torch.from_numpy(q).to(store.device)
     probes = ivf_scan.coarse_probes(qd, centroids, c_sq, nprobe)
-    ops = {"probes": probes, "ids": li, "pad": pad}
+    ops = {"probes": probes, "ids": li, "pad": pad, "hwm": index._hwm}
     if extra is not None and extra[0] == "int8":
         q8, rs = ivf_scan.sq8_stage_queries(qd, extra[2])
         ops.update(kind="int8", q8=q8, rs=rs, codes=extra[1], sqn=extra[3])
@@ -890,6 +899,16 @@ def phase_memodb_ivf(device, n_records, seed, workdir, card):
 PEAK_EXACT_F32 = 67e12      # f32 FMA outside the tensor cores: the exact f32 route
 
 
+def slot_bytes(ops, stops_at_hwm, uniq_lists):
+    """Bytes of the per-slot norms (or constants) and ids of the unique
+    probed lists, 8 per slot: every slot for a scan that walks to pad, the
+    slots below each list's hwm (and the marks themselves) for a select
+    kernel given the path's hwm."""
+    if stops_at_hwm and ops.get("hwm") is not None:
+        return int(ops["hwm"][uniq_lists].sum()) * 8 + int(uniq_lists.numel()) * 4
+    return int(uniq_lists.numel()) * ops["pad"] * 8
+
+
 def ivf_bound(ops, kernel, k=None):
     """Least time for the scan on this run's operands. Bytes: the vectors of
     the live rows (id >= 0) of the unique probed lists, and the norms and ids
@@ -908,8 +927,9 @@ def ivf_bound(ops, kernel, k=None):
     live = int(live_per_list[uniq_lists].sum())
     live_pairs = int(live_per_list[probes.long()].sum())
     out_cols = k if kernel == "ivf_scan_select" else nprobe * pad
-    nbytes = (live * d * item + uniq * pad * 8 + b * d * (1 if ops["kind"] == "int8" else 4)
-              + b * 4 + b * nprobe * 4 + b * out_cols * 8)
+    nbytes = (live * d * item + slot_bytes(ops, kernel == "ivf_scan_select", uniq_lists)
+              + b * d * (1 if ops["kind"] == "int8" else 4) + b * 4 + b * nprobe * 4
+              + b * out_cols * 8)
     n_ops = 2 * live_pairs * d
     peak = {torch.float32: PEAK_EXACT_F32, torch.bfloat16: PEAK_OPS_PER_S["bfloat16"],
             torch.int8: PEAK_OPS_PER_S["int8"]}[lists.dtype]
@@ -922,7 +942,8 @@ def ivf_calls(ops, kernel, k):
     """(kernel call, plain call, library yardstick) on the same operands. The
     yardstick gathers the probed lists and scores them with one
     torch.baddbmm (f32 product, int8 codes widened to f32), plus torch.topk
-    for the select kernel; it is timed only and never called by the port."""
+    for the select kernel; it is timed only and never called by the port.
+    The select kernel and its plain version stop at the path's hwm."""
     p = ops["probes"]
     if ops["kind"] == "int8":
         args = (p, ops["q8"], ops["rs"], ops["codes"], ops["sqn"], ops["ids"])
@@ -933,8 +954,8 @@ def ivf_calls(ops, kernel, k):
     else:
         args = (p, ops["q"], ops["q_sq"], ops["lists"], ops["sqn"], ops["ids"])
         if kernel == "ivf_scan_select":
-            kern = lambda: ivf_scan_cuda.ivf_scan_select(*args, k)  # noqa: E731
-            plain = lambda: ivf_scan.scan_select_plain(*args, k)  # noqa: E731
+            kern = lambda: ivf_scan_cuda.ivf_scan_select(*args, k, hwm=ops["hwm"])  # noqa: E731
+            plain = lambda: ivf_scan.scan_select_plain(*args, k, hwm=ops["hwm"])  # noqa: E731
         else:
             kern = lambda: ivf_scan_cuda.ivf_scan_dense(*args)  # noqa: E731
             plain = lambda: ivf_scan.scan_dense_plain(*args)  # noqa: E731
@@ -963,6 +984,11 @@ def time_ivf(ops, kernel, k, label, card):
     iters = 10
     saved = ivf_counts()
     ms = time_ms(kern, iters)
+    select = {}
+    if kernel == "ivf_scan_select":
+        b, nprobe = ops["probes"].shape
+        select = ivf_scan_cuda.select_plan(b, nprobe, ops["lists"].shape[2], k,
+                                           ops["lists"].dtype, ops["lists"].device)
     for name, v in saved.items():        # timing launches are not the path's
         getattr(ivf_scan_cuda, name).launches = v
     plain_ms = time_ms(plain, 3)
@@ -977,8 +1003,10 @@ def time_ivf(ops, kernel, k, label, card):
         shape["k"] = k
     log(f"times {kernel} {label} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library yardstick {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}) [{card}]")
+    if select:
+        log_select_plan(kernel, label, select, card)
     return {"label": label, **shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, **({"select": select} if select else {})}
 
 
 def check_ivf_kernel(ops, kernel, k, label):
@@ -1025,7 +1053,7 @@ class plain_adc:
     def __enter__(self):
         self.saved = (adc_mod.adc_scan_select, adc_mod.adc_scan_dense)
         adc_mod.adc_scan_select = (
-            lambda *a, packed: adc_mod.adc_select_plain(*a, packed=packed))
+            lambda *a, packed, hwm=None: adc_mod.adc_select_plain(*a, packed=packed, hwm=hwm))
         adc_mod.adc_scan_dense = (
             lambda *a, packed, qpb=1: adc_mod.adc_dense_plain(*a, packed=packed))
         return self
@@ -1049,14 +1077,15 @@ def check_route_pq(index, q, k, label, **kw):
 
 def adc_operands(index, q, qpb=None):
     """The ADC kernel operands of an index's card route for queries q
-    (numpy): staged canvas, probes, coarse distances, QD tables."""
+    (numpy): staged canvas, probes, coarse distances, QD tables, the lists'
+    high-water marks."""
     (cents, c_sq, books, _, li, canvas, ic, pad) = index._stage()
     q_adc = index._rotate_device(torch.from_numpy(q).to(cents.device))
     nprobe = min(index.nprobe, int(cents.shape[0]))
     probes, pc, qd = adc_mod.adc_prologue(q_adc, cents, c_sq, books, nprobe)
     return {"probes": probes, "pc": pc, "qd": qd, "codes": canvas, "const": ic, "ids": li,
             "packed": adc_mod.packed_layout(int(books.shape[1]), index.m), "pad": pad,
-            "qpb": qpb}
+            "qpb": qpb, "hwm": index._hwm}
 
 
 def adc_args(ops):
@@ -1067,11 +1096,12 @@ def adc_calls(ops, kernel, k):
     """(kernel call, plain call, library yardstick) on the same operands. The
     yardstick gathers every probed slot's table entries with one
     torch.gather and sums them (plus torch.topk for the select kernel); it
-    is timed only and never called by the port."""
-    args, packed = adc_args(ops), ops["packed"]
+    is timed only and never called by the port. The select kernel and its
+    plain version stop at the path's hwm."""
+    args, packed, hwm = adc_args(ops), ops["packed"], ops["hwm"]
     if kernel == "adc_scan_select":
-        kern = lambda: adc_cuda.adc_scan_select(*args, k, packed=packed)  # noqa: E731
-        plain = lambda: adc_mod.adc_select_plain(*args, k, packed=packed)  # noqa: E731
+        kern = lambda: adc_cuda.adc_scan_select(*args, k, packed=packed, hwm=hwm)  # noqa: E731
+        plain = lambda: adc_mod.adc_select_plain(*args, k, packed=packed, hwm=hwm)  # noqa: E731
     else:
         kern = lambda: adc_cuda.adc_scan_dense(*args, packed=packed, qpb=ops["qpb"])  # noqa: E731
         plain = lambda: adc_mod.adc_dense_plain(*args, packed=packed)  # noqa: E731
@@ -1111,8 +1141,8 @@ def adc_bound(ops, kernel, k):
     live_pairs = int(live_per_list[probes.long()].sum())
     code_bytes = m // 2 if ops["packed"] else m
     out_cols = k if kernel == "adc_scan_select" else nprobe * pad
-    nbytes = (live * code_bytes + uniq * pad * 8 + b * m * ksub * 4 + b * nprobe * 8
-              + b * out_cols * 8)
+    nbytes = (live * code_bytes + slot_bytes(ops, kernel == "adc_scan_select", uniq_lists)
+              + b * m * ksub * 4 + b * nprobe * 8 + b * out_cols * 8)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, live_pairs * m / SMEM_LOOKUPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), uniq,
             live / (uniq * pad))
@@ -1146,6 +1176,11 @@ def time_adc(ops, kernel, k, label, card):
     kern, plain, library = adc_calls(ops, kernel, k)
     saved = adc_counts()
     ms = time_ms(kern, 10)
+    select = {}
+    if kernel == "adc_scan_select":
+        b, nprobe = ops["probes"].shape
+        m, ksub = ops["qd"].shape[1], ops["qd"].shape[2]
+        select = adc_cuda.select_plan(b, nprobe, m, ksub, ops["packed"], k, ops["codes"].device)
     restore_adc_counts(saved)
     plain_ms = time_ms(plain, 3)
     lib_ms = time_ms(library, 5)
@@ -1160,8 +1195,18 @@ def time_adc(ops, kernel, k, label, card):
         shape["qpb"] = ops["qpb"]
     log(f"times {kernel} {label} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library yardstick {lib_ms:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+    if select:
+        log_select_plan(kernel, label, select, card)
     return {"label": label, **shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, **({"select": select} if select else {})}
+
+
+def log_select_plan(kernel, label, select, card):
+    """One line on a select launch's grid: probe groups, blocks, blocks per
+    SM (from the occupancy query)."""
+    log(f"times {kernel} {label}: grid of {select['blocks']} blocks ({select['groups']} probe "
+        f"groups), {select['blocks_per_sm']} resident per SM on {select['sms']} SMs "
+        f"({select['blocks'] / select['sms']:.2f} blocks per SM over the run) [{card}]")
 
 
 def tie_pairs(dists):
@@ -1384,8 +1429,54 @@ def phase_memodb_ivf_pq(device, n_records, seed, workdir, card):
 # -- main ------------------------------------------------------------------------
 
 
+def ptxas_resources(source, kernel):
+    """{entry function: {"registers", "spill_stores", "spill_loads"}} of the
+    entry functions of csrc/<source>.cu whose (mangled) names hold
+    `kernel`, from the build's -Xptxas -v report."""
+    out, cur = {}, None
+    path = cuda_build.ptxas_log(source)
+    if not path.exists():
+        return out
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+SELECT_KERNELS = ("ivf_scan_select", "adc_scan_select")
+
+
+def select_extras(name, head, compiled):
+    """For a select kernel's row of the kernels line: its grid at the head
+    case (probe groups, blocks, blocks per SM, SMs, where its lists live),
+    and, when this run compiled its source (`compiled`), the registers and
+    spills of its kernel and merge."""
+    if name not in SELECT_KERNELS:
+        return {}
+    source = name.split("_scan")[0] + "_scan"
+    prefix = name.split("_")[0]
+    out = dict(head["select"])
+    if source in compiled:
+        out["ptxas"] = {**ptxas_resources(source, f"{prefix}_select_kernel"),
+                        **ptxas_resources(source, f"{prefix}_merge_kernel")}
+    return out
+
+
 def build_all():
-    """Build every CUDA source at once (one nvcc each, in parallel)."""
+    """Build every CUDA source at once (one nvcc each, in parallel); returns
+    the names of the sources this run compiled (not found built)."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("fused_l2_topk", "ivf_scan", "adc_scan")
@@ -1393,13 +1484,15 @@ def build_all():
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
     log(f"build: {len(names)} sources in {time.perf_counter() - t0:.1f} s wall (nvcc, sm_90a)")
+    compiled = set()
     for name, (path, seconds) in zip(names, built):
         log(f"build: {path.name} in {seconds:.1f} s")
-        ptxas = cuda_build.ptxas_log(name)
-        if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
+        if seconds > 0:
+            compiled.add(name)
+            for line in cuda_build.ptxas_log(name).read_text().splitlines():
                 if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"  ptxas: {line.strip()}")
+    return compiled
 
 
 def main() -> int:
@@ -1419,7 +1512,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. build
-    build_all()
+    compiled = build_all()
 
     # 2. kernel against plain
     t0 = time.perf_counter()
@@ -1578,9 +1671,11 @@ def main() -> int:
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": {k: v for k, v in head.items()
-                      if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                      if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "select")},
             "variants": variants,
             "check": "pass",
+            **select_extras(kernel, head, compiled),
         })
     kernels[1]["ivf"] = ivf_result
     kernels[1]["memodb_ivf"] = memo_ivf
@@ -1616,9 +1711,11 @@ def main() -> int:
             **{key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
             "shape": {key: v for key, v in head.items()
-                      if key not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                      if key not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "select")},
             "variants": adc_rows[name],
             "check": "pass",
+            **select_extras(name, head, compiled),
         })
     kernels[-3]["ivf_pq"] = pq_result
     kernels[-3]["memodb_ivf_pq"] = memo_pq

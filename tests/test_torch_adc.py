@@ -297,3 +297,81 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     adc_cuda.adc_scan_dense(_t(probes), _t(pc), _t(qd), _t(codes), _t(const), _t(ids),
                             packed=False, qpb=8)
     assert (adc_cuda.adc_scan_select.launches, adc_cuda.adc_scan_dense.launches) == (s0, d0)
+
+
+# -- the select kernel's probe groups and high-water marks ----------------------------------
+
+
+def _split_merge(probes, pc, qd, codes, const, ids, k, groups, hwm=None):
+    """The select kernel's split rule emulated with its plain version: each
+    contiguous group of ceil(nprobe / groups) probe ranks keeps its own
+    first k, then the partial lists, in group order, one stable sort by
+    distance: the keys (dist, probe rank * pad + slot) of the single pass
+    (csrc/select_merge.cuh)."""
+    nprobe = probes.shape[1]
+    per = -(-nprobe // groups)
+    parts = [tadc.adc_select_plain(probes[:, p0:p0 + per].contiguous(),
+                                   pc[:, p0:p0 + per].contiguous(), qd, codes, const, ids, k,
+                                   packed=False, hwm=hwm) for p0 in range(0, nprobe, per)]
+    d = torch.cat([p[0] for p in parts], 1)
+    i = torch.cat([p[1] for p in parts], 1)
+    order = torch.argsort(d, dim=1, stable=True)[:, :k]
+    d, i = torch.gather(d, 1, order), torch.gather(i, 1, order)
+    return d, torch.where(torch.isinf(d), -1, i)
+
+
+def _planted_groups(seed, nlist=8, pad=6, k=5):
+    """A zero table and zero coarse distances, so each estimate is its
+    row's constant: integer constants (many exact ties), padding, masked
+    rows (+inf constant, real id); k - 1 rows at 1..k-1 and, tied at the
+    k-th place, id 900 in the list probed first and id 5 in the list
+    probed last."""
+    g = torch.Generator().manual_seed(seed)
+    m, ksub = 4, 16
+    codes = torch.randint(0, ksub, (nlist, m, pad), generator=g, dtype=torch.uint8)
+    ids = (torch.randperm(nlist * pad, generator=g) + 1000).reshape(nlist, pad).to(torch.int32)
+    ids[torch.rand((nlist, pad), generator=g) < 0.2] = -1
+    const = torch.randint(k + 1, k + 8, (nlist, pad), generator=g).to(torch.float32)
+    const[torch.rand((nlist, pad), generator=g) < 0.1] = torch.inf
+    probes = torch.randperm(nlist, generator=g)[None, :].to(torch.int32)
+    first, last = int(probes[0, 0]), int(probes[0, -1])
+    for r in range(k - 1):
+        const[int(probes[0, r % nlist]), 1], ids[int(probes[0, r % nlist]), 1] = r + 1, 100 + r
+    const[first, 0], ids[first, 0] = k, 900
+    const[last, 0], ids[last, 0] = k, 5
+    return probes, torch.zeros((1, nlist)), torch.zeros((1, m, ksub)), codes, const, ids
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_and_merge_equals_single_pass(groups, seed):
+    """Probe groups merged in group order by a stable sort give the single
+    pass's result, the k-th place tie included: the earlier probe wins
+    although its id is the higher one."""
+    k = 5
+    args = _planted_groups(seed, k=k)
+    sd, si = tadc.adc_select_plain(*args, k, packed=False)
+    assert si[0, k - 1] == 900 and sd[0, k - 1] == k and sd[0, k - 2] == k - 1
+    gd, gi = _split_merge(*args, k, groups)
+    assert torch.equal(gd, sd) and torch.equal(gi, si)
+    sd, si = tadc.adc_select_plain(*args, 45, packed=False)      # +inf never enters
+    gd, gi = _split_merge(*args, 45, groups)
+    assert torch.equal(gd, sd) and torch.equal(gi, si) and (si[0, -3:] == -1).all()
+
+
+def test_select_stops_at_hwm():
+    """Slots at or past hwm are padding for the select plain version: live
+    rows there are ignored; the true marks change nothing."""
+    from c99_vectordb_tpu_torch.models.devbuild import list_hwm
+
+    args = _planted_groups(3)
+    ids = args[5]
+    true = list_hwm(ids).to(torch.int32)
+    want = tadc.adc_select_plain(*args, 20, packed=False)
+    got = tadc.adc_select_plain(*args, 20, packed=False, hwm=true)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    low = torch.clamp(true - 2, min=0).to(torch.int32)
+    cut = torch.where(torch.arange(ids.shape[1])[None, :] < low[:, None], ids, -1)
+    got = tadc.adc_select_plain(*args, 20, packed=False, hwm=low)
+    want = tadc.adc_select_plain(*args[:5], cut, 20, packed=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

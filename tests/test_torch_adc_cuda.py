@@ -3,7 +3,11 @@ against their plain versions for every code layout, and IVFPQIndex on CUDA
 against the same index on the CPU.
 
 Every test here is marked `cuda` and skips without a card (the kernels have
-no CPU mode). This file imports neither jax nor the JAX package:
+no CPU mode). The select kernel splits each query's probes into groups and
+merges them; its tests force the group count (`_groups=`) and pass lists'
+high-water marks (`hwm=`), true, stale-high, zero or cutting live rows
+(which the kernel must then not read). This file imports neither jax nor
+the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_adc_cuda.py -q
 
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from c99_vectordb_tpu_torch.models.devbuild import list_hwm
 from c99_vectordb_tpu_torch.models.ivf_pq import IVFPQIndex
 from c99_vectordb_tpu_torch.ops import adc, adc_cuda
 
@@ -205,3 +210,98 @@ def test_device_mode_build_on_card(cuda):
     assert a.remove_ids(np.arange(8)) == 8
     d, i = a.search(x[:16].cpu().numpy(), 5)
     assert not np.isin(i, np.arange(8)).any()
+
+
+def _hwm(kind, ids, device, seed=0):
+    """High-water marks: None, the true marks, stale-high (pad), true with
+    some lists at 0, or random marks that cut live rows."""
+    nlist, pad = ids.shape
+    true = list_hwm(ids.cpu()).to(torch.int32)
+    if kind == "none":
+        return None
+    if kind == "stale":
+        true = torch.full((nlist,), pad, dtype=torch.int32)
+    elif kind == "zero":
+        true[::3] = 0
+    elif kind == "cut":
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        true = torch.randint(0, pad + 1, (nlist,), generator=g).to(torch.int32)
+    return true.to(device)
+
+
+@pytest.mark.parametrize("m,ksub,packed", [(8, 256, False), (96, 256, False), (8, 16, True),
+                                           (256, 256, False)])
+@pytest.mark.parametrize("pad", [300, 128])
+@pytest.mark.parametrize("groups", [None, 1, 3, 7])
+@pytest.mark.parametrize("kind", ["none", "true", "stale", "zero", "cut"])
+def test_select_groups_and_hwm_bit_equal(cuda, m, ksub, packed, pad, groups, kind):
+    """Any probe grouping (7 probes: 3 groups of 3, 3, 1) and any marks:
+    bit-equal to the plain version, ties (quantized estimates) included.
+    pad 128 loads code tiles with cp.async, pad 300 with the plain loader."""
+    ops = _operands(cuda, m=m, ksub=ksub, packed=packed, pad=pad, nprobe=7, b=21,
+                    seed=m + pad, quantized=True)
+    hwm = _hwm(kind, ops[5], cuda, seed=m)
+    before = adc_cuda.adc_scan_select.launches
+    kd, ki = adc_cuda.adc_scan_select(*ops, 40, packed=packed, hwm=hwm, _groups=groups)
+    assert adc_cuda.adc_scan_select.launches == before + 1
+    pd, pi = adc.adc_select_plain(*ops, 40, packed=packed, hwm=hwm)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def _planted(device, k, nlist=8, pad=48, seed=0):
+    """A zero table and zero coarse distances, so each estimate is its
+    row's constant: integer constants (many exact ties), padding, masked
+    rows; k - 1 rows of query 0 at 1..k-1 and, tied at the k-th place, id
+    900 in the list probed first and id 5 in the list probed last."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m, ksub = 8, 256
+    codes = torch.randint(0, ksub, (nlist, m, pad), generator=g, dtype=torch.uint8)
+    ids = (torch.randperm(nlist * pad, generator=g) + 1000).reshape(nlist, pad).to(torch.int32)
+    ids[torch.rand((nlist, pad), generator=g) < 0.2] = -1
+    const = torch.randint(k + 1, k + 8, (nlist, pad), generator=g).to(torch.float32)
+    const[torch.rand((nlist, pad), generator=g) < 0.1] = torch.inf
+    probes = torch.stack([torch.randperm(nlist, generator=g) for _ in range(3)]).to(torch.int32)
+    for r in range(k - 1):                      # query 0's k - 1 nearest
+        lst = int(probes[0, r % nlist])
+        const[lst, 1 + r // nlist], ids[lst, 1 + r // nlist] = r + 1, 100 + r
+    first, last = int(probes[0, 0]), int(probes[0, -1])
+    const[first, 0], ids[first, 0] = k, 900
+    const[last, 0], ids[last, 0] = k, 5
+    return tuple(t.to(device).contiguous() for t in
+                 (probes, torch.zeros((3, nlist)), torch.zeros((3, m, ksub)), codes, const, ids))
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("k", [5, 40])
+def test_select_kth_tie_across_groups_earlier_probe_wins(cuda, groups, k):
+    """At the k-th place a tie between id 900 (first probe, first group)
+    and id 5 (last probe, last group): the earlier probe wins, as in the
+    single pass; every grouping gives the plain version's bits."""
+    ops = _planted(cuda, k)
+    kd, ki = adc_cuda.adc_scan_select(*ops, k, packed=False, _groups=groups)
+    pd, pi = adc.adc_select_plain(*ops, k, packed=False)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert int(ki[0, k - 1]) == 900 and float(kd[0, k - 1]) == k
+
+
+@pytest.mark.parametrize("groups", [None, 2, 16])
+def test_select_nprobe_one_and_deep_k(cuda, groups):
+    """nprobe = 1 (one group whatever is asked), and k = 1000 (lists in
+    global scratch) over 16 probes with true marks."""
+    ops = _operands(cuda, m=8, ksub=256, packed=False, nprobe=1, seed=3)
+    kd, ki = adc_cuda.adc_scan_select(*ops, 10, packed=False, _groups=groups)
+    pd, pi = adc.adc_select_plain(*ops, 10, packed=False)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    ops = _operands(cuda, m=8, ksub=256, packed=False, nprobe=16, pad=128, seed=4)
+    hwm = _hwm("true", ops[5], cuda)
+    kd, ki = adc_cuda.adc_scan_select(*ops, 1000, packed=False, hwm=hwm, _groups=groups)
+    pd, pi = adc.adc_select_plain(*ops, 1000, packed=False, hwm=hwm)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_select_plan_puts_two_blocks_on_every_sm(cuda):
+    """At the 1M path's shape (B = 128, nprobe 16, m = 96, ksub 256, k =
+    200) the grid holds at least two blocks per SM."""
+    plan = adc_cuda.select_plan(128, 16, 96, 256, False, 200, cuda)
+    assert plan["blocks_per_sm"] >= 2 and plan["blocks"] >= 2 * plan["sms"]

@@ -3,7 +3,11 @@
 against the same index on the CPU.
 
 Every test here is marked `cuda` and skips without a card (the kernels have
-no CPU mode). This file imports neither jax nor the JAX package:
+no CPU mode). The select kernel splits each query's probes into groups and
+merges them; its tests force the group count (`_groups=`) and pass lists'
+high-water marks (`hwm=`), true, stale-high, zero or cutting live rows
+(which the kernel must then not read). This file imports neither jax nor
+the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_ivf_cuda.py -q
 
@@ -19,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from c99_vectordb_tpu_torch.models.devbuild import list_hwm
 from c99_vectordb_tpu_torch.models.ivf_flat import IVFFlatIndex
-from c99_vectordb_tpu_torch.ops import ivf_scan, ivf_scan_cuda
+from c99_vectordb_tpu_torch.ops import ivf_scan, ivf_scan_cuda, select_common
 from c99_vectordb_tpu_torch.ops.topk import merge_topk
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +200,117 @@ def test_ivf_flat_device_mode_on_card(cuda):
         pd, pi = cpu._search(q, 10, card_route=True, scan=scan)
         np.testing.assert_array_equal(gi, pi)
         np.testing.assert_array_equal(gd, pd)
+
+
+def _hwm(kind, ids, device, seed=0):
+    """High-water marks: None, the true marks, stale-high (pad), true with
+    some lists at 0, or random marks that cut live rows."""
+    nlist, pad = ids.shape
+    true = list_hwm(ids.cpu()).to(torch.int32)
+    if kind == "none":
+        return None
+    if kind == "stale":
+        true = torch.full((nlist,), pad, dtype=torch.int32)
+    elif kind == "zero":
+        true[::3] = 0
+    elif kind == "cut":
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        true = torch.randint(0, pad + 1, (nlist,), generator=g).to(torch.int32)
+    return true.to(device)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 96), (torch.bfloat16, 96),
+                                     (torch.float32, 100), (torch.float32, 384)])
+@pytest.mark.parametrize("groups", [None, 1, 2, 3, 7])
+@pytest.mark.parametrize("kind", ["none", "true", "stale", "zero", "cut"])
+def test_select_groups_and_hwm_match_plain(cuda, dtype, d, groups, kind):
+    """Any probe grouping (7 probes: 3 groups of 3, 3, 1) and any marks:
+    the plain version within TOL, and bit-equal to the dense kernel + merge
+    on the ids the marks leave. D = 100 takes the unaligned loader; pad 208
+    keeps a ragged last tile."""
+    nlist, pad = 24, 208
+    lists, sqn, ids = _lists(nlist, pad, d, cuda, seed=d + (groups or 0), dtype=dtype)
+    q, q_sq, probes = _queries(21, d, nlist, 7, cuda, seed=1000 + d)
+    hwm = _hwm(kind, ids, cuda, seed=d)
+    before = ivf_scan_cuda.ivf_scan_select.launches
+    kd, ki = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lists, sqn, ids, 10, hwm=hwm,
+                                           _groups=groups)
+    assert ivf_scan_cuda.ivf_scan_select.launches == before + 1
+    pd, pi = ivf_scan.scan_select_plain(probes, q, q_sq, lists, sqn, ids, 10, hwm=hwm)
+    same_up_to_ties(pd.cpu().numpy(), pi.cpu().numpy(), kd.cpu().numpy(), ki.cpu().numpy())
+    md, mi = merge_topk(*ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn,
+                                                       select_common.ids_below_hwm(ids, hwm)), 10)
+    assert torch.equal(md, kd)
+    fin = torch.isfinite(kd)
+    assert torch.equal(mi[fin], ki[fin])
+
+
+def _planted(device, k, nlist=8, pad=48, seed=0):
+    """A zero query, so each distance is its row's norm: integer norms
+    (many exact ties), padding, masked rows; k - 1 rows of query 0 at
+    1..k-1 and, tied at the k-th place, id 900 in the list probed first and
+    id 5 in the list probed last."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lv = torch.randn((nlist, pad, 32), generator=g)
+    li = (torch.randperm(nlist * pad, generator=g) + 1000).reshape(nlist, pad).to(torch.int32)
+    li[torch.rand((nlist, pad), generator=g) < 0.2] = -1
+    sqn = torch.randint(k + 1, k + 8, (nlist, pad), generator=g).to(torch.float32)
+    sqn[torch.rand((nlist, pad), generator=g) < 0.1] = torch.inf
+    probes = torch.stack([torch.randperm(nlist, generator=g) for _ in range(3)]).to(torch.int32)
+    for r in range(k - 1):                      # query 0's k - 1 nearest
+        lst = int(probes[0, r % nlist])
+        sqn[lst, 1 + r // nlist], li[lst, 1 + r // nlist] = r + 1, 100 + r
+    first, last = int(probes[0, 0]), int(probes[0, -1])
+    sqn[first, 0], li[first, 0] = k, 900
+    sqn[last, 0], li[last, 0] = k, 5
+    q = torch.zeros((3, 32))
+    return tuple(t.to(device).contiguous() for t in (probes, q, torch.zeros(3), lv, sqn, li))
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("k", [5, 40])
+def test_select_kth_tie_across_groups_lowest_id_wins(cuda, groups, k):
+    """At the k-th place a tie between id 900 (first probe, first group)
+    and id 5 (last probe, last group): the lower id wins, as in the single
+    pass; every grouping gives the plain version's bits."""
+    probes, q, q_sq, lv, sqn, li = _planted(cuda, k)
+    kd, ki = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lv, sqn, li, k, _groups=groups)
+    pd, pi = ivf_scan.scan_select_plain(probes, q, q_sq, lv, sqn, li, k)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert int(ki[0, k - 1]) == 5 and float(kd[0, k - 1]) == k
+
+
+@pytest.mark.parametrize("groups", [None, 2, 16])
+def test_select_nprobe_one_and_deep_k(cuda, groups):
+    """nprobe = 1 (one group whatever is asked), and k = 1100 (lists in
+    global scratch) over 16 probes with true marks."""
+    lists, sqn, ids = _lists(24, 200, 96, cuda, seed=5)
+    q, q_sq, probes = _queries(9, 96, 24, 1, cuda, seed=6)
+    kd, ki = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lists, sqn, ids, 10, _groups=groups)
+    md, mi = merge_topk(*ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn, ids), 10)
+    assert torch.equal(md, kd)
+    q, q_sq, probes = _queries(9, 96, 24, 16, cuda, seed=7)
+    hwm = _hwm("true", ids, cuda)
+    kd, ki = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lists, sqn, ids, 1100, hwm=hwm,
+                                           _groups=groups)
+    md, mi = merge_topk(*ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn, ids), 1100)
+    assert torch.equal(md, kd)
+    fin = torch.isfinite(kd)
+    assert torch.equal(mi[fin], ki[fin])
+
+
+@pytest.mark.parametrize("k", [10, 1100])
+def test_select_qpb_does_not_change_results(cuda, k):
+    lists, sqn, ids = _lists(24, 200, 96, cuda, seed=8)
+    q, q_sq, probes = _queries(37, 96, 24, 6, cuda, seed=9)
+    hwm = _hwm("zero", ids, cuda)
+    one = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lists, sqn, ids, k, 1, hwm=hwm)
+    four = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lists, sqn, ids, k, 4, hwm=hwm)
+    assert torch.equal(one[0], four[0]) and torch.equal(one[1], four[1])
+
+
+def test_select_plan_puts_two_blocks_on_every_sm(cuda):
+    """At the 1M path's shape (B = 128, nprobe 16, D = 384, k = 10, f32)
+    the grid holds at least two blocks per SM."""
+    plan = ivf_scan_cuda.select_plan(128, 16, 384, 10, torch.float32, cuda)
+    assert plan["blocks_per_sm"] >= 2 and plan["blocks"] >= 2 * plan["sms"]

@@ -642,3 +642,58 @@ def test_large_tensor_ids_stay_exact():
     np.testing.assert_array_equal(t.ids(), big.numpy())
     assert t.remove_ids(big[:3]) == 3
     np.testing.assert_array_equal(t.search(pts[5:6], 1)[1], [[2 ** 24 + 6]])
+
+
+# -- the high-water marks the select kernel stops at ---------------------------------------
+
+
+def test_hwm_follows_add_remove_tail_and_fold(monkeypatch):
+    """Device mode: after a staging, an in-place remove_ids (holes), a tail
+    add and its fold (rows appended at the marks), the hwm the index hands
+    to the select route is list_hwm of its staged ids, never the live
+    count; the select route with and without it equals the JAX package's
+    select program on the same staged lists."""
+    from c99_vectordb_tpu_torch.models import ivf_flat as tivf_mod
+    from c99_vectordb_tpu_torch.models.devbuild import list_hwm
+    from c99_vectordb_tpu_torch.ops.ivf_scan import ivf_full_search
+
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("hwm"))
+        return ivf_full_search(*args, **kw)
+
+    monkeypatch.setattr(tivf_mod, "ivf_full_search", spy)
+    x, ids = _unit(1500, 32, seed=11), np.arange(0, 3000, 2, dtype=np.int64)
+    q = (x[::97] + 0.01).astype(np.float32)
+    idx = TIVF(dim=32, nlist=8, nprobe=3, device="cpu")
+    idx.add(torch.from_numpy(x[:1000]), ids[:1000])
+
+    def check(stage, holes):
+        seen.clear()
+        got = idx._search(q, 10, card_route=True, scan="select")
+        li = idx._staged[3]
+        want_hwm = list_hwm(li).to(torch.int32)
+        assert len(seen) == 1 and torch.equal(seen[0], want_hwm), stage
+        assert (want_hwm > (li >= 0).sum(1)).any() == holes, stage
+        cents, c_sq, lv, _, sqn, _, pad, _ = idx._staged
+        jd, ji = ivf_full_search_program(8, pad, 32, q.shape[0], 3, 10, exact=True, dense=False)(
+            *(jnp.asarray(t.numpy()) for t in (cents, c_sq, lv, sqn, li)), jnp.asarray(q))
+        for hwm in (want_hwm, None):
+            td, ti = ivf_full_search(cents, c_sq, lv, sqn, li, torch.from_numpy(q), 3, 10,
+                                     hwm=hwm)
+            same_up_to_ties(jd, ji, td.numpy(), ti.numpy())
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        if idx._tail is None:
+            np.testing.assert_array_equal(got[1], np.asarray(ji))
+
+    check("staged", holes=False)
+    assert idx.remove_ids(ids[:1000:3]) == len(ids[:1000:3])
+    check("after remove_ids", holes=True)
+    idx.add(torch.from_numpy(x[1000:]), ids[1000:])
+    assert idx._tail is not None
+    check("with a tail", holes=True)
+    idx._restage_needed = True
+    idx.search(q[:1], 1)                                  # the fold
+    assert idx._tail is None
+    check("after the fold", holes=True)

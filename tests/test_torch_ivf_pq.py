@@ -881,3 +881,58 @@ def test_exhaustive_search_matches_oracle():
     q = x[:5] + 0.02
     for card_route in (False, True):
         _check_oracle(t._search(q, 5, card_route=card_route), x, ids, q, 5)
+
+
+# -- the high-water marks the select kernel stops at ---------------------------------------
+
+
+def test_hwm_follows_remove_and_restage(monkeypatch):
+    """Device mode: the hwm the index hands to the ADC select route is
+    list_hwm of its staged ids after the staging, after an in-place
+    remove_ids (holes: the mark is not the live count) and after the
+    restage that folds a tail in; the select route with and without it
+    equals the JAX package's select program on the same staged canvas."""
+    from c99_vectordb_tpu.ops.adc_pallas import CODE_LANES
+    from c99_vectordb_tpu_torch.models import ivf_pq as tpq_mod
+    from c99_vectordb_tpu_torch.models.devbuild import list_hwm
+    from c99_vectordb_tpu_torch.ops.adc import adc_full_search
+
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("hwm"))
+        return adc_full_search(*args, **kw)
+
+    monkeypatch.setattr(tpq_mod, "adc_full_search", spy)
+    x = _corpus(1200, 32, seed=12)
+    ids = np.arange(0, 2400, 2, dtype=np.int32)
+    q = (x[::101] + 0.05).astype(np.float32)
+    t = TPQ(dim=32, nlist=8, nprobe=3, m=8, refine=False, device="cpu")
+    t.train(torch.from_numpy(x[:800]))
+    t.add(torch.from_numpy(x[:800]), torch.from_numpy(ids[:800]))
+
+    def check(stage, holes):
+        seen.clear()
+        t._search(q, 10, card_route=True)
+        cents, c_sq, books, _, li, canvas, const, pad = t._staged
+        want_hwm = list_hwm(li).to(torch.int32)
+        assert len(seen) == 1 and torch.equal(seen[0], want_hwm), stage
+        assert (want_hwm > (li >= 0).sum(1)).any() == holes, stage
+        c128 = np.zeros((8, CODE_LANES, pad), np.uint8)
+        c128[:, :8] = canvas.numpy()
+        jd, ji = adc_full_search_program(8, pad, 32, 8, 256, q.shape[0], 3, 10)(
+            *(jnp.asarray(a.numpy()) for a in (cents, c_sq, books)), jnp.asarray(c128),
+            jnp.asarray(const.numpy()), jnp.asarray(li.numpy()), jnp.asarray(q))
+        for hwm in (want_hwm, None):
+            td, ti = adc_full_search(cents, c_sq, books, canvas, const, li,
+                                     torch.from_numpy(q), 3, 10, hwm=hwm)
+            same_up_to_ties(jd, ji, td.numpy(), ti.numpy(), atol=_adc_atol(t, q))
+
+    check("staged", holes=False)
+    assert t.remove_ids(ids[:800:3]) == len(ids[:800:3])
+    check("after remove_ids", holes=True)
+    t.add(torch.from_numpy(x[800:]), torch.from_numpy(ids[800:]))
+    t._restage_needed = True
+    t.search(q[:1], 1)                                     # the restage
+    assert t._tail is None and t.ntotal == 1200 - len(ids[:800:3])
+    check("after the restage", holes=False)

@@ -246,3 +246,112 @@ def test_coarse_probes_match_jax(staged):
     got = ivf_scan.coarse_probes(_t(q), _t(arrays["cents"]), _t(arrays["c_sq"]), 5)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.dtype == torch.int32
+
+
+# -- the select kernel's probe groups and high-water marks ----------------------------------
+
+
+def _split_merge(probes, q, q_sq, lv, sqn, li, k, groups, hwm=None):
+    """The select kernel's split rule emulated with its plain version: each
+    contiguous group of ceil(nprobe / groups) probe ranks keeps its own k
+    best, then one merge of the partial lists by (dist, id'), id' = id or
+    INT32_MAX for the (inf, -1) fill (csrc/select_merge.cuh)."""
+    nprobe = probes.shape[1]
+    per = -(-nprobe // groups)
+    parts = [ivf_scan.scan_select_plain(probes[:, p0:p0 + per].contiguous(), q, q_sq, lv, sqn,
+                                        li, k, hwm=hwm) for p0 in range(0, nprobe, per)]
+    d = torch.cat([p[0] for p in parts], 1)
+    i = torch.cat([p[1] for p in parts], 1)
+    md, mt = ivf_scan.lex_topk(d, torch.where(i >= 0, i, ivf_scan.INT32_MAX), k)
+    return md, torch.where(mt == ivf_scan.INT32_MAX, -1, mt)
+
+
+def _planted_lists(seed, nlist=8, pad=6, k=5):
+    """Lists scored by a zero query, so each distance is its row's norm:
+    integer norms (many exact ties), padding, masked rows (+inf norm, real
+    id); k - 1 rows at 1..k-1 and, tied at the k-th place, id 900 in the
+    list probed first and id 5 in the list probed last."""
+    g = torch.Generator().manual_seed(seed)
+    lv = torch.randn((nlist, pad, 4), generator=g)
+    li = (torch.randperm(nlist * pad, generator=g) + 1000).reshape(nlist, pad).to(torch.int32)
+    li[torch.rand((nlist, pad), generator=g) < 0.2] = -1
+    sqn = torch.randint(k + 1, k + 8, (nlist, pad), generator=g).to(torch.float32)
+    sqn[torch.rand((nlist, pad), generator=g) < 0.1] = torch.inf
+    probes = torch.randperm(nlist, generator=g)[None, :].to(torch.int32)
+    first, last = int(probes[0, 0]), int(probes[0, -1])
+    for r in range(k - 1):                       # the k - 1 nearest, one per list
+        sqn[int(probes[0, r % nlist]), 1], li[int(probes[0, r % nlist]), 1] = r + 1, 100 + r
+    sqn[first, 0], li[first, 0] = k, 900
+    sqn[last, 0], li[last, 0] = k, 5
+    q = torch.zeros((1, 4))
+    return probes, q, torch.zeros(1), lv, sqn, li
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_and_merge_equals_single_pass(groups, seed):
+    """Probe groups merged by (dist, id') give the single pass's result,
+    the k-th place tie included: the lower id wins although its list is
+    probed last (and lies in another group)."""
+    k = 5
+    args = _planted_lists(seed, k=k)
+    sd, si = ivf_scan.scan_select_plain(*args, k)
+    assert si[0, k - 1] == 5 and sd[0, k - 1] == k and sd[0, k - 2] == k - 1
+    gd, gi = _split_merge(*args, k, groups)
+    assert torch.equal(gd, sd) and torch.equal(gi, si)
+    # Deeper than the live rows: masked rows fill, then (inf, -1), alike.
+    sd, si = ivf_scan.scan_select_plain(*args, 45)
+    gd, gi = _split_merge(*args, 45, groups)
+    assert torch.equal(gd, sd) and torch.equal(gi, si) and (si[0, -3:] == -1).all()
+
+
+def test_select_stops_at_hwm(staged):
+    """Slots at or past hwm are padding for the select plain version (rows
+    there are ignored); the true marks change nothing; the dense plain
+    version scans to pad."""
+    arrays, pad, q, _ = staged
+    qt = _t(q)
+    probes = ivf_scan.coarse_probes(qt, _t(arrays["cents"]), _t(arrays["c_sq"]), 6)
+    lv, sqn, li = _t(arrays["lv"]), _t(arrays["sqn"]), _t(arrays["li"])
+    args = (probes, qt, (qt * qt).sum(1), lv, sqn)
+    from c99_vectordb_tpu_torch.models.devbuild import list_hwm
+
+    true = list_hwm(li).to(torch.int32)
+    want = ivf_scan.scan_select_plain(*args, li, 20)
+    got = ivf_scan.scan_select_plain(*args, li, 20, hwm=true)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    low = torch.clamp(true - 40, min=0).to(torch.int32)
+    cut = torch.where(torch.arange(pad)[None, :] < low[:, None], li, -1)
+    got = ivf_scan.scan_select_plain(*args, li, 20, hwm=low)
+    want = ivf_scan.scan_select_plain(*args, cut, 20)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _, si = ivf_scan.ivf_full_search(_t(arrays["cents"]), _t(arrays["c_sq"]), lv, sqn, li, qt, 6,
+                                     20, hwm=low)
+    assert torch.equal(si, got[1])
+
+
+@pytest.mark.parametrize("b,nprobe,max_groups,qpb,per_sm,groups", [
+    (128, 16, 65535, 1, 2, None), (128, 16, 192, 1, 2, None), (128, 16, 34, 1, 1, None),
+    (1, 16, 65535, 1, 2, None), (4096, 16, 65535, 1, 2, None), (37, 7, 65535, 4, 2, None),
+    (37, 7, 65535, 1, 2, 3), (37, 7, 65535, 1, 2, 5), (9, 1, 65535, 1, 2, 4),
+    (9, 16, 2, 1, 2, 16), (128, 16, 6, 1, 2, None), (128, 16, 5, 1, 2, None),
+    (128, 16, 65535, 1, 19, None), (128, 8, 65535, 1, 19, None), (128, 16, 192, 1, 13, None),
+    (100, 16, 192, 1, 2, None), (64, 12, 65535, 1, 2, None), (1000, 7, 65535, 8, 2, None),
+])
+def test_probe_groups_rule(b, nprobe, max_groups, qpb, per_sm, groups):
+    """The select grids' probe groups: contiguous groups of ceil(nprobe / G)
+    ranks, at most nprobe and at most what the merge holds, and (asked
+    nothing) equal groups and enough blocks for SELECT_WAVES waves where
+    the probes and the merge allow it."""
+    from c99_vectordb_tpu_torch.ops import select_common as sc
+
+    waves = sc.SELECT_WAVES
+    g = sc.probe_groups(b, nprobe, qpb, per_sm, 132, max_groups, groups)
+    per = -(-nprobe // g)
+    assert 1 <= g <= nprobe and -(-nprobe // per) == g
+    assert g <= max_groups
+    if groups is not None:
+        assert g <= groups
+    elif min(nprobe, 16) <= max_groups:
+        assert nprobe % g == 0                                 # equal groups
+        assert g == nprobe or -(-b // qpb) * g >= waves * per_sm * 132
