@@ -8,8 +8,10 @@
 //   adc_select_kernel  <- _adc_kernel (:201)
 //   (+ adc_merge_kernel)
 //   adc_dense_kernel   <- _adc_dense_kernel (:349) and
-//                         _adc_dense_kernel_multi (:368); queries per
-//                         block is a parameter (1 or 8 from the wrapper)
+//                         _adc_dense_kernel_multi (:368); the JAX
+//                         package's queries per grid step (qps_step, 1 or
+//                         8) stays a keyword of the wrapper, which counts
+//                         launches by it; the kernel's grid ignores it
 //
 // Contract (the Pallas kernels' results, not their Mosaic mechanics). For
 // query b, probe rank p, list l = probes[b, p] and slot s of that list:
@@ -23,7 +25,11 @@
 // (ops/adc.py), which adds the subspaces in the same order.
 //
 //   adc_dense:   write every (dist, raw id) at column p * pad + s of
-//                (B, nprobe * pad); the selection is the caller's.
+//                (B, nprobe * pad); the selection is the caller's. With a
+//                high-water mark hwm the slots past it are written as
+//                (+inf, -1) without a read: they hold id -1, so this is
+//                the plain output (below the mark a masked row keeps its
+//                real id beside its +inf estimate).
 //   adc_select:  keep, per query, the first K of a STABLE sort by dist of
 //                its candidates in (probe rank, slot) order: a candidate
 //                enters only below the current K-th (an equal one does
@@ -52,8 +58,10 @@
 // rows of the unique probed lists (m bytes each, m/2 packed), the
 // constants and ids of their slots, the QD tables, the outputs. Work: m
 // table lookups per live row per (query, probe). At 1M x 384, nlist 4096,
-// m = 96, B = 128, nprobe 16 the bytes take ~20 us and the lookups ~6 us,
-// so the scan is bound by bytes; chip_smoke.py computes both for each run.
+// m = 96, B = 128, nprobe 16 the bytes take ~20 us (select) or ~25 us
+// (dense, whose (B, nprobe * pad) outputs add 19 MB) and the lookups ~6
+// us, so the scans are bound by bytes; chip_smoke.py computes both for
+// each run.
 //
 // Select design (what held the first version back, and the answer):
 //   - One block per query walked all its probes: 128 blocks at B = 128.
@@ -81,9 +89,19 @@
 //   an SM. A table too large for shared memory is read from global memory
 //   (through L1); unaligned code rows (pad % 16) load synchronously.
 //
-// The dense kernel gives each block (a group of qpb queries, one probe
-// rank) and scores every slot of each query's list in turn, restaging QD
-// per query (adc_dist).
+// Dense design. The first version gave each block (qpb queries, one probe
+// rank), restaged the query's 96 KB table for every (query, probe), walked
+// every list to pad and read each slot's m code bytes one at a time from
+// global memory: 27-34x its bound. It now runs the select kernel's
+// pipeline without the selection: the (query, probe group) grid with G
+// from the occupancy query (ops/select_common.probe_groups), the table
+// staged once per block, 64-slot code tiles through two cp.async buffers,
+// each list stopped at its mark, and qdot_tile + adc_finish, so the dense
+// kernel, the select kernel and the plain version add the subspaces in one
+// order. Each thread writes its slot's (estimate, id) where the select
+// kernel would admit it; after its scan a block writes the (+inf, -1) tail
+// of each of its lists. At m = 96 the table and two code tiles take 108 KB:
+// two blocks per SM (40 registers, no spill).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,7 +110,6 @@
 
 namespace {
 
-constexpr int NT = 256;                // threads per block; slots per tile
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB per block on sm_90
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -104,69 +121,9 @@ __device__ __forceinline__ float adc_finish(float coarse, float acc, float cst, 
     return id >= 0 ? fmaxf(d, 0.0f) : inf_f();
 }
 
-// The ADC estimate of slot s of one list (its canvas rows `lc`; the slot's
-// constant `cst` and id) against the table `tab` (m x ksub).
-__device__ __forceinline__ float adc_dist(const float* tab, const uint8_t* __restrict__ lc,
-                                          int pad, int m, int ksub, bool packed, float coarse,
-                                          float cst, int id, int s) {
-    float acc = 0.f;
-    if (packed) {
-        for (int r = 0; r < (m >> 1); ++r) {
-            const int c = __ldg(lc + (int64_t)r * pad + s);
-            acc = __fadd_rn(acc, tab[(2 * r) * 16 + (c & 15)]);
-            acc = __fadd_rn(acc, tab[(2 * r + 1) * 16 + (c >> 4)]);
-        }
-    } else {
-        for (int j = 0; j < m; ++j) {
-            const int c = __ldg(lc + (int64_t)j * pad + s);
-            acc = __fadd_rn(acc, tab[j * ksub + c]);
-        }
-    }
-    return adc_finish(coarse, acc, cst, id);
-}
+// -- the tile pipeline the select and dense kernels share ------------------------------------
 
-// Stage query b's table into shared memory when it fits; returns the
-// table to read (shared or global). Every thread must call it.
-__device__ __forceinline__ const float* stage_table(const float* __restrict__ qd, int b, int mk,
-                                                    bool in_smem, float* s_tab) {
-    const float* g = qd + (int64_t)b * mk;
-    if (!in_smem) return g;
-    for (int i = threadIdx.x; i < mk; i += NT) s_tab[i] = __ldg(g + i);
-    __syncthreads();
-    return s_tab;
-}
-
-__global__ void __launch_bounds__(NT)
-adc_dense_kernel(const int* __restrict__ probes, const float* __restrict__ probe_coarse,
-                 const float* __restrict__ qd, const uint8_t* __restrict__ codes,
-                 const float* __restrict__ item_const, const int* __restrict__ ids,
-                 int B, int nprobe, int pad, int m, int ksub, int packed, int qpb,
-                 int tab_in_smem, float* __restrict__ out_d, int* __restrict__ out_i) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* s_tab = reinterpret_cast<float*>(smem);
-    const int g = blockIdx.x / nprobe, p = blockIdx.x % nprobe;
-    const int rows = packed ? (m >> 1) : m;
-    for (int j = 0; j < qpb; ++j) {
-        const int b = g * qpb + j;
-        if (b >= B) break;
-        const float* tab = stage_table(qd, b, m * ksub, tab_in_smem != 0, s_tab);
-        const int64_t bp = (int64_t)b * nprobe + p;
-        const int64_t l = probes[bp];
-        const float coarse = probe_coarse[bp];
-        const uint8_t* lc = codes + l * rows * pad;
-        for (int s = threadIdx.x; s < pad; s += NT) {
-            const int id = ids[l * pad + s];
-            out_d[bp * pad + s] = adc_dist(tab, lc, pad, m, ksub, packed != 0, coarse,
-                                           item_const[l * pad + s], id, s);
-            out_i[bp * pad + s] = id;
-        }
-        __syncthreads();   // the next query restages the table
-    }
-}
-
-// -- the select kernel and its merge -------------------------------------------------------
-
-constexpr int ANT = 64;                // select: threads per block = slots per tile
+constexpr int ANT = 64;                // threads per block = slots per tile
 constexpr int SMEM_K_MAX = 1024;       // select lists in shared memory up to this k
 
 // The sum of one slot's table entries in subspace order, from its column
@@ -241,6 +198,115 @@ __device__ __forceinline__ void issue_codes(const uint8_t* __restrict__ lc, int 
     if (cnt & 15) copy_codes(lc, rows, pad, s0, cpr * 16, cnt & 15, dst);
 }
 
+// Query b's table (m * ksub f32 at qd) into s_tab when it fits in shared
+// memory (tab_in_smem), with 16-byte cp.async when aligned (tab_vec: the
+// caller commits it with its first code tile); returns the table to read.
+__device__ __forceinline__ const float* stage_table(const float* __restrict__ qd, int64_t b,
+                                                    int mk, int tab_in_smem, int tab_vec,
+                                                    float* s_tab) {
+    const float* tab = qd + b * mk;
+    if (!tab_in_smem) return tab;
+    if (tab_vec) {
+        for (int i = threadIdx.x * 4; i < mk; i += ANT * 4) sel::cp_async16(s_tab + i, tab + i);
+    } else {
+        for (int i = threadIdx.x; i < mk; i += ANT) s_tab[i] = tab[i];
+    }
+    return s_tab;
+}
+
+// The table's bytes in shared memory, rounded up to 16 (the code tiles follow).
+__host__ __device__ inline size_t table_bytes(int m, int ksub) {
+    return ((size_t)m * ksub * sizeof(float) + 15) / 16 * 16;
+}
+
+// Shared memory of the dense kernel: the table (when it fits) and two code
+// tiles.
+struct DensePlan {
+    size_t smem;
+    bool tab_in_smem;
+};
+
+DensePlan dense_plan(int m, int ksub, bool packed) {
+    const size_t tiles = 2 * (size_t)(packed ? m / 2 : m) * ANT;
+    const bool tab = tiles + table_bytes(m, ksub) <= SMEM_LIMIT;
+    return {tiles + (tab ? table_bytes(m, ksub) : 0), tab};
+}
+
+// grid (B, G). Block (b, g) scores probe ranks [g * per, (g + 1) * per) of
+// query b: every slot below its list's high-water mark (pad without marks)
+// through the tile pipeline, its (estimate, raw id) at column p * pad + s
+// of out (B, nprobe * pad); the slots from the mark to pad get (+inf, -1)
+// without a read.
+__global__ void __launch_bounds__(ANT)
+adc_dense_kernel(const int* __restrict__ probes, const float* __restrict__ probe_coarse,
+                 const float* __restrict__ qd, const uint8_t* __restrict__ codes,
+                 const float* __restrict__ item_const, const int* __restrict__ ids,
+                 const int* __restrict__ hwm, int nprobe, int pad, int m, int ksub, int packed,
+                 int per, int tab_in_smem, int tab_vec, int code_vec, float* __restrict__ out_d,
+                 int* __restrict__ out_i) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.x, g = blockIdx.y;
+    const int rows = packed ? (m >> 1) : m;
+    float* s_tab = reinterpret_cast<float*>(smem);
+    uint8_t* cb0 = smem + (tab_in_smem ? table_bytes(m, ksub) : 0);
+    uint8_t* cb1 = cb0 + rows * ANT;
+    const int p0 = g * per, p1 = min(nprobe, p0 + per);
+    const int* prb = probes + (int64_t)b * nprobe;
+    const float* pcb = probe_coarse + (int64_t)b * nprobe;
+    float* od = out_d + (int64_t)b * nprobe * pad;
+    int* oi = out_i + (int64_t)b * nprobe * pad;
+
+    const float* tab = stage_table(qd, b, m * ksub, tab_in_smem, tab_vec, s_tab);
+    sel::ListTile cur{p0 - 1, 0, 0, 0};
+    sel::next_tile(cur, 0, p1, prb, hwm, pad);
+    sel::ListTile ld = cur;
+    for (int s = 0; s < 2; ++s) {              // two tiles in flight (the table with the first)
+        if (ld.p < p1) {
+            issue_codes(codes + ld.base * rows, rows, pad, ld.s0, min(ANT, ld.n - ld.s0),
+                        code_vec != 0, s ? cb1 : cb0);
+            sel::next_tile(ld, ANT, p1, prb, hwm, pad);
+        }
+        sel::cp_async_commit();
+    }
+    int buf = 0;
+    while (cur.p < p1) {
+        sel::cp_async_wait<1>();
+        __syncthreads();
+        uint8_t* cb = buf ? cb1 : cb0;
+        if (threadIdx.x < min(ANT, cur.n - cur.s0)) {
+            const int64_t row = cur.base + cur.s0 + threadIdx.x;
+            const int64_t col = (int64_t)cur.p * pad + cur.s0 + threadIdx.x;
+            const int id = ids[row];
+            const float acc = qdot_tile(tab, cb + threadIdx.x, rows, ksub, packed != 0);
+            od[col] = adc_finish(pcb[cur.p], acc, item_const[row], id);
+            oi[col] = id;
+        }
+        __syncthreads();                       // the tile is read before it is refilled
+        if (ld.p < p1) {
+            issue_codes(codes + ld.base * rows, rows, pad, ld.s0, min(ANT, ld.n - ld.s0),
+                        code_vec != 0, cb);
+            sel::next_tile(ld, ANT, p1, prb, hwm, pad);
+        }
+        sel::cp_async_commit();
+        sel::next_tile(cur, ANT, p1, prb, hwm, pad);
+        buf ^= 1;
+    }
+    // The slots past each list's mark, after the scan (before it, their
+    // loop spilled a register across the tile loop).
+    if (hwm) {
+        for (int p = p0; p < p1; ++p) {
+            const int n = min(max(hwm[prb[p]], 0), pad);
+            for (int s = n + threadIdx.x; s < pad; s += ANT) {
+                od[(int64_t)p * pad + s] = sel::inf_f();
+                oi[(int64_t)p * pad + s] = -1;
+            }
+        }
+    }
+    sel::cp_async_wait<0>();
+}
+
+// -- the select kernel and its merge -------------------------------------------------------
+
 // Shared memory of the select kernel: the table (when it fits), two code
 // tiles, the candidates and (when they fit) the two lists.
 struct SelectPlan {
@@ -252,7 +318,7 @@ struct SelectPlan {
 SelectPlan select_plan(int m, int ksub, bool packed, int K) {
     const int rows = packed ? m / 2 : m;
     const size_t fixed = 2 * (size_t)rows * ANT + sizeof(float) * (4 * ANT + 4);
-    const size_t table = ((size_t)m * ksub * sizeof(float) + 15) / 16 * 16;
+    const size_t table = table_bytes(m, ksub);
     const size_t lists = 2 * (size_t)K * (sizeof(float) + sizeof(int));
     const bool tab = fixed + table <= SMEM_LIMIT;
     const size_t base = fixed + (tab ? table : 0);
@@ -275,9 +341,8 @@ adc_select_kernel(const int* __restrict__ probes, const float* __restrict__ prob
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x, g = blockIdx.y;
     const int rows = packed ? (m >> 1) : m;
-    const int mk = m * ksub;
     float* s_tab = reinterpret_cast<float*>(smem);
-    uint8_t* cb0 = smem + (tab_in_smem ? ((size_t)mk * sizeof(float) + 15) / 16 * 16 : 0);
+    uint8_t* cb0 = smem + (tab_in_smem ? table_bytes(m, ksub) : 0);
     uint8_t* cb1 = cb0 + rows * ANT;
     float* cd = reinterpret_cast<float*>(cb1 + rows * ANT);   // admitted candidates
     int* ct = reinterpret_cast<int*>(cd + ANT);
@@ -290,15 +355,7 @@ adc_select_kernel(const int* __restrict__ probes, const float* __restrict__ prob
     const int* prb = probes + (int64_t)b * nprobe;
     const float* pcb = probe_coarse + (int64_t)b * nprobe;
 
-    const float* tab = qd + (int64_t)b * mk;
-    if (tab_in_smem) {
-        if (tab_vec) {
-            for (int i = threadIdx.x * 4; i < mk; i += ANT * 4) sel::cp_async16(s_tab + i, tab + i);
-        } else {
-            for (int i = threadIdx.x; i < mk; i += ANT) s_tab[i] = tab[i];
-        }
-        tab = s_tab;
-    }
+    const float* tab = stage_table(qd, b, m * ksub, tab_in_smem, tab_vec, s_tab);
     sel::Lists L;
     if (smem_lists) {
         L = {l0d, reinterpret_cast<int*>(l0d + K), l0d + 2 * K,
@@ -403,7 +460,19 @@ cudaError_t set_smem(Kern kernel, size_t smem) {
 
 extern "C" {
 
-int adc_scan_abi_version() { return 2; }
+int adc_scan_abi_version() { return 3; }
+
+// The dense kernel's blocks per SM at (m, ksub, packed)
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into out[0]. Returns the
+// CUDA error code.
+int adc_dense_occupancy(int m, int ksub, int packed, int* out) {
+    if (!valid_args(1, 1, 1, m, ksub, packed)) return (int)cudaErrorInvalidValue;
+    const DensePlan plan = dense_plan(m, ksub, packed != 0);
+    cudaError_t err = set_smem(adc_dense_kernel, plan.smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], adc_dense_kernel, ANT,
+                                                              plan.smem);
+}
 
 // The select kernel's residency at (m, ksub, packed, K): out[0] = blocks
 // per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] = 1 when
@@ -466,25 +535,26 @@ int adc_scan_select(const void* probes, const void* probe_coarse, const void* qd
     return (int)cudaGetLastError();
 }
 
-// As adc_scan_select, without selection: out_d/out_i (B, nprobe * pad);
-// qpb queries per block.
+// As adc_scan_select, without selection, on G probe groups: out_d/out_i
+// (B, nprobe * pad). Returns the CUDA error code (0 on success).
 int adc_scan_dense(const void* probes, const void* probe_coarse, const void* qd,
-                   const void* codes, const void* item_const, const void* ids, int B, int nprobe,
-                   int pad, int m, int ksub, int packed, int qpb, void* out_d, void* out_i,
-                   void* stream) {
-    if (!valid_args(B, nprobe, pad, m, ksub, packed) || qpb <= 0) return (int)cudaErrorInvalidValue;
-    const size_t table = sizeof(float) * (size_t)m * ksub;
-    const int in_smem = table <= SMEM_LIMIT ? 1 : 0;
-    const size_t smem = in_smem ? table : 0;
-    cudaError_t err = set_smem(adc_dense_kernel, smem);
+                   const void* codes, const void* item_const, const void* ids, const void* hwm,
+                   int B, int nprobe, int pad, int m, int ksub, int packed, int G, void* out_d,
+                   void* out_i, void* stream) {
+    if (!valid_args(B, nprobe, pad, m, ksub, packed) || !sel::valid_groups(nprobe, G))
+        return (int)cudaErrorInvalidValue;
+    const DensePlan plan = dense_plan(m, ksub, packed != 0);
+    cudaError_t err = set_smem(adc_dense_kernel, plan.smem);
     if (err != cudaSuccess) return (int)err;
-    const int64_t blocks = (int64_t)((B + qpb - 1) / qpb) * nprobe;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    adc_dense_kernel<<<(unsigned)blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+    const bool tab_vec = (m * ksub) % 4 == 0 && (reinterpret_cast<uintptr_t>(qd) & 15) == 0;
+    const bool code_vec = pad % 16 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+    adc_dense_kernel<<<dim3(B, G), ANT, plan.smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(probes), static_cast<const float*>(probe_coarse),
         static_cast<const float*>(qd), static_cast<const uint8_t*>(codes),
-        static_cast<const float*>(item_const), static_cast<const int*>(ids), B, nprobe, pad, m,
-        ksub, packed, qpb, in_smem, static_cast<float*>(out_d), static_cast<int*>(out_i));
+        static_cast<const float*>(item_const), static_cast<const int*>(ids),
+        static_cast<const int*>(hwm), nprobe, pad, m, ksub, packed, (nprobe + G - 1) / G,
+        plan.tab_in_smem ? 1 : 0, tab_vec ? 1 : 0, code_vec ? 1 : 0, static_cast<float*>(out_d),
+        static_cast<int*>(out_i));
     return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,9 @@
 //   key(q, row) = norms[row] + dot(q_bf16[q], bf16(x8[row]))     int8 codes,
 //                                                                 bf16 queries
 //
-// with f32 accumulation (int8: an exact int32 dot via __dp4a). The last
+// with f32 accumulation (int8: an exact int32 dot, s8 tensor-core
+// products with s32 accumulators, so the key rounds only in its product
+// and its sum, as the plain version's does). The last
 // mode is the Pallas kernel's q_int8=False branch (topk_pallas.py:76-80):
 // SQ8 codes decode to bf16 (exactly: |code| <= 127) against bf16 queries
 // staged as (-2 q).to(bf16); each product is exact in f32. For every
@@ -32,19 +34,21 @@
 // L2 once. Pass 2 (merge_splits_kernel): one warp per query merges the
 // per-split sorted lists by (key, position) into the final k.
 //
-// How pass 1 forms the keys depends on the product's type:
-//   - f32 x f32 (mode 0, the default store) and bf16 x bf16 -> f32 (mode 1,
-//     bf16 store; mode 3, int8 codes with bf16 queries): tensor cores,
-//     scan_topk_mma_kernel. Store tiles arrive in DK-column chunks (64 bf16
-//     or 32 f32 columns) through a STAGES-deep ring of 16-byte cp.async.cg
-//     copies, so the next chunks load while the current one multiplies.
-//     The bf16 modes stage the block's queries once and keep them resident
-//     in shared memory for the whole split (64 x 392 bf16 = 49 KB at
-//     D = 384; above ~1,340 columns they come through the ring beside the
-//     store instead). Modes 0 and 1 copy their rows as they are; mode 3
-//     copies the raw int8 codes (half of bf16's bytes, a quarter of f32's)
-//     and one cooperative pass decodes each chunk once into a bf16 tile in
-//     shared memory (exact), so modes 1 and 3 share one product path. Rows
+// Pass 1 forms the keys on the tensor cores in every mode:
+//   - scan_topk_mma_kernel<MODE> for f32 x f32 (mode 0, the default store),
+//     bf16 x bf16 -> f32 (mode 1, bf16 store; mode 3, int8 codes with bf16
+//     queries) and int8 x int8 -> int32 (mode 2, int8 store and queries,
+//     the JAX kernel's int8_q branch, topk_pallas.py:338-346). Store tiles
+//     arrive in DK-column chunks (64 bf16, 128 int8 or 32 f32 columns)
+//     through a STAGES-deep ring of 16-byte cp.async.cg copies, so the next
+//     chunks load while the current one multiplies. Modes 1-3 stage the
+//     block's queries once and keep them resident in shared memory for the
+//     whole split (64 x 392 bf16 = 49 KB at D = 384, 64 x 400 int8 = 25.6
+//     KB; above ~1,340 bf16 columns they come through the ring beside the
+//     store instead). Modes 0, 1 and 2 copy their rows as they are; mode 3 copies
+//     the raw int8 codes (half of bf16's bytes, a quarter of f32's) and one
+//     cooperative pass decodes each chunk once into a bf16 tile in shared
+//     memory (exact), so modes 1 and 3 share one product path. Rows
 //     that are not 16-byte aligned (D % 4 != 0 for f32, D % 8 != 0 for
 //     bf16, D % 16 != 0 for int8, or an unaligned base) take a plain
 //     zero-filling loader into the same layout. Each warp owns a 16-query x
@@ -54,6 +58,12 @@
 //     Chunk rows are padded by 16 bytes to 16 mod 128 bytes, which keeps
 //     every ldmatrix phase on distinct banks.
 //     bf16: mma.sync.m16n8k16 bf16 -> f32 (every product exact in f32).
+//     int8: mma.sync.m16n8k32 s8 -> s32. A 32-value s8 k step is 32 bytes,
+//     as a bf16 k16 step, and its A and B fragments hold the bytes that
+//     ldmatrix.b16 hands each lane (row lane / 4, bytes 4 (lane % 4) .. + 3
+//     of an 8 x 16-byte matrix), so mode 2 shares the bf16 addressing
+//     (tests/test_torch_s8_fragments.py emulates it). The exact int32 dot
+//     becomes the key as float(dot) * rs (rounded), + norm (rounded).
 //     f32: 3xTF32 on mma.sync.m16n8k8 tf32 -> f32. Each element x splits
 //     into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with
 //     ties away from zero (cvt.rna's rounding, done with an integer add and
@@ -83,9 +93,6 @@
 //     one block per SM, although every query tile is read again from L2 for
 //     each row tile. A chunk with no ragged edge runs its k steps with no
 //     guard between them, so the steps' mma.sync chains overlap.
-//   - int8 x int8 (mode 2): CUDA cores, scan_topk_kernel: DKW-word slices of
-//     both operands are loaded synchronously into transposed shared tiles
-//     and a 4x4 register micro-tile per thread runs __dp4a (exact int32).
 //
 // Bound on the NVIDIA H100 80GB HBM3 (the SXM part; published at 700 W:
 // 3.35 TB/s; tensor cores 495 TFLOP/s TF32, 989 TFLOP/s bf16, 1,979 TOP/s
@@ -107,14 +114,17 @@
 // at B = 1024 every one of the 16 query tiles reads the store again from
 // L2. The f32 mode, with three products per fragment pair, spends most of
 // its time in mma.sync. Two blocks of 8 warps share an SM at small k
-// (about 105 KB of shared memory each for bf16, 98 KB for f32, at k = 20),
-// and the split count keeps the grid to one wave. Mode 2 still runs on the
-// CUDA cores (m16n8k32 s8 on the same ring is its next step). chip_smoke.py
-// computes the bound for each run's shapes and times every mode beside it.
+// (about 105 KB of shared memory each for bf16, 98 KB for f32, 78 KB for
+// int8, at k = 20), and the split count keeps the grid to one wave. Mode 2
+// reads half of bf16's bytes and has no decode pass, so at B = 128 the warp
+// selection is the larger part of its time (60%). Its chunks are 128
+// columns: at 64 (64 bytes a row) a row tile took six ring steps and
+// barriers for half of bf16's bytes, 20-25% slower. chip_smoke.py computes
+// the bound for each run's shapes and times every mode beside it.
 // Registers (ptxas -v of the shipped build, printed by chip_smoke.py):
-// scan_topk_mma_kernel<0> 128, <1> and <3> 127 each (the launch bounds cap
-// them at 128 for two blocks per SM), scan_topk_kernel 80,
-// merge_splits_kernel 26; nothing spills.
+// scan_topk_mma_kernel<0> 128, <1>, <2> and <3> 127 each (the launch
+// bounds cap them at 128 for two blocks per SM), merge_splits_kernel 26;
+// nothing spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -123,8 +133,8 @@
 
 // Build-time switches of the tensor-core path, for tools/flat_mma_breakdown.py
 // only (the shipped build takes these defaults): the ring's shape (FL2_DK
-// columns per chunk for the bf16 modes, FL2_STAGES deep) and two diagnostic
-// cuts that skip the products or the selection (results wrong).
+// bf16 columns per chunk, twice that in int8, FL2_STAGES deep) and two
+// diagnostic cuts that skip the products or the selection (results wrong).
 #ifndef FL2_DK
 #define FL2_DK 64
 #endif
@@ -143,27 +153,29 @@ namespace {
 constexpr int QT = 64;            // queries per block
 constexpr int RT = 64;            // store rows per tile
 constexpr int NT = 256;           // threads per block (8 warps)
-constexpr int DKW = 16;           // feature slice, int8 as 4-byte words (64 values)
-constexpr int TS = QT + 4;        // padded tile stride (keeps 16-byte rows)
 constexpr int SMEM_LIST_MAX = 128;
 constexpr int MAX_SPLITS = 128;   // 4 per lane in the merge pass
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int INT_MAXV = 0x7fffffff;
-static_assert(QT == RT, "the slice and chunk loaders stage QT rows for both operands");
+static_assert(QT == RT, "the chunk loader stages RT rows of the queries too");
 
-// The tensor-core path (modes 0, 1 and 3).
+// The tensor-core path.
 constexpr int STAGES = FL2_STAGES;           // ring depth
 constexpr size_t SMEM_MAX = 232448;          // dynamic shared memory a block may use
 constexpr int F32_DK = 32;                   // f32 columns per ring chunk
 
 // Per-mode shapes of the tensor-core path. T: the product operand's element
 // (f32 for mode 0; bf16 bits for modes 1 and 3, whose int8 codes decode to
-// bf16); DKC: feature columns per ring chunk; V: elements per 16 bytes; SK:
-// the padded chunk row, DKC + V elements (16 mod 128 bytes).
+// bf16; int8 for mode 2); Acc: the accumulator (int32 for mode 2, else
+// f32); DKC: feature columns per ring chunk (FL2_DK bf16 or 2 * FL2_DK int8
+// columns: the same bytes a row); V: elements per 16 bytes; SK: the padded
+// chunk row, DKC + V elements (16 mod 128 bytes).
 template <int MODE>
 struct Op {
-    using T = typename std::conditional<MODE == 0, float, uint16_t>::type;
-    static constexpr int DKC = MODE == 0 ? F32_DK : FL2_DK;
+    using T = typename std::conditional<
+        MODE == 0, float, typename std::conditional<MODE == 2, int8_t, uint16_t>::type>::type;
+    using Acc = typename std::conditional<MODE == 2, int, float>::type;
+    static constexpr int DKC = MODE == 0 ? F32_DK : MODE == 2 ? 2 * FL2_DK : FL2_DK;
     static constexpr int V = 16 / (int)sizeof(T);
     static constexpr int SK = DKC + V;
     static_assert((RT * DKC / V) % NT == 0, "whole 16-byte copies per thread per chunk");
@@ -263,99 +275,7 @@ __device__ __forceinline__ void lists_flush(const Lists& L, int B, int q0) {
     }
 }
 
-// -- CUDA-core pass 1 (mode 2: int8 store, int8 queries) ---------------------------
-
-// Stage a (rows x DKW words) slice of a row-major (n_rows, D) int8 matrix,
-// read as packed 4-byte words (D % 4 == 0), into the transposed tile
-// t[DKW][TS]; out-of-range words are 0.
-__device__ __forceinline__ void load_slice_w(const int8_t* __restrict__ src, int row0, int n_rows,
-                                             int DW, int w0, int* t) {
-#pragma unroll
-    for (int i = 0; i < (QT * DKW) / NT; ++i) {
-        int idx = threadIdx.x + NT * i;
-        int r = idx / DKW, w = idx % DKW;
-        int v = 0;
-        if (row0 + r < n_rows && w0 + w < DW)
-            v = reinterpret_cast<const int*>(src + (int64_t)(row0 + r) * DW * 4)[w0 + w];
-        t[w * TS + r] = v;
-    }
-}
-
-// q: int8 queries with per-row scales rs; x: the int8 store.
-__global__ void __launch_bounds__(NT)
-scan_topk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x,
-                 const float* __restrict__ norms, const float* __restrict__ rs,
-                 int B, int N, int D, int K, int rows_per_split,
-                 float* __restrict__ part_k, int* __restrict__ part_p) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* keys_s = reinterpret_cast<float*>(smem);                 // [QT][RT + 1]
-    int* tq = reinterpret_cast<int*>(keys_s + QT * (RT + 1));        // [DKW][TS]
-    int* tx = tq + DKW * TS;                                         // [DKW][TS]
-    float* list_base_k = reinterpret_cast<float*>(tx + DKW * TS);
-
-    const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * QT;
-    const int split = blockIdx.y;
-    const int row_begin = split * rows_per_split;
-    const int row_end = min(N, row_begin + rows_per_split);
-    const int tx4 = (tid % 16) * 4;   // this thread's 4 rows of the tile
-    const int ty4 = (tid / 16) * 4;   // this thread's 4 queries of the tile
-
-    const Lists lists{list_base_k, reinterpret_cast<int*>(list_base_k + QT * K), part_k, part_p,
-                      ((int64_t)split * B + q0) * K, K, K <= SMEM_LIST_MAX};
-    lists_init(lists, B, q0);
-    float qscale[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qscale[i] = (q0 + ty4 + i < B) ? rs[q0 + ty4 + i] : 0.f;
-    __syncthreads();
-
-    const int DW = D / 4;
-    for (int r0 = row_begin; r0 < row_end; r0 += RT) {
-        int acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-        for (int w0 = 0; w0 < DW; w0 += DKW) {
-            load_slice_w(q, q0, B, DW, w0, tq);
-            load_slice_w(x, r0, row_end, DW, w0, tx);
-            __syncthreads();
-#pragma unroll 4
-            for (int w = 0; w < DKW; ++w) {
-                const int4 a = *reinterpret_cast<const int4*>(tq + w * TS + ty4);
-                const int4 b = *reinterpret_cast<const int4*>(tx + w * TS + tx4);
-                const int av[4] = {a.x, a.y, a.z, a.w};
-                const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-            }
-            __syncthreads();
-        }
-
-        // Keys of this tile, rounded twice (product, then sum) exactly as
-        // the plain version computes them, never fused.
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int row = r0 + tx4 + j;
-            const bool live = row < row_end;
-            const float nrm = live ? norms[row] : 0.f;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float key = __fadd_rn(__fmul_rn((float)acc[i][j], qscale[i]), nrm);
-                keys_s[(ty4 + i) * (RT + 1) + tx4 + j] = live ? key : __int_as_float(0x7f800000);
-            }
-        }
-        __syncthreads();
-        select_tile(lists, keys_s, r0, B, q0);
-        __syncthreads();
-    }
-    lists_flush(lists, B, q0);
-}
-
-// -- tensor-core pass 1 (modes 0, 1 and 3) -----------------------------------------
+// -- tensor-core pass 1 (every mode) ---------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -380,6 +300,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
     asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
                  "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
                  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32 s8, row) . b (32x8 s8, col), s32 accumulators (exact; no
+// .satfinite: |sum| <= 128 * 128 * D stays far inside int32). The fragments
+// are the bf16 m16n8k16 ones read as bytes (PTX ISA, m16n8k32 .s8: a_i of
+// register r holds row g + 8 (r & 1), column 16 (r >> 1) + 4 t + i; b_i of
+// register r column g, row 16 r + 4 t + i), so ldmatrix.b16 loads them alike.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -477,7 +409,7 @@ __host__ __device__ inline MmaLayout mma_layout(int D, int K, bool q_res, bool s
 }
 
 // Where the launch puts the queries and the lists: resident queries when
-// they fit (bf16 only; f32 queries always stream through the ring), then
+// they fit (bf16 and int8; f32 queries always stream through the ring), then
 // the lists in shared memory when they fit beside them.
 struct MmaPlan {
     bool q_res, smem_lists;
@@ -492,7 +424,7 @@ MmaPlan mma_plan(int D, int K) {
 }
 
 // One DKC-column chunk of 64 rows [row0, row_lim) of a row-major (., D)
-// f32 or bf16 matrix into dst (stride SK), zero past row_lim and D:
+// f32, bf16 or int8 matrix into dst (stride SK), zero past row_lim and D:
 // 16-byte cp.async when rows are aligned, else a plain loader.
 template <int MODE>
 __device__ __forceinline__ void load_chunk(const typename Op<MODE>::T* __restrict__ src, int row0,
@@ -516,7 +448,8 @@ __device__ __forceinline__ void load_chunk(const typename Op<MODE>::T* __restric
     }
 }
 
-// The same for raw int8 codes into dst (stride FL2_DK bytes).
+// The same for mode 3's raw int8 codes into dst (stride FL2_DK bytes: the
+// decode reads them by rows, ldmatrix never does).
 __device__ __forceinline__ void load_chunk_i8(const int8_t* __restrict__ src, int row0, int row_lim,
                                               int D, int c0, int8_t* dst, bool async) {
     constexpr int DK = FL2_DK;
@@ -563,14 +496,17 @@ __device__ __forceinline__ void decode_chunk(const int8_t* raw, uint16_t* dec) {
     }
 }
 
-// MODE 0: f32 store and queries (3xTF32); 1: bf16 store; 3: int8 codes
-// (decoded to bf16) with bf16 queries. q_res: the query tile is resident
-// (else it streams through the ring; always for mode 0); smem_lists: the lists are in shared
-// memory; x_async / q_async: rows are 16-byte aligned and load with cp.async.
+// MODE 0: f32 store and queries (3xTF32); 1: bf16 store; 2: int8 store and
+// int8 queries with per-query scales rs (s8 products, exact int32 dots); 3:
+// int8 codes (decoded to bf16) with bf16 queries. q_res: the query tile is
+// resident (else it streams through the ring; always for mode 0);
+// smem_lists: the lists are in shared memory; x_async / q_async: rows are
+// 16-byte aligned and load with cp.async.
 template <int MODE>
 __global__ void __launch_bounds__(NT, 2)
 scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
-                     const float* __restrict__ norms, int B, int N, int D, int K,
+                     const float* __restrict__ norms, const float* __restrict__ rs,
+                     int B, int N, int D, int K,
                      int rows_per_split, int q_res, int smem_lists, int x_async, int q_async,
                      float* __restrict__ part_k, int* __restrict__ part_p) {
     using O = Op<MODE>;
@@ -621,8 +557,16 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
     // four n8 pieces. Fragment lanes: g = lane / 4, t = lane % 4.
     const int wq = warp & 3, wr = warp >> 2;
     const int g = lane >> 2, t4 = lane & 3;
-    float acc[4][4];
+    typename O::Acc acc[4][4];
     float nrm[4][2];
+    float qscale[2] = {0.f, 0.f};   // mode 2: rs of this thread's queries g and g + 8
+    if constexpr (MODE == 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int qi = q0 + wq * 16 + g + 8 * h;
+            qscale[h] = qi < B ? rs[qi] : 0.f;
+        }
+    }
 
 #pragma unroll
     for (int i = 0; i < STAGES - 1; ++i) {
@@ -642,7 +586,7 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-                for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+                for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
                     const int row = r0 + wr * 32 + nt * 8 + 2 * t4 + e;
@@ -669,7 +613,8 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
         // ldmatrix row addresses, 16 bytes each: A's four pieces are (rows
         // 0-7 | 8-15) x (bytes 0-15 | 16-31) of a 32-byte k step; B's are
         // (n 0-7, bytes 0-15), (n 0-7, bytes 16-31), then n 8-15 alike.
-        // bf16 reads them as 8x8 b16 matrices (k16), f32 as 8x4 f32 (k8).
+        // bf16 reads them as 8x8 b16 matrices (k16), f32 as 8x4 f32 (k8),
+        // int8 as 8x16 s8 (k32).
         const int a_off = (wq * 16 + (lane & 15)) * as + (lane >> 4) * O::V;
         const int b_off = (wr * 32 + (lane >> 4) * 8 + (lane & 7)) * O::SK + ((lane >> 3) & 1) * O::V;
         // One 32-byte k step of the warp's four pieces.
@@ -683,6 +628,15 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
                 ldmatrix_x4(bl01, aux + b_off + kk);
                 ldmatrix_x4(bl23, aux + b_off + 16 * O::SK + kk);
                 mma_3xtf32(acc, ah, al, bh01, bh23, bl01, bl23);
+            } else if constexpr (MODE == 2) {
+                unsigned a[4], b01[4], b23[4];
+                ldmatrix_x4(a, at + a_off + kk);
+                ldmatrix_x4(b01, bt + b_off + kk);
+                ldmatrix_x4(b23, bt + b_off + 16 * O::SK + kk);
+                mma_s8(acc[0], a, b01[0], b01[1]);
+                mma_s8(acc[1], a, b01[2], b01[3]);
+                mma_s8(acc[2], a, b23[0], b23[1]);
+                mma_s8(acc[3], a, b23[2], b23[3]);
             } else {
                 unsigned a[4], b01[4], b23[4];
                 ldmatrix_x4(a, at + a_off + kk);
@@ -708,7 +662,8 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
 
         if (chunk == n_chunks - 1) {
             // Keys of this tile: accumulator (h, e) of piece nt is query
-            // g + 8h, tile row nt*8 + 2t + e.
+            // g + 8h, tile row nt*8 + 2t + e. Mode 2 rounds twice (product,
+            // then sum) exactly as the plain version, never fused.
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -716,9 +671,13 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
                         const int col = wr * 32 + nt * 8 + 2 * t4 + e;
-                        const float key = r0 + col < row_end ? __fadd_rn(nrm[nt][e], acc[nt][2 * h + e])
-                                                             : __int_as_float(0x7f800000);
-                        keys_s[(wq * 16 + g + 8 * h) * (RT + 1) + col] = key;
+                        float key;
+                        if constexpr (MODE == 2)
+                            key = __fadd_rn(__fmul_rn((float)acc[nt][2 * h + e], qscale[h]), nrm[nt][e]);
+                        else
+                            key = __fadd_rn(nrm[nt][e], acc[nt][2 * h + e]);
+                        keys_s[(wq * 16 + g + 8 * h) * (RT + 1) + col] =
+                            r0 + col < row_end ? key : __int_as_float(0x7f800000);
                     }
             __syncthreads();
             // The next write of keys_s comes after the next step's barrier.
@@ -779,24 +738,10 @@ merge_splits_kernel(const float* __restrict__ part_k, const int* __restrict__ pa
 
 int rows_per_split(int N, int S) { return ((N + S - 1) / S + RT - 1) / RT * RT; }
 
-cudaError_t launch_scan_i8(const void* q, const void* x, const float* norms, const float* rs,
-                           int B, int N, int D, int K, int S, float* part_k, int* part_p,
-                           cudaStream_t stream) {
-    size_t smem = sizeof(float) * QT * (RT + 1) + sizeof(int) * 2 * DKW * TS;
-    if (K <= SMEM_LIST_MAX) smem += (sizeof(float) + sizeof(int)) * (size_t)QT * K;
-    cudaError_t err = cudaFuncSetAttribute(scan_topk_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((B + QT - 1) / QT, S);
-    scan_topk_kernel<<<grid, NT, smem, stream>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(x), norms, rs, B, N, D, K,
-        rows_per_split(N, S), part_k, part_p);
-    return cudaGetLastError();
-}
-
 template <int MODE>
-cudaError_t launch_scan_mma(const void* q, const void* x, const float* norms, int B, int N, int D,
-                            int K, int S, float* part_k, int* part_p, cudaStream_t stream) {
+cudaError_t launch_scan_mma(const void* q, const void* x, const float* norms, const float* rs,
+                            int B, int N, int D, int K, int S, float* part_k, int* part_p,
+                            cudaStream_t stream) {
     const MmaPlan plan = mma_plan<MODE>(D, K);
     if (plan.smem > SMEM_MAX) return cudaErrorInvalidValue;
     const int x_vec = MODE == 3 ? 16 : Op<MODE>::V;   // elements per 16-byte copy
@@ -808,9 +753,24 @@ cudaError_t launch_scan_mma(const void* q, const void* x, const float* norms, in
     if (err != cudaSuccess) return err;
     dim3 grid((B + QT - 1) / QT, S);
     scan_topk_mma_kernel<MODE><<<grid, NT, plan.smem, stream>>>(
-        q, x, norms, B, N, D, K, rows_per_split(N, S), plan.q_res, plan.smem_lists, x_async,
+        q, x, norms, rs, B, N, D, K, rows_per_split(N, S), plan.q_res, plan.smem_lists, x_async,
         q_async, part_k, part_p);
     return cudaGetLastError();
+}
+
+// Pass-1 blocks of mode MODE that fit on one SM at (D, K) (the CUDA
+// occupancy query; 1 if it fails).
+template <int MODE>
+int blocks_per_sm(int D, int K) {
+    const size_t smem = mma_plan<MODE>(D, K).smem;
+    int per_sm = 1;
+    if (cudaFuncSetAttribute(scan_topk_mma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_topk_mma_kernel<MODE>, NT, smem) !=
+            cudaSuccess ||
+        per_sm < 1)
+        per_sm = 1;
+    return per_sm;
 }
 
 }  // namespace
@@ -823,21 +783,13 @@ int fused_l2_topk_abi_version() { return 5; }
 // columns at depth K, in mode `dtype`, on a card of `sms` multiprocessors:
 // (query tiles x splits) fills each SM with as many pass-1 blocks as fit
 // on it at once, so the grid is one wave with no tail, with at least one
-// row tile per split. Modes 1-3 count two blocks per SM (the bf16 layout
-// at small k); mode 0 as many as the CUDA occupancy query reports for its
-// shared memory at (D, K): two at k = 20, one where lists in shared memory
-// leave no room for a second.
+// row tile per split. Modes 1 and 3 count two blocks per SM (the bf16
+// layout at small k); modes 0 and 2 as many as the CUDA occupancy query
+// reports for their shared memory at (D, K): two at k = 20 (the launch
+// bounds cap the registers there), one where lists in shared memory leave
+// no room for a second.
 int fused_l2_topk_splits(int dtype, int B, int N, int D, int K, int sms) {
-    int per_sm = 2;
-    if (dtype == 0) {
-        const size_t smem = mma_plan<0>(D, K).smem;
-        if (cudaFuncSetAttribute(scan_topk_mma_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem) != cudaSuccess ||
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_topk_mma_kernel<0>, NT, smem) !=
-                cudaSuccess ||
-            per_sm < 1)
-            per_sm = 1;
-    }
+    const int per_sm = dtype == 0 ? blocks_per_sm<0>(D, K) : dtype == 2 ? blocks_per_sm<2>(D, K) : 2;
     const int q_tiles = (B + QT - 1) / QT;
     const int row_tiles = (N + RT - 1) / RT;
     int s = per_sm * sms / q_tiles;
@@ -862,14 +814,15 @@ int fused_l2_topk(int dtype, const void* q, const void* x, const void* norms, co
     float* pk = static_cast<float*>(part_k);
     int* pp = static_cast<int*>(part_p);
     cudaError_t err;
+    const float* r = static_cast<const float*>(rs);
     if (dtype == 0)
-        err = launch_scan_mma<0>(q, x, nr, B, N, D, K, S, pk, pp, st);
+        err = launch_scan_mma<0>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else if (dtype == 1)
-        err = launch_scan_mma<1>(q, x, nr, B, N, D, K, S, pk, pp, st);
+        err = launch_scan_mma<1>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else if (dtype == 2)
-        err = launch_scan_i8(q, x, nr, static_cast<const float*>(rs), B, N, D, K, S, pk, pp, st);
+        err = launch_scan_mma<2>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else if (dtype == 3)
-        err = launch_scan_mma<3>(q, x, nr, B, N, D, K, S, pk, pp, st);
+        err = launch_scan_mma<3>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else
         return (int)cudaErrorInvalidValue;
     if (err != cudaSuccess) return (int)err;

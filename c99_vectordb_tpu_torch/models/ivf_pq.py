@@ -777,7 +777,8 @@ class IVFPQIndex:
         if card_route and kernel_shape(ksub_eff, self.m):
             if self.refine and k_adc > 2 * LANE_K:
                 dists, out_ids = adc_dense_search(centroids, c_sq, codebooks, canvas, item_const,
-                                                  list_ids, q_adc, nprobe_eff, k_adc)
+                                                  list_ids, q_adc, nprobe_eff, k_adc,
+                                                  hwm=self._hwm)
             else:
                 dists, out_ids = adc_full_search(centroids, c_sq, codebooks, canvas, item_const,
                                                  list_ids, q_adc, nprobe_eff, k_adc,

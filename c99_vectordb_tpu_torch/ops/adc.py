@@ -37,7 +37,9 @@ The select kernel keeps, per query, the first k of a STABLE sort by dist
 of the candidates in (probe rank, slot) order, +inf never entering and
 unfilled slots (inf, -1): on exact ties the earlier probe wins, not the
 lower id (the Pallas insertion rule). The dense kernel writes every
-(dist, raw id) at column p * pad + s.
+(dist, raw id) at column p * pad + s. Both take the lists' high-water
+marks (hwm): the slots at or past a list's mark count as padding (id -1),
+which the true marks (models/devbuild.list_hwm) leave unchanged.
 """
 
 from __future__ import annotations
@@ -141,10 +143,12 @@ def _unpacked(codes, m: int, packed: bool):
     return codes.long()
 
 
-def adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed: bool):
+def adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed: bool, hwm=None):
     """Plain version of the dense kernel: (dist, raw id), each (B, nprobe *
     pad), with the kernel's arithmetic (qdot summed in subspace order, then
-    (coarse - 2 qdot) + const, clamped at 0, +inf where id < 0)."""
+    (coarse - 2 qdot) + const, clamped at 0, +inf where id < 0). Slots at
+    or past hwm are padding."""
+    ids = ids_below_hwm(ids, hwm)
     b, nprobe = probes.shape
     m = qd.shape[1]
     pad = codes.shape[2]
@@ -173,8 +177,7 @@ def adc_select_plain(probes, probe_coarse, qd, codes, item_const, ids, k: int, p
     first k of a stable sort by distance in (probe rank, slot) order;
     +inf candidates never enter (unfilled slots are (inf, -1)). Slots at
     or past hwm are padding."""
-    ids = ids_below_hwm(ids, hwm)
-    d2, i2 = adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed)
+    d2, i2 = adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed, hwm=hwm)
     if d2.shape[1] < k:
         extra = k - d2.shape[1]
         d2 = torch.nn.functional.pad(d2, (0, extra), value=torch.inf)
@@ -217,11 +220,13 @@ def adc_full_search(centroids, c_sq, codebooks, canvas, item_const, list_ids, qu
 
 def adc_dense_search(centroids, c_sq, codebooks, canvas, item_const, list_ids, queries,
                      nprobe: int, k_adc: int, *, qps_step: int | None = None,
-                     return_rows: bool = False):
+                     return_rows: bool = False, hwm=None):
     """Prologue + dense kernel + exact shortlist of min(k_adc, nprobe * pad)
     columns: (dists, ids[, bucket rows list * pad + slot]). qps_step: the
-    kernel's queries per block; None takes 8 when the batch divides by 8
-    and m <= 96, else 1 (the JAX package's entry rule)."""
+    JAX package's queries per grid step, the kernel's `qpb`; None takes 8
+    when the batch divides by 8 and m <= 96, else 1 (the JAX package's
+    entry rule). hwm: the lists' high-water marks, where the kernel stops
+    (None scans to pad)."""
     m, ksub = codebooks.shape[0], codebooks.shape[1]
     b = queries.shape[0]
     pad = canvas.shape[2]
@@ -229,7 +234,7 @@ def adc_dense_search(centroids, c_sq, codebooks, canvas, item_const, list_ids, q
         qps_step = 8 if b % 8 == 0 and m <= 96 else 1
     probes, pc, qd = adc_prologue(queries, centroids, c_sq, codebooks, nprobe)
     dense_d, dense_i = adc_scan_dense(probes, pc, qd, canvas, item_const, list_ids,
-                                      packed=packed_layout(ksub, m), qpb=qps_step)
+                                      packed=packed_layout(ksub, m), qpb=qps_step, hwm=hwm)
     d_top, pos = stable_topk(dense_d, min(k_adc, dense_d.shape[1]))
     top_i = torch.gather(dense_i, 1, pos)
     if return_rows:

@@ -18,9 +18,13 @@ in `adc_scan_dense.launches_by_qpb`.
     (select kernel + merge, one counted launch); the group count comes
     from the kernel's occupancy as the IVF select kernel's does
     (ops/select_common.probe_groups; tests force it with `_groups`);
-  - `adc_scan_dense(..., packed, qpb=1)`: every probed slot's estimate and
-    raw id, (B, nprobe * pad) (`_adc_dense_kernel` at qpb 1,
-    `_adc_dense_kernel_multi` at qpb 8).
+  - `adc_scan_dense(..., packed, qpb=1, hwm=None)`: every probed slot's
+    estimate and raw id, (B, nprobe * pad) (`_adc_dense_kernel` at qpb 1,
+    `_adc_dense_kernel_multi` at qpb 8: the JAX package's queries per grid
+    step, kept as the keyword that counts launches; the kernel's grid is
+    (query, probe group) whatever it is). The slots at or past hwm come
+    back as (+inf, -1) unread. Its probe groups come from its occupancy
+    like the select kernel's (tests force them with `_groups`).
 
 Operands: probes (B, nprobe) int32; probe_coarse (B, nprobe) f32; qd (B,
 m, ksub) f32; codes (nlist, m, pad) uint8, or (nlist, m/2, pad)
@@ -46,12 +50,14 @@ def signatures() -> dict:
         "adc_select_occupancy": ([ci, ci, ci, ci, vp], ci),
         "adc_scan_select": ([vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                              vp, vp, vp, vp, vp, vp, vp], ci),
-        "adc_scan_dense": ([vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp], ci),
+        "adc_dense_occupancy": ([ci, ci, ci, vp], ci),
+        "adc_scan_dense": ([vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp],
+                           ci),
     }
 
 
 def _load() -> ctypes.CDLL:
-    return cuda_build.load("adc_scan", "adc_scan_abi_version", 2, signatures())
+    return cuda_build.load("adc_scan", "adc_scan_abi_version", 3, signatures())
 
 
 def _check(name, probes, probe_coarse, qd, codes, item_const, ids, packed: bool):
@@ -111,6 +117,29 @@ def select_plan(b: int, nprobe: int, m: int, ksub: int, packed: bool, k: int, de
         device, _groups)
 
 
+@functools.cache
+def _dense_occupancy(m: int, ksub: int, packed: bool, device_index: int) -> int:
+    lib = _load()
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device_index):
+        err = lib.adc_dense_occupancy(m, ksub, int(packed), out)
+    if err != 0:
+        raise RuntimeError(f"adc_dense_occupancy failed: CUDA error {err}")
+    return max(1, out[0])
+
+
+def dense_plan(b: int, nprobe: int, m: int, ksub: int, packed: bool, device,
+               _groups: int | None = None) -> dict:
+    """How `adc_scan_dense` launches on `device` for these shapes: probe
+    groups (no merge, so up to nprobe), blocks, blocks per SM (occupancy
+    query), SMs."""
+    index = torch.device(device).index or 0
+    per_sm = _dense_occupancy(m, ksub, bool(packed), index)
+    sms = select_common.sm_count(index)
+    g = select_common.probe_groups(b, nprobe, 1, per_sm, sms, nprobe, _groups)
+    return {"groups": g, "blocks": b * g, "blocks_per_sm": per_sm, "sms": sms}
+
+
 def adc_scan_select(probes, probe_coarse, qd, codes, item_const, ids, k: int, packed: bool,
                     hwm=None, _groups: int | None = None):
     """The first k (dist (B, k) f32, ids (B, k) int32) per query (see the
@@ -151,26 +180,31 @@ def adc_scan_select(probes, probe_coarse, qd, codes, item_const, ids, k: int, pa
 adc_scan_select.launches = 0
 
 
-def adc_scan_dense(probes, probe_coarse, qd, codes, item_const, ids, packed: bool, qpb: int = 1):
+def adc_scan_dense(probes, probe_coarse, qd, codes, item_const, ids, packed: bool, qpb: int = 1,
+                   hwm=None, _groups: int | None = None):
     """Every probed slot's (estimate, raw id), each (B, nprobe * pad)."""
     if codes.device.type == "cpu":
         from .adc import adc_dense_plain
 
-        return adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed)
+        return adc_dense_plain(probes, probe_coarse, qd, codes, item_const, ids, packed, hwm=hwm)
     b, nprobe, pad, m, ksub = _check("adc_scan_dense", probes, probe_coarse, qd, codes,
                                      item_const, ids, packed)
+    select_common.check_hwm("adc_scan_dense", hwm, codes.shape[0], codes.device)
     if qpb < 1:
         raise ValueError(f"adc_scan_dense: qpb must be >= 1 (got {qpb})")
-    out_d = torch.empty((b, nprobe * pad), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((b, nprobe * pad), dtype=torch.int32, device=codes.device)
+    dev = codes.device
+    out_d = torch.empty((b, nprobe * pad), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, nprobe * pad), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
     lib = _load()
-    with torch.cuda.device(codes.device):
+    g = dense_plan(b, nprobe, m, ksub, packed, dev, _groups)["groups"]
+    with torch.cuda.device(dev):
         err = lib.adc_scan_dense(
             probes.data_ptr(), probe_coarse.data_ptr(), qd.data_ptr(), codes.data_ptr(),
-            item_const.data_ptr(), ids.data_ptr(), b, nprobe, pad, m, ksub, int(packed), qpb,
-            out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
+            item_const.data_ptr(), ids.data_ptr(), None if hwm is None else hwm.data_ptr(), b,
+            nprobe, pad, m, ksub, int(packed), g, out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adc_scan_dense launch failed: CUDA error {err}")
     adc_scan_dense.launches += 1

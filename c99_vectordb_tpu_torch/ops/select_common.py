@@ -3,7 +3,8 @@ ops/adc_cuda.py, and their plain versions in ops/ivf_scan.py, ops/adc.py).
 
 Both select kernels run a (query block, probe group) grid and merge each
 query's G partial lists exactly (csrc/select_merge.cuh); both stop each
-list at its high-water mark. This module holds the host side of that: the
+list at its high-water mark, as the ADC dense kernel does on the same
+grid without a merge. This module holds the host side of that: the
 high-water mark as the plain versions apply it, the choice of G from the
 kernel's occupancy, the operand check of the marks and the scratch of the
 partial lists.

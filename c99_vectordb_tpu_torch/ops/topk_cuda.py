@@ -13,11 +13,11 @@ Layers:
     (keys (B, k) f32, positions (B, k) int32) with (inf, INT32_MAX) in
     unfilled slots. Modes: f32, bf16 and int8 stores with queries of the
     same type, and int8 codes with bf16 queries (the codes decode to bf16,
-    exactly). The f32 and the two bf16 products (bf16 store; int8 codes
-    with bf16 queries) run on the tensor cores (mma.sync: 3xTF32 m16n8k8
-    for f32, m16n8k16 bf16 -> f32; store chunks through a cp.async ring);
-    int8 x int8 runs on the CUDA cores (__dp4a). The source note says what
-    bounds each. A CUDA tensor launches the kernel (or raises); a CPU
+    exactly). Every mode runs on the tensor cores (mma.sync: 3xTF32
+    m16n8k8 for f32, m16n8k16 bf16 -> f32 for the bf16 store and for int8
+    codes with bf16 queries, m16n8k32 s8 -> s32 for int8 x int8; store
+    chunks through a cp.async ring). The source note says what bounds
+    each. A CUDA tensor launches the kernel (or raises); a CPU
     tensor takes the plain version `select_plain`.
     `fused_l2_topk.launches` counts kernel launches,
     `fused_l2_topk.launches_by_mode` by mode.

@@ -7,11 +7,13 @@ Phases (any failure raises and exits non-zero; none is caught):
   1. build       nvcc builds csrc/fused_l2_topk.cu, csrc/ivf_scan.cu and
                  csrc/adc_scan.cu (both with csrc/select_merge.cuh), in
                  parallel, into c99_vectordb_tpu_torch/_build/. fused_l2_topk
-                 runs its f32 product (3xTF32) and its two bf16 products (bf16
-                 store; int8 codes with bf16 queries) on the tensor cores
-                 (mma.sync) and its int8 x int8 mode on the CUDA cores. The IVF
-                 and ADC select kernels split each query's probes over blocks,
-                 stop each list at its high-water mark and merge exactly.
+                 runs every mode on the tensor cores (mma.sync): its f32
+                 product (3xTF32), its two bf16 products (bf16 store; int8
+                 codes with bf16 queries) and its int8 x int8 mode
+                 (scan_topk_mma_kernel<2>, s8 -> s32). The IVF and ADC select
+                 kernels split each query's probes over blocks, stop each list
+                 at its high-water mark and merge exactly; the ADC dense kernel
+                 runs the same (query, probe group) grid and stops alike.
   2. kernel      fused_l2_topk against its plain torch version on the card,
                  for the f32, bf16 and int8 stores (and int8 codes with bf16
                  queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
@@ -58,14 +60,16 @@ Phases (any failure raises and exits non-zero; none is caught):
                  skipped.
   9. times       every kernel, its plain version and a library yardstick
                  (never used by the port) beside the bound, on the paths' own
-                 operands (the select kernels with the path's high-water marks,
-                 scan and merge timed as one call), and the flat kernel in each
+                 operands (the select and ADC dense kernels with the path's
+                 high-water marks; scan and merge timed as one call), and the
+                 flat kernel in each
                  mode (int8 codes with bf16 queries included) on 1M x 384
                  seeded Gaussian stores at B = 128 and 1024; each IVF and ADC
                  kernel is first held against its plain version on them. The
-                 select kernels also log their grid (probe groups, blocks per
-                 SM); tools/select_breakdown.py times them at other group
-                 counts and in diagnostic builds.
+                 select and ADC dense kernels also log their grid (probe
+                 groups, blocks per SM); tools/select_breakdown.py times the
+                 select kernels at other group counts and in diagnostic
+                 builds, tools/flat_mma_breakdown.py the flat kernel's modes.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -509,12 +513,13 @@ def library_call(q_st, db, norms, k, rs, dt):
                               k, largest=False)
 
 
-# How pass 1 of fused_l2_topk forms each mode's products (csrc/fused_l2_topk.cu).
+# How pass 1 of fused_l2_topk forms each mode's products (csrc/fused_l2_topk.cu):
+# every mode is scan_topk_mma_kernel<mode> on the tensor cores.
 PRODUCT_ROUTE = {
-    "float32": "tensor cores, mma.sync m16n8k8 tf32, 3xTF32",
-    "bfloat16": "tensor cores, mma.sync m16n8k16 bf16",
-    "int8_bf16q": "tensor cores, mma.sync m16n8k16 bf16",
-    "int8": "CUDA cores, __dp4a",
+    "float32": "scan_topk_mma_kernel<0>: tensor cores, mma.sync m16n8k8 tf32, 3xTF32",
+    "bfloat16": "scan_topk_mma_kernel<1>: tensor cores, mma.sync m16n8k16 bf16",
+    "int8_bf16q": "scan_topk_mma_kernel<3>: tensor cores, mma.sync m16n8k16 bf16",
+    "int8": "scan_topk_mma_kernel<2>: tensor cores, mma.sync m16n8k32 s8 -> s32",
 }
 
 
@@ -902,8 +907,8 @@ PEAK_EXACT_F32 = 67e12      # f32 FMA outside the tensor cores: the exact f32 ro
 def slot_bytes(ops, stops_at_hwm, uniq_lists):
     """Bytes of the per-slot norms (or constants) and ids of the unique
     probed lists, 8 per slot: every slot for a scan that walks to pad, the
-    slots below each list's hwm (and the marks themselves) for a select
-    kernel given the path's hwm."""
+    slots below each list's hwm (and the marks themselves) for a kernel
+    that stops at the path's hwm."""
     if stops_at_hwm and ops.get("hwm") is not None:
         return int(ops["hwm"][uniq_lists].sum()) * 8 + int(uniq_lists.numel()) * 4
     return int(uniq_lists.numel()) * ops["pad"] * 8
@@ -1055,7 +1060,8 @@ class plain_adc:
         adc_mod.adc_scan_select = (
             lambda *a, packed, hwm=None: adc_mod.adc_select_plain(*a, packed=packed, hwm=hwm))
         adc_mod.adc_scan_dense = (
-            lambda *a, packed, qpb=1: adc_mod.adc_dense_plain(*a, packed=packed))
+            lambda *a, packed, qpb=1, hwm=None: adc_mod.adc_dense_plain(*a, packed=packed,
+                                                                        hwm=hwm))
         return self
 
     def __exit__(self, *exc):
@@ -1096,15 +1102,16 @@ def adc_calls(ops, kernel, k):
     """(kernel call, plain call, library yardstick) on the same operands. The
     yardstick gathers every probed slot's table entries with one
     torch.gather and sums them (plus torch.topk for the select kernel); it
-    is timed only and never called by the port. The select kernel and its
-    plain version stop at the path's hwm."""
+    is timed only and never called by the port. The kernels and their plain
+    versions stop at the path's hwm."""
     args, packed, hwm = adc_args(ops), ops["packed"], ops["hwm"]
     if kernel == "adc_scan_select":
         kern = lambda: adc_cuda.adc_scan_select(*args, k, packed=packed, hwm=hwm)  # noqa: E731
         plain = lambda: adc_mod.adc_select_plain(*args, k, packed=packed, hwm=hwm)  # noqa: E731
     else:
-        kern = lambda: adc_cuda.adc_scan_dense(*args, packed=packed, qpb=ops["qpb"])  # noqa: E731
-        plain = lambda: adc_mod.adc_dense_plain(*args, packed=packed)  # noqa: E731
+        kern = lambda: adc_cuda.adc_scan_dense(*args, packed=packed, qpb=ops["qpb"],  # noqa: E731
+                                               hwm=hwm)
+        plain = lambda: adc_mod.adc_dense_plain(*args, packed=packed, hwm=hwm)  # noqa: E731
     probes, pc, qd, codes, const, ids = args
     b, nprobe = probes.shape
     m, pad = qd.shape[1], ops["pad"]
@@ -1126,8 +1133,9 @@ def adc_calls(ops, kernel, k):
 def adc_bound(ops, kernel, k):
     """Least time for the scan on this run's operands. Bytes: the codes of
     the live rows (id >= 0) of the unique probed lists (m bytes each, m/2
-    packed), the constants and ids of all their slots, the QD tables, the
-    probes and coarse distances, the outputs. Work: m table lookups per live
+    packed), the constants and ids of their slots below the path's marks
+    (both kernels stop there), the QD tables, the probes and coarse
+    distances, the outputs. Work: m table lookups per live
     row per (query, probe), at the card's shared-memory rate. Returns (ms,
     what bounds it, unique lists, live share of their slots)."""
     probes, qd = ops["probes"], ops["qd"]
@@ -1141,7 +1149,7 @@ def adc_bound(ops, kernel, k):
     live_pairs = int(live_per_list[probes.long()].sum())
     code_bytes = m // 2 if ops["packed"] else m
     out_cols = k if kernel == "adc_scan_select" else nprobe * pad
-    nbytes = (live * code_bytes + slot_bytes(ops, kernel == "adc_scan_select", uniq_lists)
+    nbytes = (live * code_bytes + slot_bytes(ops, True, uniq_lists)
               + b * m * ksub * 4 + b * nprobe * 8 + b * out_cols * 8)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, live_pairs * m / SMEM_LOOKUPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), uniq,
@@ -1176,34 +1184,33 @@ def time_adc(ops, kernel, k, label, card):
     kern, plain, library = adc_calls(ops, kernel, k)
     saved = adc_counts()
     ms = time_ms(kern, 10)
-    select = {}
+    b, nprobe = ops["probes"].shape
+    m, ksub = ops["qd"].shape[1], ops["qd"].shape[2]
     if kernel == "adc_scan_select":
-        b, nprobe = ops["probes"].shape
-        m, ksub = ops["qd"].shape[1], ops["qd"].shape[2]
         select = adc_cuda.select_plan(b, nprobe, m, ksub, ops["packed"], k, ops["codes"].device)
+    else:
+        select = adc_cuda.dense_plan(b, nprobe, m, ksub, ops["packed"], ops["codes"].device)
     restore_adc_counts(saved)
     plain_ms = time_ms(plain, 3)
     lib_ms = time_ms(library, 5)
     bms, by, uniq, live_share = adc_bound(ops, kernel, k)
-    b, nprobe = ops["probes"].shape
     shape = {"B": b, "nprobe": nprobe, "nlist": ops["codes"].shape[0], "pad": ops["pad"],
-             "m": ops["qd"].shape[1], "ksub": ops["qd"].shape[2], "packed": ops["packed"],
-             "unique_lists": uniq, "live_share": live_share}
+             "m": m, "ksub": ksub, "packed": ops["packed"], "unique_lists": uniq,
+             "live_share": live_share}
     if kernel == "adc_scan_select":
         shape["k"] = k
     else:
         shape["qpb"] = ops["qpb"]
     log(f"times {kernel} {label} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library yardstick {lib_ms:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
-    if select:
-        log_select_plan(kernel, label, select, card)
+    log_select_plan(kernel, label, select, card)
     return {"label": label, **shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bms, "bound_by": by, **({"select": select} if select else {})}
+            "bound_ms": bms, "bound_by": by, "select": select}
 
 
 def log_select_plan(kernel, label, select, card):
-    """One line on a select launch's grid: probe groups, blocks, blocks per
-    SM (from the occupancy query)."""
+    """One line on a select or ADC dense launch's grid: probe groups,
+    blocks, blocks per SM (from the occupancy query)."""
     log(f"times {kernel} {label}: grid of {select['blocks']} blocks ({select['groups']} probe "
         f"groups), {select['blocks_per_sm']} resident per SM on {select['sms']} SMs "
         f"({select['blocks'] / select['sms']:.2f} blocks per SM over the run) [{card}]")
@@ -1455,22 +1462,27 @@ def ptxas_resources(source, kernel):
     return out
 
 
-SELECT_KERNELS = ("ivf_scan_select", "adc_scan_select")
+# The kernels with a (query, probe group) grid: their source and entry functions.
+GRID_KERNELS = {
+    "ivf_scan_select": ("ivf_scan", ("ivf_select_kernel", "ivf_merge_kernel")),
+    "adc_scan_select": ("adc_scan", ("adc_select_kernel", "adc_merge_kernel")),
+    "adc_scan_dense[qpb=8]": ("adc_scan", ("adc_dense_kernel",)),
+    "adc_scan_dense[qpb=1]": ("adc_scan", ("adc_dense_kernel",)),
+}
 
 
 def select_extras(name, head, compiled):
-    """For a select kernel's row of the kernels line: its grid at the head
-    case (probe groups, blocks, blocks per SM, SMs, where its lists live),
-    and, when this run compiled its source (`compiled`), the registers and
-    spills of its kernel and merge."""
-    if name not in SELECT_KERNELS:
+    """For the row of a kernel with a probe-group grid in the kernels line:
+    its grid at the head case (probe groups, blocks, blocks per SM, SMs; for
+    a select kernel, where its lists live), and, when this run compiled its
+    source (`compiled`), the registers and spills of its entry functions."""
+    if name not in GRID_KERNELS:
         return {}
-    source = name.split("_scan")[0] + "_scan"
-    prefix = name.split("_")[0]
+    source, entries = GRID_KERNELS[name]
     out = dict(head["select"])
     if source in compiled:
-        out["ptxas"] = {**ptxas_resources(source, f"{prefix}_select_kernel"),
-                        **ptxas_resources(source, f"{prefix}_merge_kernel")}
+        out["ptxas"] = {fn: res for entry in entries
+                        for fn, res in ptxas_resources(source, entry).items()}
     return out
 
 
@@ -1645,6 +1657,9 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": {k: main_row[k] for k in ("dtype", "B", "N", "D", "k")},
         "variants": rows,
+        "pass1_by_mode": PRODUCT_ROUTE,
+        **({"ptxas": ptxas_resources("fused_l2_topk", "_topk_mma_kernel")}
+           if "fused_l2_topk" in compiled else {}),
         "check": "pass",
         "recall_many_qps": qps,
         "launches_per_recall_many": per_call,

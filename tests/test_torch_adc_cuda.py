@@ -99,14 +99,54 @@ def test_select_matches_plain(cuda, m, ksub, packed, k, quantized):
 
 @pytest.mark.parametrize("m,ksub,packed", LAYOUTS)
 @pytest.mark.parametrize("qpb", [1, 8, 5])
-def test_dense_matches_plain(cuda, m, ksub, packed, qpb):
-    ops = _operands(cuda, m=m, ksub=ksub, packed=packed, seed=qpb + m)
+@pytest.mark.parametrize("kind", ["none", "true", "zero", "stale", "cut"])
+@pytest.mark.parametrize("pad", [300, 128])
+def test_dense_matches_plain(cuda, m, ksub, packed, qpb, kind, pad):
+    """Every layout (packed codes, a table in global memory), every qpb
+    the wrapper counts, and marks: none, true (lists ending at pad among
+    them), some lists at 0, all at pad, or cutting live rows. Masked rows
+    (+inf constants) below the marks keep their real ids; the slots past a
+    mark come back (+inf, -1). pad 128 loads code tiles with cp.async, pad
+    300 with the plain loader."""
+    ops = _operands(cuda, m=m, ksub=ksub, packed=packed, pad=pad, seed=qpb + m + pad)
+    hwm = _hwm(kind, ops[5], cuda, seed=m + qpb)
     before = dict(adc_cuda.adc_scan_dense.launches_by_qpb)
-    kd, ki = adc_cuda.adc_scan_dense(*ops, packed=packed, qpb=qpb)
+    kd, ki = adc_cuda.adc_scan_dense(*ops, packed=packed, qpb=qpb, hwm=hwm)
     assert adc_cuda.adc_scan_dense.launches_by_qpb[qpb] == before.get(qpb, 0) + 1
-    pd, pi = adc.adc_dense_plain(*ops, packed=packed)
+    pd, pi = adc.adc_dense_plain(*ops, packed=packed, hwm=hwm)
     torch.cuda.synchronize()
     assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    probes = ops[0].long()
+    marks = torch.full_like(probes, pad) if hwm is None else hwm.long()[probes]   # (B, nprobe)
+    below = torch.arange(pad, device=cuda) < marks[..., None]
+    ki3, kd3 = ki.reshape(*ops[0].shape, pad), kd.reshape(*ops[0].shape, pad)
+    assert bool((ki3[~below] == -1).all()) and bool(torch.isinf(kd3[~below]).all())
+    assert bool((torch.isinf(kd3) & (ki3 >= 0) & below).any())         # masked, real ids
+    if kind == "true":
+        assert bool((hwm == pad).any()) and bool((hwm < pad).any())
+    if kind == "zero":
+        assert bool((hwm == 0).any())
+
+
+@pytest.mark.parametrize("m,ksub,packed", [(96, 256, False), (8, 16, True), (256, 256, False)])
+@pytest.mark.parametrize("groups", [None, 1, 3, 7])
+@pytest.mark.parametrize("kind", ["true", "cut"])
+def test_dense_groups_bit_equal(cuda, m, ksub, packed, groups, kind):
+    """Any probe grouping of the dense kernel's grid (7 probes: 3 groups
+    of 3, 3, 1) gives the plain version's bits."""
+    ops = _operands(cuda, m=m, ksub=ksub, packed=packed, pad=128, nprobe=7, b=21, seed=m + 1)
+    hwm = _hwm(kind, ops[5], cuda, seed=m)
+    kd, ki = adc_cuda.adc_scan_dense(*ops, packed=packed, qpb=8, hwm=hwm, _groups=groups)
+    pd, pi = adc.adc_dense_plain(*ops, packed=packed, hwm=hwm)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_dense_plan_fills_the_card(cuda):
+    """At the 1M path's shape (B = 128, nprobe 16, m = 96, ksub 256) the
+    dense grid holds at least two blocks per SM resident."""
+    plan = adc_cuda.dense_plan(128, 16, 96, 256, False, cuda)
+    assert plan["blocks_per_sm"] >= 2 and plan["blocks"] >= 2 * plan["sms"]
 
 
 def test_planted_ties_follow_probe_order(cuda):
@@ -151,6 +191,9 @@ def test_kernels_reject_bad_operands(cuda):
         adc_cuda.adc_scan_select(probes, pc, qd[:, :, ::2], codes, const, ids, 5, packed=False)
     with pytest.raises(ValueError):
         adc_cuda.adc_scan_dense(probes, pc, qd, codes, const, ids, packed=False, qpb=0)
+    with pytest.raises(ValueError):
+        adc_cuda.adc_scan_dense(probes, pc, qd, codes, const, ids, packed=False,
+                                hwm=torch.zeros(ids.shape[0], dtype=torch.int64, device=cuda))
     assert (adc_cuda.adc_scan_select.launches, adc_cuda.adc_scan_dense.launches) == (s0, d0)
 
 

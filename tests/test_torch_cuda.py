@@ -89,6 +89,35 @@ def test_kernel_matches_plain(cuda, dtype, k, b, d):
                         kp.cpu().numpy(), 1e-4)
 
 
+@pytest.mark.parametrize("k", [20, 200])
+@pytest.mark.parametrize("b", [1, 63, 65, 1024])
+@pytest.mark.parametrize("d", [384, 768, 392, 44])
+def test_int8_tensor_core_keys_bit_equal(cuda, d, b, k):
+    """Mode 2 (int8 queries x int8 codes, s8 mma.sync): keys and positions
+    bit-equal to the plain version at D = 384 and 768 (16-byte rows,
+    cp.async) and 392 and 44 (multiples of 4, not of 16: the plain
+    loader), around the 64-query tile (63, 65) and at B = 1024, with lists
+    in shared memory (k = 20) and in global memory (k = 200 >
+    SMEM_LIST_MAX). A run of duplicate rows ties exactly (lowest positions
+    first) and a quarter of the norms are +inf (never selected)."""
+    n = 8192 + 37
+    db, norms, scale = _store("int8", n, d, cuda, seed=d + b + k)
+    db[1000:1300] = db[17]
+    norms[1000:1300] = norms[17]
+    g = torch.Generator(device=cuda).manual_seed(d + k)
+    norms[torch.randperm(n, generator=g, device=cuda)[: n // 4]] = torch.inf
+    q = torch.randn((b, d), generator=g, device=cuda) * scale
+    q[: b // 2] = db[17].float() * scale          # half the queries sit on the duplicates
+    q_st, rs = topk_cuda.stage_queries(q, db.dtype)
+    before = topk_cuda.fused_l2_topk.launches_by_mode["int8"]
+    kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, k, rs)
+    assert topk_cuda.fused_l2_topk.launches_by_mode["int8"] == before + 1
+    pk, pp = topk_cuda.select_plain(q_st, db, norms, k, rs)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, pk) and torch.equal(kp, pp)
+    assert bool(torch.isfinite(kk).all())
+
+
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("b", BS)
 @pytest.mark.parametrize("d", [384, 392])

@@ -936,3 +936,74 @@ def test_hwm_follows_remove_and_restage(monkeypatch):
     t.search(q[:1], 1)                                     # the restage
     assert t._tail is None and t.ntotal == 1200 - len(ids[:800:3])
     check("after the restage", holes=False)
+
+
+def test_dense_hwm_follows_remove_and_restage(monkeypatch):
+    """Device mode, the dense route (refine on, a shortlist deeper than
+    2 * LANE_K): the hwm the index hands to adc_dense_search is list_hwm of
+    its staged ids after the staging, after an in-place remove_ids (holes:
+    the mark is not the live count), with a tail parked beside the staged
+    lists, and after the restage that folds the tail in. On each staging's
+    operands, unmasked and with half the ids masked (+inf constants, real
+    ids below the marks), the dense plain version with the marks equals it
+    without them and the JAX package's dense programs in interpret mode
+    (one and eight queries per grid step) bit for bit."""
+    from c99_vectordb_tpu.ops.adc_pallas import (CODE_LANES, adc_dense_program,
+                                                 adc_dense_program_multi)
+    from c99_vectordb_tpu_torch.models import ivf_pq as tpq_mod
+    from c99_vectordb_tpu_torch.models.devbuild import list_hwm, mask_norms
+    from c99_vectordb_tpu_torch.ops import adc as tadc
+
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("hwm"))
+        return tadc.adc_dense_search(*args, **kw)
+
+    monkeypatch.setattr(tpq_mod, "adc_dense_search", spy)
+    x = _corpus(1200, 32, seed=13)
+    ids = np.arange(0, 2400, 2, dtype=np.int32)
+    q = (x[::150] + 0.05).astype(np.float32)                # 8 queries
+    mask = np.random.default_rng(13).random(2400) < 0.5
+    t = TPQ(dim=32, nlist=8, nprobe=3, m=8, refine_factor=30, device="cpu")
+    t.train(torch.from_numpy(x[:800]))
+    t.add(torch.from_numpy(x[:800]), torch.from_numpy(ids[:800]))
+
+    def check(stage, holes):
+        seen.clear()
+        t._search(q, 10, card_route=True)
+        cents, c_sq, books, _, li, canvas, const, pad = t._staged
+        want_hwm = list_hwm(li).to(torch.int32)
+        assert len(seen) == 1 and torch.equal(seen[0], want_hwm), stage
+        assert (want_hwm > (li >= 0).sum(1)).any() == holes, stage
+        probes, pc, qd = tadc.adc_prologue(t._rotate_device(torch.from_numpy(q)), cents, c_sq,
+                                           books, 3)
+        c128 = np.zeros((8, CODE_LANES, pad), np.uint8)
+        c128[:, :8] = canvas.numpy()
+        qd128 = np.zeros((q.shape[0], CODE_LANES, 256), np.float32)
+        qd128[:, :8] = qd.numpy()
+        progs = (adc_dense_program(8, pad, 8, 256, q.shape[0], 3),
+                 adc_dense_program_multi(8, pad, 8, 256, q.shape[0], 3, 8))
+        for ic in (const, mask_norms(const, li, mask)):
+            got = tadc.adc_dense_plain(probes, pc, qd, canvas, ic, li, packed=False,
+                                       hwm=want_hwm)
+            bare = tadc.adc_dense_plain(probes, pc, qd, canvas, ic, li, packed=False)
+            assert torch.equal(got[0], bare[0]) and torch.equal(got[1], bare[1]), stage
+            args = tuple(jnp.asarray(a) for a in (probes.numpy(), pc.numpy(), qd128, c128,
+                                                  ic.numpy(), li.numpy()))
+            for prog in progs:
+                jd, ji = prog(*args)
+                np.testing.assert_array_equal(got[0].numpy(), np.asarray(jd))
+                np.testing.assert_array_equal(got[1].numpy(), np.asarray(ji))
+        assert bool((torch.isinf(got[0]) & (got[1] >= 0)).any()), stage   # masked, real ids
+
+    check("staged", holes=False)
+    assert t.remove_ids(ids[:800:3]) == len(ids[:800:3])
+    check("after remove_ids", holes=True)
+    t.add(torch.from_numpy(x[800:]), torch.from_numpy(ids[800:]))
+    assert t._tail is not None and t._tail.count == 400
+    check("with a tail", holes=True)
+    t._restage_needed = True
+    t.search(q[:1], 1)                                     # the restage
+    assert t._tail is None and t.ntotal == 1200 - len(ids[:800:3])
+    check("after the restage", holes=False)

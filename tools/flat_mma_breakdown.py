@@ -4,19 +4,21 @@
     python3 tools/flat_mma_breakdown.py [--seed 1234] [--k 20]
 
 Builds csrc/fused_l2_topk.cu as it ships and in diagnostic variants (the
-FL2_* preprocessor switches of its source note), then times the three
-tensor-core modes: the f32 store (3xTF32), the bf16 store and the int8
-codes with bf16 queries, on 1,048,576 x 384 seeded Gaussian stores at
+FL2_* preprocessor switches of its source note), then times the four
+tensor-core modes: the f32 store (3xTF32), the bf16 store, the int8 codes
+with bf16 queries, and int8 queries on the int8 codes (s8 products), on
+1,048,576 x 384 seeded Gaussian stores at
 B = 128 and 1024, and the f32 store at MemoDB's 131,072 rows at B = 128
 (CUDA-event means, k = 20):
   - shipped:    the kernel as built by ops/cuda_build.py;
   - no_select:  the products and keys, without the warp selection;
   - no_mma:     the ring and the selection, without the products;
   - ring_only:  the cp.async ring alone (loads, decode, keys tile);
-  - stages4, dk128_stages2: other ring shapes (dk128 for the bf16 modes;
-    f32 keeps its 32-column chunks).
+  - stages4, dk128_stages2: other ring shapes (FL2_DK 128: 128 bf16 and
+    256 int8 columns a chunk; f32 keeps its 32-column chunks).
 The variants that compute the contract (all but the FL2_NO_* cuts) are
-first held against the plain version at B = 128 (chip_smoke.check_selection).
+first held against the plain version at B = 128 (chip_smoke.check_selection;
+bit-equal for int8 queries).
 Prints the card line from nvidia-smi first, then one line per variant and
 the ptxas lines of its build (each kernel's registers and spill bytes).
 Needs a CUDA card and nvcc.
@@ -73,7 +75,10 @@ def main() -> int:
                 q = q * made[2]
             q_st, _ = topk_cuda.stage_queries(q, made[0].dtype, q_int8=False)
             label = {"float32": "f32", "bfloat16": "bf16", "int8": "int8_bf16q"}[dt]
-            cases.append((f"{label} N={n} B={b}", q_st, made[0], made[1]))
+            cases.append((f"{label} N={n} B={b}", q_st, made[0], made[1], None))
+            if dt == "int8":
+                q8, rs = topk_cuda.stage_queries(q, made[0].dtype)
+                cases.append((f"int8 N={n} B={b}", q8, made[0], made[1], rs))
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, defines in VARIANTS.items():
@@ -84,11 +89,11 @@ def main() -> int:
         lib.fused_l2_topk_splits.restype = ci
         topk_cuda._load = lambda lib=lib: lib
         parts = []
-        for label, q_st, db, norms in cases:
+        for label, q_st, db, norms, rs in cases:
             if not any(d.startswith("FL2_NO_") for d in defines) and q_st.shape[0] == 128:
-                cs.check_selection(q_st, db, norms, args.k, None, exact=False,
+                cs.check_selection(q_st, db, norms, args.k, rs, exact=rs is not None,
                                    label=f"{name} {label}")
-            ms = cs.time_ms(lambda: topk_cuda.fused_l2_topk(q_st, db, norms, args.k),
+            ms = cs.time_ms(lambda: topk_cuda.fused_l2_topk(q_st, db, norms, args.k, rs),
                             20 if q_st.shape[0] <= 128 else 5)
             parts.append(f"{label} {ms:.4f} ms")
         print(f"{name:14s} " + ", ".join(parts), flush=True)
