@@ -27,8 +27,12 @@
 // __fmul_rn/__fadd_rn, so nvcc cannot contract it into one FMA and the
 // keys are bit-equal to the plain version's.
 //
-//   ivf_dense*:  write every (dist or key, raw id) densely as
-//                (B, nprobe * pad); the selection is the caller's.
+//   ivf_dense*:  write every (dist or key, raw id) at column p * pad + s
+//                of (B, nprobe * pad); the selection is the caller's. With
+//                a high-water mark hwm the slots past it are written as
+//                (+inf, -1) without a read: they hold id -1, so this is the
+//                plain output (below the mark a masked row keeps its real
+//                id beside its dist).
 //   ivf_select:  keep, per query, the k smallest candidates ordered by
 //                (dist, id') with id' = id, or INT_MAX for padding: the
 //                lowest id wins every tie, the k-th boundary included,
@@ -80,9 +84,24 @@
 //   Rows that are not 16-byte aligned (D % 16 for f32, D % 32 for bf16)
 //   take a synchronous loader and scalar reads with the same arithmetic.
 //
-// The dense kernels give each block one (query group, probe, row tile):
-// a block of 256 threads streams its 64-row tile through shared memory
-// and scores each row by four threads (tile_dists).
+// Dense design: the select kernel's pipeline without the selection. The
+// first version gave each block one (query group, probe, 64-row tile),
+// loaded each tile synchronously, widened it to f32 at stride D + 1 (98.5
+// KB at D = 384, nothing in flight while it computed) and walked every
+// list to `pad` (0.21 of the slots live at 1M). Now the grid is (query,
+// probe group of G, row split of S): block (b, g, s) takes the contiguous
+// probe ranks of group g and, of each list, the 32-row tiles s, s + S, ...
+// below the list's mark, streamed through the select kernel's two cp.async
+// buffers (issue_tile, sel::next_tile). There is no merge, so G goes up to
+// nprobe; S splits each list's rows across blocks, so that the longest
+// lists (list lengths are skewed) do not hold the grid's tail and small
+// batches fill the card (ops/select_common.py row_splits).
+// f32/bf16 rows are scored by part_dot and l2_dist as in the select kernel
+// (bit-identical distances); int8 rows are read as 4-byte words, 16 bytes
+// at a time, by __dp4a (exact integer partial sums, any split). The int8
+// work is a (1, D) x (D, rows) product per (query, probe), bound by bytes:
+// tensor cores would not shorten it. After its tiles each block writes its
+// share of the (+inf, -1) slots from each list's mark to pad.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -92,70 +111,22 @@
 
 namespace {
 
-constexpr int NT = 256;            // threads per block (8 warps)
-constexpr int RT = 64;             // list rows per tile
-constexpr int PARTS = NT / RT;     // threads per row's dot product
-constexpr int SMEM_K_MAX = 1024;   // select lists in shared memory up to this k
+constexpr int SNT = 128;             // threads per block (4 warps)
+constexpr int SRT = 32;              // list rows per tile, one per lane
+constexpr int PARTS = SNT / SRT;     // warps per row's dot product: warp p sums quarter p
+constexpr int SMEM_K_MAX = 1024;     // select lists in shared memory up to this k
+// Blocks per SM the dense kernels' launch bounds promise: f32 tiles at D =
+// 384 leave room for two. Stating it keeps ptxas from trading registers
+// for spills to reach a higher occupancy step of 128-thread blocks, one
+// that shared memory would not allow anyway (with maxThreadsPerBlock
+// alone, it spilled the bf16 and int8 kernels to 40 registers).
+constexpr int DENSE_MIN_BLOCKS = 2;
 constexpr size_t SMEM_LIMIT = 232448;   // 227 KB per block on sm_90
-
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // The query as the store dtype scores it: f32 as is, bf16 rounded.
 __device__ __forceinline__ float q_as_store(float v, const float*) { return v; }
 __device__ __forceinline__ float q_as_store(float v, const __nv_bfloat16*) {
     return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Stage `rows` consecutive list rows (one contiguous block starting at
-// src) into xs[r * (D + 1) + c] as f32.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, int rows, int D,
-                                          float* xs) {
-    if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        const int D4 = D >> 2;
-        const int total = rows * D4;
-        const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll 4
-        for (int i = threadIdx.x; i < total; i += NT) {
-            const int r = i / D4, c = (i - r * D4) * 4;
-            const float4 v = __ldg(s4 + i);
-            float* dst = xs + r * (D + 1) + c;
-            dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-        }
-    } else {
-        const int total = rows * D;
-        for (int i = threadIdx.x; i < total; i += NT) {
-            const int r = i / D, c = i - r * D;
-            xs[r * (D + 1) + c] = __ldg(src + i);
-        }
-    }
-}
-
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src, int rows, int D,
-                                          float* xs) {
-    if ((D & 7) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        const int D8 = D >> 3;
-        const int total = rows * D8;
-        const uint4* s8 = reinterpret_cast<const uint4*>(src);
-#pragma unroll 4
-        for (int i = threadIdx.x; i < total; i += NT) {
-            const int r = i / D8, c = (i - r * D8) * 8;
-            const uint4 v = __ldg(s8 + i);
-            const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-            float* dst = xs + r * (D + 1) + c;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float2 f = __bfloat1622float2(h[j]);
-                dst[2 * j] = f.x;
-                dst[2 * j + 1] = f.y;
-            }
-        }
-    } else {
-        const int total = rows * D;
-        for (int i = threadIdx.x; i < total; i += NT) {
-            const int r = i / D, c = i - r * D;
-            xs[r * (D + 1) + c] = __bfloat162float(src[i]);
-        }
-    }
 }
 
 // The distance of one row from its summed dot product ip: each operation
@@ -165,49 +136,9 @@ __device__ __forceinline__ float l2_dist(float q_sq, float sqn, float ip) {
     return fmaxf(__fsub_rn(__fadd_rn(q_sq, sqn), __fmul_rn(2.0f, ip)), 0.0f);
 }
 
-// The shared distance routine of the f32/bf16 kernels. Scores the `rows`
-// list rows starting at flat row `row0` of (nlist * pad, D) `lists`
-// against the staged query qs (D floats) and writes dist/raw id of row r
-// to td[r], ti[r] for r < rows. Per row, thread part p (of PARTS) sums
-// its contiguous quarter of D with FMAs in index order; the partial sums
-// are added (((p0 + p1) + p2) + p3). Contains __syncthreads; every
-// thread of the block must call it.
-template <typename T>
-__device__ void tile_dists(const T* __restrict__ lists, int64_t row0, int rows, int D,
-                           const float* qs, float q_sq, const float* __restrict__ sqn,
-                           const int* __restrict__ ids, float* xs, float* part,
-                           float* td, int* ti) {
-    load_tile(lists + row0 * D, rows, D, xs);
-    __syncthreads();
-    const int r = threadIdx.x % RT, p = threadIdx.x / RT;
-    const int chunk = (D + PARTS - 1) / PARTS;
-    const int c0 = p * chunk, c1 = min(D, c0 + chunk);
-    float acc = 0.f;
-    if (r < rows) {
-        const float* xr = xs + r * (D + 1);
-        for (int c = c0; c < c1; ++c) acc = fmaf(qs[c], xr[c], acc);
-    }
-    part[p * RT + r] = acc;
-    __syncthreads();
-    if (threadIdx.x < rows) {
-        float ip = part[r];
-#pragma unroll
-        for (int j = 1; j < PARTS; ++j) ip = __fadd_rn(ip, part[j * RT + r]);
-        const int64_t row = row0 + r;
-        const int id = ids[row];
-        td[r] = id >= 0 ? l2_dist(q_sq, sqn[row], ip) : inf_f();
-        ti[r] = id;
-    }
-    __syncthreads();
-}
+// -- the row tiles and their products --------------------------------------------------
 
-// -- the select kernel and its merge ------------------------------------------------------
-
-constexpr int SNT = 128;             // select: threads per block (4 warps)
-constexpr int SRT = 32;              // select: list rows per tile, one per lane
-static_assert(SNT / SRT == PARTS, "the select kernel splits each row as tile_dists does");
-
-// Smem row stride (elements) of a select tile: D plus 16 bytes.
+// Smem row stride (elements) of a tile: D plus 16 bytes.
 template <typename T>
 __host__ __device__ __forceinline__ int tile_stride(int D) {
     return D + 16 / (int)sizeof(T);
@@ -259,7 +190,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // One quarter of a row's dot product: FMAs over [c0, c1) in index order,
-// from acc = 0 (tile_dists' order).
+// from acc = 0; l2_dist adds the quarters ((p0 + p1) + p2) + p3.
 template <typename T, bool VEC>
 __device__ __forceinline__ float part_dot(const T* xr, const float* qs, int c0, int c1) {
     float acc = 0.f;
@@ -279,6 +210,28 @@ __device__ __forceinline__ float part_dot(const T* xr, const float* qs, int c0, 
         }
     } else {
         for (int c = c0; c < c1; ++c) acc = fmaf(qs[c], to_f(xr[c]), acc);
+    }
+    return acc;
+}
+
+// A row's int8 dot product with the query over words [w0, w1) (four int8
+// each): __dp4a, 16 bytes at a time when VEC. Integer sums: exact in any
+// order.
+template <bool VEC>
+__device__ __forceinline__ int part_dot_i8(const int* xr, const int* qs, int w0, int w1) {
+    int acc = 0;
+    if (VEC) {
+#pragma unroll 2
+        for (int w = w0; w < w1; w += 4) {
+            const int4 x = *reinterpret_cast<const int4*>(xr + w);
+            const int4 qv = *reinterpret_cast<const int4*>(qs + w);
+            acc = __dp4a(x.x, qv.x, acc);
+            acc = __dp4a(x.y, qv.y, acc);
+            acc = __dp4a(x.z, qv.z, acc);
+            acc = __dp4a(x.w, qv.w, acc);
+        }
+    } else {
+        for (int w = w0; w < w1; ++w) acc = __dp4a(xr[w], qs[w], acc);
     }
     return acc;
 }
@@ -429,93 +382,172 @@ ivf_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_
 
 // -- the dense kernels ------------------------------------------------------------------------
 
+// Shared memory of a dense kernel whose rows are W elements of T (f32 or
+// bf16 values, or the 4-byte words of int8 codes): two row tiles, the
+// query (W elements of 4 bytes, 16-byte aligned), the partial sums.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+size_t dense_smem(int W) {
+    return 2 * (size_t)SRT * tile_stride<T>(W) * sizeof(T) +
+           4 * ((size_t)((W + 3) / 4 * 4) + PARTS * SRT);
+}
+
+// The slots of this block's lists from each list's mark to pad, as (+inf,
+// -1) without a read: block split s of S writes the 128-slot runs s, s + S,
+// ... of each tail. Called after the tile loop: in front of it, its loop
+// keeps a register live across the tiles (the ADC dense kernel spilled).
+__device__ __forceinline__ void dense_tail(const int* prb, const int* hwm, int p0, int p1,
+                                           int pad, float* od, int* oi) {
+    if (hwm == nullptr) return;
+    for (int p = p0; p < p1; ++p) {
+        const int n = min(max(hwm[prb[p]], 0), pad);
+        for (int s = n + blockIdx.z * SNT + threadIdx.x; s < pad; s += gridDim.z * SNT) {
+            od[(int64_t)p * pad + s] = sel::inf_f();
+            oi[(int64_t)p * pad + s] = -1;
+        }
+    }
+}
+
+// grid (B, G, S). Block (b, g, s) scores probe ranks [g * per, (g + 1) *
+// per) of query b: of each list, the row tiles s, s + S, ... below its
+// mark (pad without marks), through the select kernel's pipeline, each
+// slot's (dist, raw id) at column p * pad + slot of out (B, nprobe * pad);
+// then its share of each list's tail (dense_tail).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(SNT, DENSE_MIN_BLOCKS)
 ivf_dense_kernel(const int* __restrict__ probes, const float* __restrict__ q,
                  const float* __restrict__ q_sq, const T* __restrict__ lists,
                  const float* __restrict__ sqn, const int* __restrict__ ids,
-                 int B, int nprobe, int pad, int D, int tiles,
+                 const int* __restrict__ hwm, int nprobe, int pad, int D, int per,
                  float* __restrict__ out_d, int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
-    float* xs = reinterpret_cast<float*>(smem);
-    float* qs = xs + RT * (D + 1);
-    float* part = qs + D;
-    float* td = part + PARTS * RT;
-    int* ti = reinterpret_cast<int*>(td + RT);
-    const int t = blockIdx.x % tiles;
-    const int bp = blockIdx.x / tiles;               // b * nprobe + p
-    const int b = bp / nprobe;
-    const int s0 = t * RT, rows = min(RT, pad - s0);
-    for (int c = threadIdx.x; c < D; c += NT) qs[c] = q_as_store(q[(int64_t)b * D + c], lists);
-    __syncthreads();
-    const int64_t base = (int64_t)probes[bp] * pad;
-    tile_dists(lists, base + s0, rows, D, qs, q_sq[b], sqn, ids, xs, part, td, ti);
-    if (threadIdx.x < rows) {
-        const int64_t o = (int64_t)bp * pad + s0 + threadIdx.x;
-        out_d[o] = td[threadIdx.x];
-        out_i[o] = ti[threadIdx.x];
+    const int SD = tile_stride<T>(D);
+    T* xb0 = reinterpret_cast<T*>(smem);
+    T* xb1 = xb0 + SRT * SD;
+    float* qs = reinterpret_cast<float*>(xb1 + SRT * SD);   // [D], 16-byte aligned
+    float* part = qs + (D + 3) / 4 * 4;                      // [PARTS][SRT]
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int b = blockIdx.x, g = blockIdx.y;
+    const int p0 = g * per, p1 = min(nprobe, p0 + per);
+    const int first = blockIdx.z * SRT, step = gridDim.z * SRT;
+    const int chunk = (D + PARTS - 1) / PARTS;
+    const int c0 = warp * chunk, c1 = min(D, c0 + chunk);
+    const int* prb = probes + (int64_t)b * nprobe;
+    float* od = out_d + (int64_t)b * nprobe * pad;
+    int* oi = out_i + (int64_t)b * nprobe * pad;
+
+    for (int c = threadIdx.x; c < D; c += SNT) qs[c] = q_as_store(q[(int64_t)b * D + c], lists);
+    const float qsq = q_sq[b];
+    sel::ListTile cur{p0 - 1, 0, 0, 0};
+    sel::next_tile(cur, 0, p1, prb, hwm, pad, first);
+    sel::ListTile ld = cur;
+    for (int s = 0; s < 2; ++s) {              // two tiles in flight
+        if (ld.p < p1) {
+            issue_tile<T, VEC>(lists + (ld.base + ld.s0) * D, min(SRT, ld.n - ld.s0), D,
+                               s ? xb1 : xb0);
+            sel::next_tile(ld, step, p1, prb, hwm, pad, first);
+        }
+        sel::cp_async_commit();
     }
+    int buf = 0;
+    while (cur.p < p1) {
+        sel::cp_async_wait<1>();
+        __syncthreads();
+        T* xb = buf ? xb1 : xb0;
+        const int rows = min(SRT, cur.n - cur.s0);
+        part[warp * SRT + lane] =
+            lane < rows && !SEL_NO_SCORE ? part_dot<T, VEC>(xb + lane * SD, qs, c0, c1) : 0.f;
+        __syncthreads();                       // the tile is read: refill it
+        if (ld.p < p1) {
+            issue_tile<T, VEC>(lists + (ld.base + ld.s0) * D, min(SRT, ld.n - ld.s0), D, xb);
+            sel::next_tile(ld, step, p1, prb, hwm, pad, first);
+        }
+        sel::cp_async_commit();
+        if (threadIdx.x < rows) {
+            float ip = part[lane];
+#pragma unroll
+            for (int k = 1; k < PARTS; ++k) ip = __fadd_rn(ip, part[k * SRT + lane]);
+            const int64_t row = cur.base + cur.s0 + lane;
+            const int64_t col = (int64_t)cur.p * pad + cur.s0 + lane;
+            const int id = ids[row];
+            od[col] = id >= 0 ? l2_dist(qsq, sqn[row], ip) : sel::inf_f();
+            oi[col] = id;
+        }
+        sel::next_tile(cur, step, p1, prb, hwm, pad, first);
+        buf ^= 1;
+    }
+    dense_tail(prb, hwm, p0, p1, pad, od, oi);
+    sel::cp_async_wait<0>();
 }
 
-// int8 lists (SQ8 codes) against int8 queries: exact int32 dots by
-// __dp4a over packed 4-byte words (D % 4 == 0); the integer partial sums
-// are exact, so their order does not matter.
-__global__ void __launch_bounds__(NT)
+// As ivf_dense_kernel for int8 lists (SQ8 codes, rows of DW = D / 4 words)
+// against int8 queries: key = float(ip) * rs[b] + dec_sqn, each rounded on
+// its own (the plain version's bits). Warp p sums its share of the words.
+template <bool VEC>
+__global__ void __launch_bounds__(SNT, DENSE_MIN_BLOCKS)
 ivf_dense_int8_kernel(const int* __restrict__ probes, const int8_t* __restrict__ q8,
-                      const float* __restrict__ rs, const int8_t* __restrict__ codes,
+                      const float* __restrict__ rs, const int* __restrict__ codes,
                       const float* __restrict__ dec_sqn, const int* __restrict__ ids,
-                      int B, int nprobe, int pad, int D, int tiles, int qpb,
+                      const int* __restrict__ hwm, int nprobe, int pad, int DW, int per,
                       float* __restrict__ out_d, int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int DW = D >> 2;
-    int* xs = reinterpret_cast<int*>(smem);           // [RT][DW + 1]
-    int* qs = xs + RT * (DW + 1);                     // [DW]
-    int* part = qs + DW;                              // [PARTS][RT]
-    const int t = blockIdx.x % tiles;
-    const int gp = blockIdx.x / tiles;                // group * nprobe + p
-    const int g = gp / nprobe, p = gp % nprobe;
-    const int s0 = t * RT, rows = min(RT, pad - s0);
-    const int r = threadIdx.x % RT, pt = threadIdx.x / RT;
-    const int chunk = (DW + PARTS - 1) / PARTS;
-    const int w0 = pt * chunk, w1 = min(DW, w0 + chunk);
-    for (int j = 0; j < qpb; ++j) {
-        const int b = g * qpb + j;
-        if (b >= B) break;
-        const int* qw = reinterpret_cast<const int*>(q8 + (int64_t)b * D);
-        for (int w = threadIdx.x; w < DW; w += NT) qs[w] = qw[w];
-        const int64_t row0 = (int64_t)probes[(int64_t)b * nprobe + p] * pad + s0;
-        const int* src = reinterpret_cast<const int*>(codes + row0 * D);
-        const int total = rows * DW;
-#pragma unroll 4
-        for (int i = threadIdx.x; i < total; i += NT) {
-            const int rr = i / DW, w = i - rr * DW;
-            xs[rr * (DW + 1) + w] = __ldg(src + i);
-        }
-        __syncthreads();
-        int acc = 0;
-        if (r < rows) {
-            const int* xr = xs + r * (DW + 1);
-            for (int w = w0; w < w1; ++w) acc = __dp4a(qs[w], xr[w], acc);
-        }
-        part[pt * RT + r] = acc;
-        __syncthreads();
-        if (threadIdx.x < rows) {
-            int ip = 0;
-#pragma unroll
-            for (int k = 0; k < PARTS; ++k) ip += part[k * RT + r];
-            const int64_t row = row0 + r;
-            const int id = ids[row];
-            const float key = __fadd_rn(__fmul_rn((float)ip, rs[b]), dec_sqn[row]);
-            const int64_t o = ((int64_t)b * nprobe + p) * pad + s0 + r;
-            out_d[o] = id >= 0 ? key : inf_f();
-            out_i[o] = id;
-        }
-        __syncthreads();
-    }
-}
+    const int SW = tile_stride<int>(DW);
+    int* xb0 = reinterpret_cast<int*>(smem);
+    int* xb1 = xb0 + SRT * SW;
+    int* qs = xb1 + SRT * SW;                                // [DW], 16-byte aligned
+    int* part = qs + (DW + 3) / 4 * 4;                       // [PARTS][SRT]
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int b = blockIdx.x, g = blockIdx.y;
+    const int p0 = g * per, p1 = min(nprobe, p0 + per);
+    const int first = blockIdx.z * SRT, step = gridDim.z * SRT;
+    const int chunk = VEC ? (DW / 4 + PARTS - 1) / PARTS * 4 : (DW + PARTS - 1) / PARTS;
+    const int w0 = min(DW, warp * chunk), w1 = min(DW, w0 + chunk);
+    const int* prb = probes + (int64_t)b * nprobe;
+    float* od = out_d + (int64_t)b * nprobe * pad;
+    int* oi = out_i + (int64_t)b * nprobe * pad;
 
-size_t f_smem(int D) {
-    return sizeof(float) * ((size_t)RT * (D + 1) + D + PARTS * RT + RT) + sizeof(int) * RT;
+    const int* qw = reinterpret_cast<const int*>(q8 + (int64_t)b * DW * 4);
+    for (int w = threadIdx.x; w < DW; w += SNT) qs[w] = qw[w];
+    const float scale = rs[b];
+    sel::ListTile cur{p0 - 1, 0, 0, 0};
+    sel::next_tile(cur, 0, p1, prb, hwm, pad, first);
+    sel::ListTile ld = cur;
+    for (int s = 0; s < 2; ++s) {              // two tiles in flight
+        if (ld.p < p1) {
+            issue_tile<int, VEC>(codes + (ld.base + ld.s0) * DW, min(SRT, ld.n - ld.s0), DW,
+                                 s ? xb1 : xb0);
+            sel::next_tile(ld, step, p1, prb, hwm, pad, first);
+        }
+        sel::cp_async_commit();
+    }
+    int buf = 0;
+    while (cur.p < p1) {
+        sel::cp_async_wait<1>();
+        __syncthreads();
+        int* xb = buf ? xb1 : xb0;
+        const int rows = min(SRT, cur.n - cur.s0);
+        part[warp * SRT + lane] =
+            lane < rows && !SEL_NO_SCORE ? part_dot_i8<VEC>(xb + lane * SW, qs, w0, w1) : 0;
+        __syncthreads();                       // the tile is read: refill it
+        if (ld.p < p1) {
+            issue_tile<int, VEC>(codes + (ld.base + ld.s0) * DW, min(SRT, ld.n - ld.s0), DW, xb);
+            sel::next_tile(ld, step, p1, prb, hwm, pad, first);
+        }
+        sel::cp_async_commit();
+        if (threadIdx.x < rows) {
+            int ip = part[lane];
+#pragma unroll
+            for (int k = 1; k < PARTS; ++k) ip += part[k * SRT + lane];
+            const int64_t row = cur.base + cur.s0 + lane;
+            const int64_t col = (int64_t)cur.p * pad + cur.s0 + lane;
+            const int id = ids[row];
+            od[col] = id >= 0 ? __fadd_rn(__fmul_rn((float)ip, scale), dec_sqn[row]) : sel::inf_f();
+            oi[col] = id;
+        }
+        sel::next_tile(cur, step, p1, prb, hwm, pad, first);
+        buf ^= 1;
+    }
+    dense_tail(prb, hwm, p0, p1, pad, od, oi);
+    sel::cp_async_wait<0>();
 }
 
 template <typename K>
@@ -524,20 +556,61 @@ cudaError_t set_smem(K kernel, size_t smem) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T>
-cudaError_t launch_dense(const void* probes, const void* q, const void* q_sq, const void* lists,
-                         const void* sqn, const void* ids, int B, int nprobe, int pad, int D,
-                         void* out_d, void* out_i, cudaStream_t st) {
-    const size_t smem = f_smem(D);
-    cudaError_t err = set_smem(ivf_dense_kernel<T>, smem);
+// The grid of a dense launch: B queries, G probe groups, S row splits.
+bool valid_dense_grid(int B, int nprobe, int pad, int G, int S) {
+    return B > 0 && pad > 0 && sel::valid_groups(nprobe, G) && S >= 1 && S <= 65535;
+}
+
+// Blocks per SM of a dense kernel at its shared memory, into out[0].
+template <typename Kern>
+cudaError_t dense_occupancy(Kern kernel, size_t smem, int* out) {
+    cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    const int tiles = (pad + RT - 1) / RT;
-    const int64_t blocks = (int64_t)tiles * nprobe * B;
-    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-    ivf_dense_kernel<T><<<(unsigned)blocks, NT, smem, st>>>(
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, SNT, smem);
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_dense(const void* probes, const void* q, const void* q_sq, const void* lists,
+                         const void* sqn, const void* ids, const void* hwm, int B, int nprobe,
+                         int pad, int D, int G, int S, void* out_d, void* out_i,
+                         cudaStream_t st) {
+    const size_t smem = dense_smem<T>(D);
+    cudaError_t err = set_smem(ivf_dense_kernel<T, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    ivf_dense_kernel<T, VEC><<<dim3(B, G, S), SNT, smem, st>>>(
         static_cast<const int*>(probes), static_cast<const float*>(q),
         static_cast<const float*>(q_sq), static_cast<const T*>(lists),
-        static_cast<const float*>(sqn), static_cast<const int*>(ids), B, nprobe, pad, D, tiles,
+        static_cast<const float*>(sqn), static_cast<const int*>(ids),
+        static_cast<const int*>(hwm), nprobe, pad, D, (nprobe + G - 1) / G,
+        static_cast<float*>(out_d), static_cast<int*>(out_i));
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dense(bool vec, const void* probes, const void* q, const void* q_sq,
+                           const void* lists, const void* sqn, const void* ids, const void* hwm,
+                           int B, int nprobe, int pad, int D, int G, int S, void* out_d,
+                           void* out_i, cudaStream_t st) {
+    if (vec)
+        return launch_dense<T, true>(probes, q, q_sq, lists, sqn, ids, hwm, B, nprobe, pad, D, G,
+                                     S, out_d, out_i, st);
+    return launch_dense<T, false>(probes, q, q_sq, lists, sqn, ids, hwm, B, nprobe, pad, D, G, S,
+                                  out_d, out_i, st);
+}
+
+template <bool VEC>
+cudaError_t launch_dense_int8(const void* probes, const void* q8, const void* rs,
+                              const void* codes, const void* dec_sqn, const void* ids,
+                              const void* hwm, int B, int nprobe, int pad, int DW, int G, int S,
+                              void* out_d, void* out_i, cudaStream_t st) {
+    const size_t smem = dense_smem<int>(DW);
+    cudaError_t err = set_smem(ivf_dense_int8_kernel<VEC>, smem);
+    if (err != cudaSuccess) return err;
+    ivf_dense_int8_kernel<VEC><<<dim3(B, G, S), SNT, smem, st>>>(
+        static_cast<const int*>(probes), static_cast<const int8_t*>(q8),
+        static_cast<const float*>(rs), static_cast<const int*>(codes),
+        static_cast<const float*>(dec_sqn), static_cast<const int*>(ids),
+        static_cast<const int*>(hwm), nprobe, pad, DW, (nprobe + G - 1) / G,
         static_cast<float*>(out_d), static_cast<int*>(out_i));
     return cudaGetLastError();
 }
@@ -607,7 +680,7 @@ cudaError_t select_occupancy(int D, int K, int* out) {
 
 extern "C" {
 
-int ivf_scan_abi_version() { return 2; }
+int ivf_scan_abi_version() { return 3; }
 
 // The select kernel's residency at (dtype, D, K): out[0] = blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] = 1 when its
@@ -650,43 +723,66 @@ int ivf_scan_select(int dtype, const void* probes, const void* q, const void* q_
     return (int)cudaErrorInvalidValue;
 }
 
-// As ivf_scan_select, without selection: out_d/out_i (B, nprobe * pad)
-// hold every slot's distance and raw id.
-int ivf_scan_dense(int dtype, const void* probes, const void* q, const void* q_sq,
-                   const void* lists, const void* sqn, const void* ids, int B, int nprobe,
-                   int pad, int D, void* out_d, void* out_i, void* stream) {
-    if (B <= 0 || nprobe <= 0 || pad <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+// A dense kernel's blocks per SM at (dtype, D) into out[0]: dtype 0 =
+// f32 lists, 1 = bf16, 2 = int8 codes (D % 4 == 0). Returns the CUDA
+// error code.
+int ivf_dense_occupancy(int dtype, int D, int* out) {
+    if (D <= 0) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-        return (int)launch_dense<float>(probes, q, q_sq, lists, sqn, ids, B, nprobe, pad, D,
-                                        out_d, out_i, st);
+        return (int)(vec_rows<float>(D)
+                         ? dense_occupancy(ivf_dense_kernel<float, true>, dense_smem<float>(D), out)
+                         : dense_occupancy(ivf_dense_kernel<float, false>, dense_smem<float>(D),
+                                           out));
     if (dtype == 1)
-        return (int)launch_dense<__nv_bfloat16>(probes, q, q_sq, lists, sqn, ids, B, nprobe, pad,
-                                                D, out_d, out_i, st);
+        return (int)(vec_rows<__nv_bfloat16>(D)
+                         ? dense_occupancy(ivf_dense_kernel<__nv_bfloat16, true>,
+                                           dense_smem<__nv_bfloat16>(D), out)
+                         : dense_occupancy(ivf_dense_kernel<__nv_bfloat16, false>,
+                                           dense_smem<__nv_bfloat16>(D), out));
+    if (dtype == 2 && D % 4 == 0)
+        return (int)(D % 16 == 0
+                         ? dense_occupancy(ivf_dense_int8_kernel<true>, dense_smem<int>(D / 4), out)
+                         : dense_occupancy(ivf_dense_int8_kernel<false>, dense_smem<int>(D / 4),
+                                           out));
+    return (int)cudaErrorInvalidValue;
+}
+
+// As ivf_scan_select, without selection, on a (B, G, S) grid (G probe
+// groups, S row splits): out_d/out_i (B, nprobe * pad) hold every slot's
+// distance and raw id, (+inf, -1) from each list's mark to pad.
+int ivf_scan_dense(int dtype, const void* probes, const void* q, const void* q_sq,
+                   const void* lists, const void* sqn, const void* ids, const void* hwm, int B,
+                   int nprobe, int pad, int D, int G, int S, void* out_d, void* out_i,
+                   void* stream) {
+    if (D <= 0 || !valid_dense_grid(B, nprobe, pad, G, S)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool aligned = (reinterpret_cast<uintptr_t>(lists) & 15) == 0;
+    if (dtype == 0)
+        return (int)dispatch_dense<float>(aligned && vec_rows<float>(D), probes, q, q_sq, lists,
+                                          sqn, ids, hwm, B, nprobe, pad, D, G, S, out_d, out_i,
+                                          st);
+    if (dtype == 1)
+        return (int)dispatch_dense<__nv_bfloat16>(aligned && vec_rows<__nv_bfloat16>(D), probes,
+                                                  q, q_sq, lists, sqn, ids, hwm, B, nprobe, pad,
+                                                  D, G, S, out_d, out_i, st);
     return (int)cudaErrorInvalidValue;
 }
 
 // q8 (B, D) int8 with per-row scales rs (B,) f32; codes (nlist, pad, D)
-// int8 (D % 4 == 0); dec_sqn/ids (nlist, pad); out_d/out_i (B, nprobe *
-// pad) keys and raw ids; qpb queries per block.
+// int8 (D % 4 == 0, 4-byte aligned; cp.async when D % 16 == 0 and 16-byte
+// aligned); dec_sqn/ids (nlist, pad); hwm (nlist,) int32 or null (= pad);
+// out_d/out_i (B, nprobe * pad) keys and raw ids, on a (B, G, S) grid.
 int ivf_scan_dense_int8(const void* probes, const void* q8, const void* rs, const void* codes,
-                        const void* dec_sqn, const void* ids, int B, int nprobe, int pad, int D,
-                        int qpb, void* out_d, void* out_i, void* stream) {
-    if (B <= 0 || nprobe <= 0 || pad <= 0 || D <= 0 || D % 4 != 0 || qpb <= 0)
+                        const void* dec_sqn, const void* ids, const void* hwm, int B, int nprobe,
+                        int pad, int D, int G, int S, void* out_d, void* out_i, void* stream) {
+    if (D <= 0 || D % 4 != 0 || !valid_dense_grid(B, nprobe, pad, G, S))
         return (int)cudaErrorInvalidValue;
-    const int DW = D / 4;
-    const size_t smem = sizeof(int) * ((size_t)RT * (DW + 1) + DW + PARTS * RT);
-    cudaError_t err = set_smem(ivf_dense_int8_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int tiles = (pad + RT - 1) / RT;
-    const int64_t blocks = (int64_t)tiles * nprobe * ((B + qpb - 1) / qpb);
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    ivf_dense_int8_kernel<<<(unsigned)blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(probes), static_cast<const int8_t*>(q8),
-        static_cast<const float*>(rs), static_cast<const int8_t*>(codes),
-        static_cast<const float*>(dec_sqn), static_cast<const int*>(ids), B, nprobe, pad, D,
-        tiles, qpb, static_cast<float*>(out_d), static_cast<int*>(out_i));
-    return (int)cudaGetLastError();
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (D % 16 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0)
+        return (int)launch_dense_int8<true>(probes, q8, rs, codes, dec_sqn, ids, hwm, B, nprobe,
+                                            pad, D / 4, G, S, out_d, out_i, st);
+    return (int)launch_dense_int8<false>(probes, q8, rs, codes, dec_sqn, ids, hwm, B, nprobe, pad,
+                                         D / 4, G, S, out_d, out_i, st);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // select_merge.cuh: the block-level top-K selection shared by the IVF and
 // ADC select kernels (ivf_scan.cu, adc_scan.cu): a running sorted list,
 // the merge of one tile's admitted candidates into it, and the exact merge
-// of per-probe-group partial lists into the final (B, K) result.
+// of per-probe-group partial lists into the final (B, K) result; and the
+// tile walk and cp.async helpers that the select and dense kernels share.
 //
 // Keys are (d, t) pairs in lexicographic order: t is the tie-break of the
 // kernel's contract (IVF: the id, INT_MAX for padding; ADC: the candidate's
@@ -103,16 +104,17 @@ struct ListTile {
 };
 
 // Advance by `step` slots; past a list's n, on to the next probed list of
-// the group with any slot to scan. ListTile{p0 - 1, 0, 0, 0} advanced by 0
-// is the first tile.
+// the group with a slot at or past `first` to scan, at slot `first` (a
+// dense kernel's row split starts there; the select kernels at 0).
+// ListTile{p0 - 1, 0, 0, 0} advanced by 0 is the first tile.
 __device__ __forceinline__ void next_tile(ListTile& it, int step, int p1, const int* prb,
-                                          const int* hwm, int pad) {
+                                          const int* hwm, int pad, int first = 0) {
     it.s0 += step;
     while (it.s0 >= it.n && ++it.p < p1) {
         const int l = prb[it.p];
         it.n = hwm ? min(max(hwm[l], 0), pad) : pad;
         it.base = (int64_t)l * pad;
-        it.s0 = 0;
+        it.s0 = first;
     }
 }
 

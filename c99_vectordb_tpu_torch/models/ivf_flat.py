@@ -436,7 +436,7 @@ class IVFFlatIndex:
 
     def _put_staged(self, staged) -> None:
         """Keep a staging and the high-water marks of its list ids, where
-        the select kernel stops; every change to the staged ids comes
+        the scan kernels stop; every change to the staged ids comes
         through here."""
         self._staged = staged
         self._hwm = list_hwm(staged[3]).to(torch.int32)
@@ -680,7 +680,7 @@ class IVFFlatIndex:
             if scan_extra[0] == "int8":
                 _, codes, dim_scale, dec_sqn = scan_extra
                 _, si, srows = ivf_sq8_search(centroids, c_sq, codes, dim_scale, dec_sqn,
-                                              list_ids, q, nprobe_eff, ks)
+                                              list_ids, q, nprobe_eff, ks, hwm=self._hwm)
                 if id_mask is not None:
                     si = mask_shortlist_ids(si, id_mask)
                 dists, out_ids = exact_rerank_rows(flat_store, srows, si, q, k)

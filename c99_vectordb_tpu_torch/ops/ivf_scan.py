@@ -43,11 +43,12 @@ def _plain_steps(probes, lists):
             yield slice(q0, min(b, q0 + chunk)), p
 
 
-def scan_dense_plain(probes, queries, q_sq, lists, sqn, ids):
+def scan_dense_plain(probes, queries, q_sq, lists, sqn, ids, hwm=None):
     """Plain version of the dense kernel: (dist, raw id), each (B,
     nprobe * pad), with dist = max((q_sq + sqn) - 2 q.x, 0) (+inf where
     id < 0). The query is rounded to the list dtype and the product
-    accumulates in f32."""
+    accumulates in f32. Slots at or past hwm are padding."""
+    ids = ids_below_hwm(ids, hwm)
     b, nprobe = probes.shape
     pad = lists.shape[1]
     qs = queries.to(lists.dtype).to(torch.float32)
@@ -90,11 +91,12 @@ def scan_select_plain(probes, queries, q_sq, lists, sqn, ids, k: int, hwm=None):
     return d, torch.where(i == INT32_MAX, -1, i)
 
 
-def scan_dense_int8_plain(probes, q8, rs, codes, dec_sqn, ids):
+def scan_dense_int8_plain(probes, q8, rs, codes, dec_sqn, ids, hwm=None):
     """Plain version of the int8 dense kernel: key = float(q8 . code) * rs +
     dec_sqn (+inf where id < 0). The int8 dot is formed in f32, exact while
     127**2 * D < 2**24; product and sum round separately, as in the
-    kernel."""
+    kernel. Slots at or past hwm are padding."""
+    ids = ids_below_hwm(ids, hwm)
     b, nprobe = probes.shape
     pad, d = codes.shape[1], codes.shape[2]
     if 127 * 127 * d >= (1 << 24):
@@ -129,13 +131,13 @@ def ivf_full_search(centroids, c_sq, list_vecs, list_sqn, list_ids, queries,
     by (distance, id), (inf, -1) in empty slots. dense=True takes the dense
     kernel and merge_topk (bit-identical distances); list_vecs may be f32 or
     bf16 (the query is then rounded to bf16). hwm: the lists' high-water
-    marks (models/devbuild.list_hwm of list_ids), where the select kernel
+    marks (models/devbuild.list_hwm of list_ids), where either kernel
     stops; None scans to pad."""
     q = queries.to(torch.float32).contiguous()
     probes = coarse_probes(q, centroids, c_sq, nprobe)
     q_sq = (q * q).sum(dim=1)
     if dense:
-        d2, i2 = ivf_scan_dense(probes, q, q_sq, list_vecs, list_sqn, list_ids)
+        d2, i2 = ivf_scan_dense(probes, q, q_sq, list_vecs, list_sqn, list_ids, hwm=hwm)
         return merge_topk(d2, i2, k)
     return ivf_scan_select(probes, q, q_sq, list_vecs, list_sqn, list_ids, k, qpb, hwm=hwm)
 
@@ -172,17 +174,18 @@ def _canvas_rows(pos, probes, pad: int):
 
 
 def ivf_sq8_search(centroids, c_sq, codes, dim_scale, dec_sqn, list_ids, queries,
-                   nprobe: int, ks: int, *, qpb: int | None = None):
+                   nprobe: int, ks: int, *, qpb: int | None = None, hwm=None):
     """Coarse probes + SQ8 dense scan -> (keys, ids, rows) shortlist, each
     (B, ks), ordered by the approximate key; `rows` are bucket-store rows
-    for ops/rerank.exact_rerank_rows. qpb: queries per block of the int8
-    kernel (default 8 when the batch divides by 8, as the JAX package's
-    8-query steps)."""
+    for ops/rerank.exact_rerank_rows. qpb: the JAX package's queries per
+    grid step of the int8 kernel (default 8 when the batch divides by 8).
+    hwm: the lists' high-water marks, where the kernel stops; None scans
+    to pad."""
     b = queries.shape[0]
     probes = coarse_probes(queries, centroids, c_sq, nprobe)
     q8, rs = sq8_stage_queries(queries, dim_scale)
     if qpb is None:
         qpb = 8 if b % 8 == 0 else 1
-    d2, i2 = ivf_scan_dense_int8(probes, q8, rs, codes, dec_sqn, list_ids, qpb)
+    d2, i2 = ivf_scan_dense_int8(probes, q8, rs, codes, dec_sqn, list_ids, qpb, hwm=hwm)
     d, i, pos = _shortlist_topk(d2, i2, ks)
     return d, i, _canvas_rows(pos, probes, codes.shape[1])

@@ -18,17 +18,24 @@ Each wrapper counts its launches in `<wrapper>.launches`.
     kernel and one of its merge, counted as one launch); the group count
     comes from the kernel's occupancy (ops/select_common.probe_groups;
     tests force it with `_groups`);
-  - `ivf_scan_dense(probes, queries, q_sq, lists, sqn, ids)`: every
-    probed slot's distance and raw id, (B, nprobe * pad)
+  - `ivf_scan_dense(probes, queries, q_sq, lists, sqn, ids, hwm=None)`:
+    every probed slot's distance and raw id, (B, nprobe * pad)
     (`_ivf_scan_kernel_dense`);
-  - `ivf_scan_dense_int8(probes, q8, rs, codes, dec_sqn, ids, qpb=1)`:
-    every probed slot's SQ8 key and raw id (`_ivf_scan_kernel_dense_int8`,
-    `_ivf_scan_kernel_dense_int8_multi`).
+  - `ivf_scan_dense_int8(probes, q8, rs, codes, dec_sqn, ids, qpb=1,
+    hwm=None)`: every probed slot's SQ8 key and raw id
+    (`_ivf_scan_kernel_dense_int8` at qpb 1,
+    `_ivf_scan_kernel_dense_int8_multi` at qpb 8: the JAX package's queries
+    per grid step, kept as a keyword; the kernel's grid ignores it).
+  Both dense kernels run the select kernel's tile pipeline without the
+  selection on a (query, probe group, row split) grid (`dense_plan`; tests
+  force it with `_groups` and `_splits`), stop each list at hwm and write
+  the slots from the mark to pad as (+inf, -1) without reading them.
 
 Operands: probes (B, nprobe) int32; queries (B, D) f32, unstaged; q_sq (B,)
 f32; lists (nlist, pad, D) f32 or bf16 (codes int8, D % 4 == 0); sqn/
 dec_sqn (nlist, pad) f32; ids (nlist, pad) int32 with -1 padding; q8 (B, D)
-int8 with per-row scales rs (B,) f32. All contiguous, on one device.
+int8 with per-row scales rs (B,) f32; hwm (nlist,) int32 or None. All
+contiguous, on one device.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from . import cuda_build, select_common
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DENSE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def signatures() -> dict:
@@ -50,13 +58,16 @@ def signatures() -> dict:
         "ivf_select_occupancy": ([ci, ci, ci, vp], ci),
         "ivf_scan_select": ([ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                              vp, vp, vp, vp, vp, vp, vp], ci),
-        "ivf_scan_dense": ([ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp], ci),
-        "ivf_scan_dense_int8": ([vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp], ci),
+        "ivf_dense_occupancy": ([ci, ci, vp], ci),
+        "ivf_scan_dense": ([ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp],
+                           ci),
+        "ivf_scan_dense_int8": ([vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp],
+                                ci),
     }
 
 
 def _load() -> ctypes.CDLL:
-    return cuda_build.load("ivf_scan", "ivf_scan_abi_version", 2, signatures())
+    return cuda_build.load("ivf_scan", "ivf_scan_abi_version", 3, signatures())
 
 
 def _check(name, probes, rows, lists, list_aux, want_lists):
@@ -154,64 +165,103 @@ def ivf_scan_select(probes, queries, q_sq, lists, sqn, ids, k: int, qpb: int = 1
 ivf_scan_select.launches = 0
 
 
-def ivf_scan_dense(probes, queries, q_sq, lists, sqn, ids):
-    """Every probed slot's (dist, raw id), each (B, nprobe * pad)."""
-    if lists.device.type == "cpu":
-        from .ivf_scan import scan_dense_plain
+@functools.cache
+def _dense_occupancy(dtype_code: int, d: int, device_index: int) -> int:
+    lib = _load()
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device_index):
+        err = lib.ivf_dense_occupancy(dtype_code, d, out)
+    if err != 0:
+        raise RuntimeError(f"ivf_dense_occupancy failed: CUDA error {err}")
+    return max(1, out[0])
 
-        return scan_dense_plain(probes, queries, q_sq, lists, sqn, ids)
-    b, nprobe, _, pad, d = _check(
-        "ivf_scan_dense", probes,
-        [(queries, lambda b, d: (b, d), torch.float32), (q_sq, lambda b, d: (b,), torch.float32)],
-        lists, (sqn, ids), _DTYPE_CODE)
-    out_d = torch.empty((b, nprobe * pad), dtype=torch.float32, device=lists.device)
-    out_i = torch.empty((b, nprobe * pad), dtype=torch.int32, device=lists.device)
+
+def dense_plan(b: int, nprobe: int, pad: int, d: int, dtype, device,
+               _groups: int | None = None, _splits: int | None = None) -> dict:
+    """How `ivf_scan_dense` (f32, bf16 lists) or `ivf_scan_dense_int8` (int8)
+    launches on `device` for these shapes: probe groups (no merge, so up to
+    nprobe), row splits (ops/select_common.row_splits), blocks, blocks per
+    SM (occupancy query), SMs."""
+    index = torch.device(device).index or 0
+    per_sm = _dense_occupancy(_DENSE_CODE[dtype], d, index)
+    sms = select_common.sm_count(index)
+    g = select_common.probe_groups(b, nprobe, 1, per_sm, sms, nprobe, _groups)
+    s = select_common.row_splits(b * g, per_sm, sms, -(-pad // select_common.DENSE_TILE_ROWS),
+                                 _splits)
+    return {"groups": g, "splits": s, "blocks": b * g * s, "blocks_per_sm": per_sm, "sms": sms}
+
+
+def _dense_launch(name, dtype, operands, b, nprobe, pad, d, hwm, dev, groups, splits):
+    """Allocate the (B, nprobe * pad) outputs and launch the dense kernel of
+    csrc export `name` on its plan's grid for lists of `dtype`."""
+    out_d = torch.empty((b, nprobe * pad), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, nprobe * pad), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
     lib = _load()
-    with torch.cuda.device(lists.device):
-        err = lib.ivf_scan_dense(
-            _DTYPE_CODE[lists.dtype], probes.data_ptr(), queries.data_ptr(), q_sq.data_ptr(),
-            lists.data_ptr(), sqn.data_ptr(), ids.data_ptr(), b, nprobe, pad, d,
-            out_d.data_ptr(), out_i.data_ptr(), _stream(lists.device))
+    plan = dense_plan(b, nprobe, pad, d, dtype, dev, groups, splits)
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*operands, None if hwm is None else hwm.data_ptr(), b, nprobe,
+                               pad, d, plan["groups"], plan["splits"], out_d.data_ptr(),
+                               out_i.data_ptr(), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"ivf_scan_dense launch failed: CUDA error {err}")
-    ivf_scan_dense.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out_d, out_i
+
+
+def ivf_scan_dense(probes, queries, q_sq, lists, sqn, ids, hwm=None,
+                   _groups: int | None = None, _splits: int | None = None):
+    """Every probed slot's (dist, raw id), each (B, nprobe * pad); (+inf,
+    -1) from each list's hwm to pad."""
+    if lists.device.type == "cpu":
+        from .ivf_scan import scan_dense_plain
+
+        return scan_dense_plain(probes, queries, q_sq, lists, sqn, ids, hwm=hwm)
+    b, nprobe, nlist, pad, d = _check(
+        "ivf_scan_dense", probes,
+        [(queries, lambda b, d: (b, d), torch.float32), (q_sq, lambda b, d: (b,), torch.float32)],
+        lists, (sqn, ids), _DTYPE_CODE)
+    select_common.check_hwm("ivf_scan_dense", hwm, nlist, lists.device)
+    out = _dense_launch(
+        "ivf_scan_dense", lists.dtype,
+        (_DTYPE_CODE[lists.dtype], probes.data_ptr(), queries.data_ptr(), q_sq.data_ptr(),
+         lists.data_ptr(), sqn.data_ptr(), ids.data_ptr()),
+        b, nprobe, pad, d, hwm, lists.device, _groups, _splits)
+    if b:
+        ivf_scan_dense.launches += 1
+    return out
 
 
 ivf_scan_dense.launches = 0
 
 
-def ivf_scan_dense_int8(probes, q8, rs, codes, dec_sqn, ids, qpb: int = 1):
+def ivf_scan_dense_int8(probes, q8, rs, codes, dec_sqn, ids, qpb: int = 1, hwm=None,
+                        _groups: int | None = None, _splits: int | None = None):
     """Every probed slot's SQ8 key float(q8 . code) * rs + dec_sqn and raw
-    id, each (B, nprobe * pad)."""
+    id, each (B, nprobe * pad); (+inf, -1) from each list's hwm to pad.
+    qpb is the JAX package's queries per grid step: checked, and ignored
+    by the grid."""
     if codes.device.type == "cpu":
         from .ivf_scan import scan_dense_int8_plain
 
-        return scan_dense_int8_plain(probes, q8, rs, codes, dec_sqn, ids)
-    b, nprobe, _, pad, d = _check(
+        return scan_dense_int8_plain(probes, q8, rs, codes, dec_sqn, ids, hwm=hwm)
+    b, nprobe, nlist, pad, d = _check(
         "ivf_scan_dense_int8", probes,
         [(q8, lambda b, d: (b, d), torch.int8), (rs, lambda b, d: (b,), torch.float32)],
         codes, (dec_sqn, ids), (torch.int8,))
+    select_common.check_hwm("ivf_scan_dense_int8", hwm, nlist, codes.device)
     if d % 4 != 0 or q8.data_ptr() % 4 or codes.data_ptr() % 4:
         raise ValueError(f"ivf_scan_dense_int8: needs D % 4 == 0 and 4-byte aligned rows (D={d})")
     if qpb < 1:
         raise ValueError(f"ivf_scan_dense_int8: qpb must be >= 1 (got {qpb})")
-    out_d = torch.empty((b, nprobe * pad), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((b, nprobe * pad), dtype=torch.int32, device=codes.device)
-    if b == 0:
-        return out_d, out_i
-    lib = _load()
-    with torch.cuda.device(codes.device):
-        err = lib.ivf_scan_dense_int8(
-            probes.data_ptr(), q8.data_ptr(), rs.data_ptr(), codes.data_ptr(),
-            dec_sqn.data_ptr(), ids.data_ptr(), b, nprobe, pad, d, qpb,
-            out_d.data_ptr(), out_i.data_ptr(), _stream(codes.device))
-    if err != 0:
-        raise RuntimeError(f"ivf_scan_dense_int8 launch failed: CUDA error {err}")
-    ivf_scan_dense_int8.launches += 1
-    return out_d, out_i
+    out = _dense_launch(
+        "ivf_scan_dense_int8", torch.int8,
+        (probes.data_ptr(), q8.data_ptr(), rs.data_ptr(), codes.data_ptr(), dec_sqn.data_ptr(),
+         ids.data_ptr()),
+        b, nprobe, pad, d, hwm, codes.device, _groups, _splits)
+    if b:
+        ivf_scan_dense_int8.launches += 1
+    return out
 
 
 ivf_scan_dense_int8.launches = 0

@@ -3,11 +3,11 @@ ops/adc_cuda.py, and their plain versions in ops/ivf_scan.py, ops/adc.py).
 
 Both select kernels run a (query block, probe group) grid and merge each
 query's G partial lists exactly (csrc/select_merge.cuh); both stop each
-list at its high-water mark, as the ADC dense kernel does on the same
-grid without a merge. This module holds the host side of that: the
+list at its high-water mark, as the dense kernels (ADC, IVF) do on the
+same grid without a merge. This module holds the host side of that: the
 high-water mark as the plain versions apply it, the choice of G from the
-kernel's occupancy, the operand check of the marks and the scratch of the
-partial lists.
+kernel's occupancy (and of the IVF dense kernels' row splits), the
+operand check of the marks and the scratch of the partial lists.
 """
 
 from __future__ import annotations
@@ -22,6 +22,10 @@ import torch
 # of unequal length (the IVF and ADC kernels both ran fastest with 8-16
 # groups on the 1M paths' own operands, PERF.md).
 SELECT_WAVES = 4
+# Rows of a list that one tile of the IVF dense kernels holds, and the
+# most tiles of a full list that one of their blocks takes (row_splits).
+DENSE_TILE_ROWS = 32
+DENSE_SPLIT_TILES = 6
 
 
 def ids_below_hwm(ids, hwm):
@@ -56,6 +60,22 @@ def probe_groups(b: int, nprobe: int, qpb: int, blocks_per_sm: int, sms: int, ma
     g = max(1, min(int(groups), nprobe, max_groups))
     per = -(-nprobe // g)
     return -(-nprobe // per)
+
+
+def row_splits(blocks: int, blocks_per_sm: int, sms: int, list_tiles: int,
+               splits: int | None = None) -> int:
+    """The number S of row splits of an IVF dense grid of `blocks` (query,
+    probe group) blocks: block split s takes row tiles s, s + S, ... of
+    each list. None asks for enough splits that a full list (`list_tiles`
+    tiles: pad rows) takes at most DENSE_SPLIT_TILES tiles per block, and
+    for SELECT_WAVES waves of `blocks_per_sm * sms` resident blocks, as
+    probe_groups does. The longest lists set a dense grid's time, and list
+    lengths are skewed (pad is set by the longest list). S is cut to
+    `list_tiles` and to the grid's 65535."""
+    if splits is None:
+        splits = max(-(-list_tiles // DENSE_SPLIT_TILES),
+                     -(-SELECT_WAVES * blocks_per_sm * sms // max(blocks, 1)))
+    return max(1, min(int(splits), list_tiles, 65535))
 
 
 def select_plan(occupancy, b: int, nprobe: int, k: int, qpb: int, device,

@@ -12,8 +12,10 @@ Phases (any failure raises and exits non-zero; none is caught):
                  codes with bf16 queries) and its int8 x int8 mode
                  (scan_topk_mma_kernel<2>, s8 -> s32). The IVF and ADC select
                  kernels split each query's probes over blocks, stop each list
-                 at its high-water mark and merge exactly; the ADC dense kernel
-                 runs the same (query, probe group) grid and stops alike.
+                 at its high-water mark and merge exactly; the three dense
+                 kernels (IVF f32/bf16, IVF int8, ADC) run the same (query,
+                 probe group) grid, the IVF ones also splitting each list's
+                 rows, and stop alike.
   2. kernel      fused_l2_topk against its plain torch version on the card,
                  for the f32, bf16 and int8 stores (and int8 codes with bf16
                  queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
@@ -60,16 +62,17 @@ Phases (any failure raises and exits non-zero; none is caught):
                  skipped.
   9. times       every kernel, its plain version and a library yardstick
                  (never used by the port) beside the bound, on the paths' own
-                 operands (the select and ADC dense kernels with the path's
+                 operands (every IVF and ADC kernel with the path's
                  high-water marks; scan and merge timed as one call), and the
                  flat kernel in each
                  mode (int8 codes with bf16 queries included) on 1M x 384
                  seeded Gaussian stores at B = 128 and 1024; each IVF and ADC
                  kernel is first held against its plain version on them. The
-                 select and ADC dense kernels also log their grid (probe
-                 groups, blocks per SM); tools/select_breakdown.py times the
-                 select kernels at other group counts and in diagnostic
-                 builds, tools/flat_mma_breakdown.py the flat kernel's modes.
+                 IVF and ADC kernels also log their grid (probe groups, row
+                 splits, blocks per SM); tools/select_breakdown.py times the
+                 select and IVF dense kernels at other group counts and in
+                 diagnostic builds, tools/flat_mma_breakdown.py the flat
+                 kernel's modes.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -605,7 +608,7 @@ class plain_kernels:
             lambda *a, qpb=1, hwm=None: ivf_scan.scan_select_plain(*a[:7], hwm=hwm))
         ivf_scan.ivf_scan_dense = ivf_scan.scan_dense_plain
         ivf_scan.ivf_scan_dense_int8 = (
-            lambda *a, qpb=1: ivf_scan.scan_dense_int8_plain(*a[:6]))
+            lambda *a, qpb=1, hwm=None: ivf_scan.scan_dense_int8_plain(*a[:6], hwm=hwm))
         return self
 
     def __exit__(self, *exc):
@@ -908,7 +911,7 @@ def slot_bytes(ops, stops_at_hwm, uniq_lists):
     """Bytes of the per-slot norms (or constants) and ids of the unique
     probed lists, 8 per slot: every slot for a scan that walks to pad, the
     slots below each list's hwm (and the marks themselves) for a kernel
-    that stops at the path's hwm."""
+    that stops at the path's hwm (every IVF and ADC kernel)."""
     if stops_at_hwm and ops.get("hwm") is not None:
         return int(ops["hwm"][uniq_lists].sum()) * 8 + int(uniq_lists.numel()) * 4
     return int(uniq_lists.numel()) * ops["pad"] * 8
@@ -917,8 +920,10 @@ def slot_bytes(ops, stops_at_hwm, uniq_lists):
 def ivf_bound(ops, kernel, k=None):
     """Least time for the scan on this run's operands. Bytes: the vectors of
     the live rows (id >= 0) of the unique probed lists, and the norms and ids
-    of all their slots (a padding slot is told by its id alone), each read
-    once; the queries and probes read once; the outputs written once.
+    of their slots below the path's marks (every IVF kernel stops there; a
+    padding slot is told by its id alone), each read once; the queries and
+    probes read once; the outputs written once (a dense kernel's (B,
+    nprobe * pad), the tails past the marks included).
     Operations: 2*D for each live row of each (query, probe). Returns
     (ms, what bounds it, unique lists, live share of their slots)."""
     probes = ops["probes"]
@@ -932,7 +937,7 @@ def ivf_bound(ops, kernel, k=None):
     live = int(live_per_list[uniq_lists].sum())
     live_pairs = int(live_per_list[probes.long()].sum())
     out_cols = k if kernel == "ivf_scan_select" else nprobe * pad
-    nbytes = (live * d * item + slot_bytes(ops, kernel == "ivf_scan_select", uniq_lists)
+    nbytes = (live * d * item + slot_bytes(ops, True, uniq_lists)
               + b * d * (1 if ops["kind"] == "int8" else 4) + b * 4 + b * nprobe * 4
               + b * out_cols * 8)
     n_ops = 2 * live_pairs * d
@@ -948,22 +953,22 @@ def ivf_calls(ops, kernel, k):
     yardstick gathers the probed lists and scores them with one
     torch.baddbmm (f32 product, int8 codes widened to f32), plus torch.topk
     for the select kernel; it is timed only and never called by the port.
-    The select kernel and its plain version stop at the path's hwm."""
-    p = ops["probes"]
+    Every kernel and its plain version stop at the path's hwm."""
+    p, hwm = ops["probes"], ops["hwm"]
     if ops["kind"] == "int8":
         args = (p, ops["q8"], ops["rs"], ops["codes"], ops["sqn"], ops["ids"])
-        kern = lambda: ivf_scan_cuda.ivf_scan_dense_int8(*args, qpb=8)  # noqa: E731
-        plain = lambda: ivf_scan.scan_dense_int8_plain(*args)  # noqa: E731
+        kern = lambda: ivf_scan_cuda.ivf_scan_dense_int8(*args, qpb=8, hwm=hwm)  # noqa: E731
+        plain = lambda: ivf_scan.scan_dense_int8_plain(*args, hwm=hwm)  # noqa: E731
         qv, lists, scale = ops["q8"].float() * ops["rs"][:, None], ops["codes"], ops["rs"]
         qv_sq = None
     else:
         args = (p, ops["q"], ops["q_sq"], ops["lists"], ops["sqn"], ops["ids"])
         if kernel == "ivf_scan_select":
-            kern = lambda: ivf_scan_cuda.ivf_scan_select(*args, k, hwm=ops["hwm"])  # noqa: E731
-            plain = lambda: ivf_scan.scan_select_plain(*args, k, hwm=ops["hwm"])  # noqa: E731
+            kern = lambda: ivf_scan_cuda.ivf_scan_select(*args, k, hwm=hwm)  # noqa: E731
+            plain = lambda: ivf_scan.scan_select_plain(*args, k, hwm=hwm)  # noqa: E731
         else:
-            kern = lambda: ivf_scan_cuda.ivf_scan_dense(*args)  # noqa: E731
-            plain = lambda: ivf_scan.scan_dense_plain(*args)  # noqa: E731
+            kern = lambda: ivf_scan_cuda.ivf_scan_dense(*args, hwm=hwm)  # noqa: E731
+            plain = lambda: ivf_scan.scan_dense_plain(*args, hwm=hwm)  # noqa: E731
         qv, lists, scale = ops["q"].to(ops["lists"].dtype).float(), ops["lists"], None
         qv_sq = ops["q_sq"]
     b, nprobe = p.shape
@@ -989,18 +994,19 @@ def time_ivf(ops, kernel, k, label, card):
     iters = 10
     saved = ivf_counts()
     ms = time_ms(kern, iters)
-    select = {}
+    b, nprobe = ops["probes"].shape
+    lists = ops["codes"] if ops["kind"] == "int8" else ops["lists"]
     if kernel == "ivf_scan_select":
-        b, nprobe = ops["probes"].shape
-        select = ivf_scan_cuda.select_plan(b, nprobe, ops["lists"].shape[2], k,
-                                           ops["lists"].dtype, ops["lists"].device)
+        select = ivf_scan_cuda.select_plan(b, nprobe, lists.shape[2], k, lists.dtype,
+                                           lists.device)
+    else:
+        select = ivf_scan_cuda.dense_plan(b, nprobe, ops["pad"], lists.shape[2], lists.dtype,
+                                          lists.device)
     for name, v in saved.items():        # timing launches are not the path's
         getattr(ivf_scan_cuda, name).launches = v
     plain_ms = time_ms(plain, 3)
     lib_ms = time_ms(library, iters)
     bms, by, uniq, live_share = ivf_bound(ops, kernel, k)
-    b, nprobe = ops["probes"].shape
-    lists = ops["codes"] if ops["kind"] == "int8" else ops["lists"]
     shape = {"dtype": str(lists.dtype).removeprefix("torch."), "B": b, "nprobe": nprobe,
              "nlist": lists.shape[0], "pad": ops["pad"], "D": lists.shape[2],
              "unique_lists": uniq, "live_share": live_share}
@@ -1008,10 +1014,9 @@ def time_ivf(ops, kernel, k, label, card):
         shape["k"] = k
     log(f"times {kernel} {label} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library yardstick {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}) [{card}]")
-    if select:
-        log_select_plan(kernel, label, select, card)
+    log_select_plan(kernel, label, select, card)
     return {"label": label, **shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bms, "bound_by": by, **({"select": select} if select else {})}
+            "bound_ms": bms, "bound_by": by, "select": select}
 
 
 def check_ivf_kernel(ops, kernel, k, label):
@@ -1209,10 +1214,12 @@ def time_adc(ops, kernel, k, label, card):
 
 
 def log_select_plan(kernel, label, select, card):
-    """One line on a select or ADC dense launch's grid: probe groups,
-    blocks, blocks per SM (from the occupancy query)."""
+    """One line on a select or dense launch's grid: probe groups (and an IVF
+    dense grid's row splits), blocks, blocks per SM (from the occupancy
+    query)."""
+    splits = f", {select['splits']} row splits" if "splits" in select else ""
     log(f"times {kernel} {label}: grid of {select['blocks']} blocks ({select['groups']} probe "
-        f"groups), {select['blocks_per_sm']} resident per SM on {select['sms']} SMs "
+        f"groups{splits}), {select['blocks_per_sm']} resident per SM on {select['sms']} SMs "
         f"({select['blocks'] / select['sms']:.2f} blocks per SM over the run) [{card}]")
 
 
@@ -1465,6 +1472,8 @@ def ptxas_resources(source, kernel):
 # The kernels with a (query, probe group) grid: their source and entry functions.
 GRID_KERNELS = {
     "ivf_scan_select": ("ivf_scan", ("ivf_select_kernel", "ivf_merge_kernel")),
+    "ivf_scan_dense": ("ivf_scan", ("ivf_dense_kernel",)),
+    "ivf_scan_dense_int8": ("ivf_scan", ("ivf_dense_int8_kernel",)),
     "adc_scan_select": ("adc_scan", ("adc_select_kernel", "adc_merge_kernel")),
     "adc_scan_dense[qpb=8]": ("adc_scan", ("adc_dense_kernel",)),
     "adc_scan_dense[qpb=1]": ("adc_scan", ("adc_dense_kernel",)),

@@ -4,9 +4,10 @@ against the same index on the CPU.
 
 Every test here is marked `cuda` and skips without a card (the kernels have
 no CPU mode). The select kernel splits each query's probes into groups and
-merges them; its tests force the group count (`_groups=`) and pass lists'
-high-water marks (`hwm=`), true, stale-high, zero or cutting live rows
-(which the kernel must then not read). This file imports neither jax nor
+merges them, the dense kernels split them into groups and each list's rows
+into splits; their tests force the group count (`_groups=`) and the splits
+(`_splits=`) and pass lists' high-water marks (`hwm=`), true, stale-high,
+zero or cutting live rows (which the kernels must then not read). This file imports neither jax nor
 the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_ivf_cuda.py -q
@@ -314,3 +315,133 @@ def test_select_plan_puts_two_blocks_on_every_sm(cuda):
     the grid holds at least two blocks per SM."""
     plan = ivf_scan_cuda.select_plan(128, 16, 384, 10, torch.float32, cuda)
     assert plan["blocks_per_sm"] >= 2 and plan["blocks"] >= 2 * plan["sms"]
+
+
+# -- the dense kernels' grid and high-water marks --------------------------------------------
+
+
+def _int8_lists(nlist, pad, d, b, device, seed):
+    """Random SQ8 codes with padding, their decoded norms, ids; int8
+    queries and scales."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    codes = torch.randint(-127, 128, (nlist, pad, d), generator=g, dtype=torch.int8)
+    dec = torch.rand((nlist, pad), generator=g) * 50
+    ids = torch.where(torch.rand((nlist, pad), generator=g) < 0.7,
+                      torch.arange(nlist * pad).reshape(nlist, pad), -1).to(torch.int32)
+    ids[: nlist // 4, 3:] = -1                                # underfilled lists
+    q8 = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
+    rs = torch.rand((b,), generator=g) * 0.01
+    return tuple(t.to(device) for t in (codes, dec, ids, q8, rs))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 96), (torch.bfloat16, 96),
+                                     (torch.float32, 100), (torch.float32, 384)])
+@pytest.mark.parametrize("groups", [1, 2, 7])
+@pytest.mark.parametrize("kind", ["none", "true", "stale", "zero", "cut"])
+def test_dense_groups_and_hwm_match_plain(cuda, dtype, d, groups, kind):
+    """Any probe grouping (7 probes: G of 1, 2 and nprobe) and any marks:
+    the plain version with the same marks (ids equal, distances within
+    TOL), and dense + merge_topk bit-equal to the select kernel with the
+    same marks. D = 100 takes the synchronous loader; pad 208 keeps a
+    ragged last tile."""
+    nlist, pad = 24, 208
+    lists, sqn, ids = _lists(nlist, pad, d, cuda, seed=3 * d + groups, dtype=dtype)
+    q, q_sq, probes = _queries(21, d, nlist, 7, cuda, seed=2000 + d)
+    hwm = _hwm(kind, ids, cuda, seed=d + 1)
+    before = ivf_scan_cuda.ivf_scan_dense.launches
+    dd, di = ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn, ids, hwm=hwm,
+                                          _groups=groups)
+    assert ivf_scan_cuda.ivf_scan_dense.launches == before + 1
+    pd, pi = ivf_scan.scan_dense_plain(probes, q, q_sq, lists, sqn, ids, hwm=hwm)
+    torch.cuda.synchronize()
+    assert torch.equal(di, pi)
+    assert torch.equal(torch.isinf(dd), torch.isinf(pd))
+    np.testing.assert_allclose(dd.cpu().numpy(), pd.cpu().numpy(), rtol=TOL, atol=TOL)
+    kd, ki = ivf_scan_cuda.ivf_scan_select(probes, q, q_sq, lists, sqn, ids, 10, hwm=hwm)
+    md, mi = merge_topk(dd, di, 10)
+    assert torch.equal(md, kd)
+    fin = torch.isfinite(kd)
+    assert torch.equal(mi[fin], ki[fin])
+    if kind == "zero":
+        cut = hwm[probes.long()] == 0
+        assert bool(cut.any())
+        rows = dd.reshape(21, 7, pad)[cut]
+        assert torch.isinf(rows).all() and (di.reshape(21, 7, pad)[cut] == -1).all()
+
+
+@pytest.mark.parametrize("d", [384, 100, 64])
+@pytest.mark.parametrize("groups", [1, 2, 7])
+@pytest.mark.parametrize("kind", ["none", "true", "stale", "zero", "cut"])
+def test_dense_int8_groups_and_hwm_match_plain(cuda, d, groups, kind):
+    """The int8 kernel with any grouping and any marks: bit-equal to the
+    plain version with the same marks. D = 100 (not a multiple of 16)
+    takes the synchronous word loader."""
+    nlist, pad = 20, 136
+    codes, dec, ids, q8, rs = _int8_lists(nlist, pad, d, 33, cuda, seed=d + groups)
+    _, _, probes = _queries(33, d, nlist, 7, cuda, seed=d)
+    hwm = _hwm(kind, ids, cuda, seed=d + 2)
+    before = ivf_scan_cuda.ivf_scan_dense_int8.launches
+    kd, ki = ivf_scan_cuda.ivf_scan_dense_int8(probes, q8, rs, codes, dec, ids, hwm=hwm,
+                                               _groups=groups)
+    assert ivf_scan_cuda.ivf_scan_dense_int8.launches == before + 1
+    pd, pi = ivf_scan.scan_dense_int8_plain(probes, q8, rs, codes, dec, ids, hwm=hwm)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 40])
+def test_dense_row_splits_do_not_change_results(cuda, splits):
+    """Row splits (each block takes tiles s, s + S, ... of its lists, and
+    its share of the tails) give the one-split output, bit for bit, with
+    cutting marks; 40 splits exceed the 7 tiles of a list and are cut."""
+    lists, sqn, ids = _lists(24, 208, 96, cuda, seed=11)
+    q, q_sq, probes = _queries(9, 96, 24, 5, cuda, seed=12)
+    hwm = _hwm("cut", ids, cuda, seed=13)
+    one = ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn, ids, hwm=hwm, _splits=1)
+    got = ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn, ids, hwm=hwm,
+                                       _splits=splits)
+    assert torch.equal(one[0], got[0]) and torch.equal(one[1], got[1])
+    codes, dec, ids8, q8, rs = _int8_lists(24, 208, 128, 9, cuda, seed=14)
+    one = ivf_scan_cuda.ivf_scan_dense_int8(probes, q8, rs, codes, dec, ids8, hwm=hwm,
+                                            _splits=1)
+    got = ivf_scan_cuda.ivf_scan_dense_int8(probes, q8, rs, codes, dec, ids8, hwm=hwm,
+                                            _splits=splits)
+    assert torch.equal(one[0], got[0]) and torch.equal(one[1], got[1])
+
+
+def test_dense_int8_qpb_does_not_change_keys(cuda):
+    """qpb is the JAX package's queries per grid step: 1 and 8 give equal
+    keys and ids, marks or none."""
+    codes, dec, ids, q8, rs = _int8_lists(20, 136, 384, 40, cuda, seed=21)
+    _, _, probes = _queries(40, 384, 20, 16, cuda, seed=22)
+    for hwm in (None, _hwm("true", ids, cuda)):
+        one = ivf_scan_cuda.ivf_scan_dense_int8(probes, q8, rs, codes, dec, ids, 1, hwm=hwm)
+        eight = ivf_scan_cuda.ivf_scan_dense_int8(probes, q8, rs, codes, dec, ids, 8, hwm=hwm)
+        assert torch.equal(one[0], eight[0]) and torch.equal(one[1], eight[1])
+
+
+def test_dense_kernels_reject_bad_hwm(cuda):
+    """A mark of the wrong shape, dtype or device raises before a launch."""
+    lists, sqn, ids = _lists(8, 64, 32, cuda, seed=1)
+    q, q_sq, probes = _queries(4, 32, 8, 2, cuda, seed=1)
+    codes, dec, ids8, q8, rs = _int8_lists(8, 64, 32, 4, cuda, seed=2)
+    true = _hwm("true", ids, cuda)
+    counts = (ivf_scan_cuda.ivf_scan_dense.launches, ivf_scan_cuda.ivf_scan_dense_int8.launches)
+    for bad in (true[:5], true.long(), true.cpu(), true[None, :]):
+        with pytest.raises(ValueError):
+            ivf_scan_cuda.ivf_scan_dense(probes, q, q_sq, lists, sqn, ids, hwm=bad)
+        with pytest.raises(ValueError):
+            ivf_scan_cuda.ivf_scan_dense_int8(probes, q8, rs, codes, dec, ids8, hwm=bad)
+    assert counts == (ivf_scan_cuda.ivf_scan_dense.launches,
+                      ivf_scan_cuda.ivf_scan_dense_int8.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_dense_plan_puts_two_blocks_on_every_sm(cuda, dtype):
+    """At the 1M paths' shapes (B = 128, pad 1152, D = 384; f32 at nprobe
+    3, int8 at nprobe 16) the dense grid holds at least two blocks per SM,
+    resident and over the run."""
+    nprobe = 3 if dtype == torch.float32 else 16
+    plan = ivf_scan_cuda.dense_plan(128, nprobe, 1152, 384, dtype, cuda)
+    assert plan["blocks_per_sm"] >= 2 and plan["blocks"] >= 2 * plan["sms"]
+    assert 1 <= plan["groups"] <= nprobe and plan["splits"] >= 1

@@ -647,41 +647,59 @@ def test_large_tensor_ids_stay_exact():
 # -- the high-water marks the select kernel stops at ---------------------------------------
 
 
-def test_hwm_follows_add_remove_tail_and_fold(monkeypatch):
+@pytest.mark.parametrize("route", ["select", "dense", "int8"])
+def test_hwm_follows_add_remove_tail_and_fold(monkeypatch, route):
     """Device mode: after a staging, an in-place remove_ids (holes), a tail
     add and its fold (rows appended at the marks), the hwm the index hands
-    to the select route is list_hwm of its staged ids, never the live
-    count; the select route with and without it equals the JAX package's
-    select program on the same staged lists."""
+    to its scan route (the select or dense kernel through ivf_full_search,
+    the int8 kernel of an int8 scan store through ivf_sq8_search) is
+    list_hwm of its staged ids, never the live count; the route with and
+    without it equals the JAX package's program on the same staged lists
+    (the int8 keys within 1e-6: XLA on the CPU contracts the key's product
+    and sum into one FMA, test_torch_ivf_scan.py)."""
     from c99_vectordb_tpu_torch.models import ivf_flat as tivf_mod
     from c99_vectordb_tpu_torch.models.devbuild import list_hwm
-    from c99_vectordb_tpu_torch.ops.ivf_scan import ivf_full_search
+    from c99_vectordb_tpu_torch.ops.ivf_scan import ivf_full_search, ivf_sq8_search
 
+    program = ivf_sq8_search if route == "int8" else ivf_full_search
     seen = []
 
     def spy(*args, **kw):
         seen.append(kw.get("hwm"))
-        return ivf_full_search(*args, **kw)
+        return program(*args, **kw)
 
-    monkeypatch.setattr(tivf_mod, "ivf_full_search", spy)
+    monkeypatch.setattr(tivf_mod, program.__name__, spy)
     x, ids = _unit(1500, 32, seed=11), np.arange(0, 3000, 2, dtype=np.int64)
     q = (x[::97] + 0.01).astype(np.float32)
-    idx = TIVF(dim=32, nlist=8, nprobe=3, device="cpu")
+    idx = TIVF(dim=32, nlist=8, nprobe=3, device="cpu",
+               scan_dtype="int8" if route == "int8" else "float32")
     idx.add(torch.from_numpy(x[:1000]), ids[:1000])
 
     def check(stage, holes):
         seen.clear()
-        got = idx._search(q, 10, card_route=True, scan="select")
+        got = idx._search(q, 10, card_route=True, scan=None if route == "int8" else route)
         li = idx._staged[3]
         want_hwm = list_hwm(li).to(torch.int32)
         assert len(seen) == 1 and torch.equal(seen[0], want_hwm), stage
         assert (want_hwm > (li >= 0).sum(1)).any() == holes, stage
-        cents, c_sq, lv, _, sqn, _, pad, _ = idx._staged
-        jd, ji = ivf_full_search_program(8, pad, 32, q.shape[0], 3, 10, exact=True, dense=False)(
+        cents, c_sq, lv, _, sqn, _, pad, extra = idx._staged
+        qt = torch.from_numpy(q)
+        if route == "int8":
+            _, codes, scale, dec = extra
+            jd, ji, jr = ivf_sq8_search_program(8, pad, 32, q.shape[0], 3, 40)(
+                *(jnp.asarray(t.numpy()) for t in (cents, c_sq, codes, scale, dec, li)),
+                jnp.asarray(q))
+            for hwm in (want_hwm, None):
+                td, ti, tr = ivf_sq8_search(cents, c_sq, codes, scale, dec, li, qt, 3, 40,
+                                            hwm=hwm)
+                same_up_to_ties(jd, ji, td.numpy(), ti.numpy(), tol=1e-6)
+                same_up_to_ties(jd, jr, td.numpy(), tr.numpy(), tol=1e-6)
+            return
+        dense = route == "dense"
+        jd, ji = ivf_full_search_program(8, pad, 32, q.shape[0], 3, 10, exact=True, dense=dense)(
             *(jnp.asarray(t.numpy()) for t in (cents, c_sq, lv, sqn, li)), jnp.asarray(q))
         for hwm in (want_hwm, None):
-            td, ti = ivf_full_search(cents, c_sq, lv, sqn, li, torch.from_numpy(q), 3, 10,
-                                     hwm=hwm)
+            td, ti = ivf_full_search(cents, c_sq, lv, sqn, li, qt, 3, 10, dense=dense, hwm=hwm)
             same_up_to_ties(jd, ji, td.numpy(), ti.numpy())
             np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         if idx._tail is None:

@@ -355,3 +355,151 @@ def test_probe_groups_rule(b, nprobe, max_groups, qpb, per_sm, groups):
     elif min(nprobe, 16) <= max_groups:
         assert nprobe % g == 0                                 # equal groups
         assert g == nprobe or -(-b // qpb) * g >= waves * per_sm * 132
+
+
+# -- the dense kernels' high-water marks -----------------------------------------------------
+
+
+def _padded(arrays):
+    """The staged lists (all full) with list l's last 9 * (l % 8) slots
+    turned into padding and a hole at slot 5 of every list: marks below
+    pad, live rows under them."""
+    li = arrays["li"].copy()
+    for lst in range(li.shape[0]):
+        li[lst, li.shape[1] - 9 * (lst % 8):] = -1
+    li[:, 5] = -1
+    return {**arrays, "li": li}
+
+
+def _marks(kind, li):
+    """The true marks of the staged lists (list_hwm), marks that cut live
+    rows, or 0 everywhere."""
+    from c99_vectordb_tpu_torch.models.devbuild import list_hwm
+
+    true = list_hwm(li).to(torch.int32)
+    if kind == "true":
+        return true
+    if kind == "cut":
+        return torch.clamp(true - 40, min=0).to(torch.int32)
+    return torch.zeros_like(true)
+
+
+def _dense_args(arrays, q, nprobe, route):
+    """(plain version, its operands) of the f32 or int8 dense kernel on the
+    staged lists, probed by the kernel route's probes."""
+    qt = _t(q)
+    probes = ivf_scan.coarse_probes(qt, _t(arrays["cents"]), _t(arrays["c_sq"]), nprobe)
+    if route == "int8":
+        codes, scale, dec = _sq8(arrays)
+        q8, rs = ivf_scan.sq8_stage_queries(qt, _t(scale))
+        return ivf_scan.scan_dense_int8_plain, (probes, q8, rs, _t(codes), _t(dec),
+                                                 _t(arrays["li"]))
+    return ivf_scan.scan_dense_plain, (probes, qt, (qt * qt).sum(1), _t(arrays["lv"]),
+                                       _t(arrays["sqn"]), _t(arrays["li"]))
+
+
+@pytest.mark.parametrize("route", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["true", "cut", "zero"])
+def test_dense_plain_versions_stop_at_hwm(staged, route, kind):
+    """The dense plain versions with marks: the true marks change no bit
+    (the slots past them are padding already); marks that cut live rows
+    give the output on ids_below_hwm(ids, hwm), bit for bit, with (+inf,
+    -1) past each mark; marks of 0 give all (+inf, -1)."""
+    from c99_vectordb_tpu_torch.ops.select_common import ids_below_hwm
+
+    arrays, pad, q, _ = staged
+    plain, args = _dense_args(_padded(arrays), q, 6, route)
+    li = args[-1]
+    hwm = _marks(kind, li)
+    assert (hwm < pad).any()
+    got_d, got_i = plain(*args, hwm=hwm)
+    want_d, want_i = plain(*args[:-1], ids_below_hwm(li, hwm))
+    assert torch.equal(got_d, want_d) and torch.equal(got_i, want_i)
+    cols = torch.arange(6 * pad) % pad
+    past = cols[None, :] >= hwm[args[0].long()].repeat_interleave(pad, dim=1)
+    assert torch.isinf(got_d[past]).all() and (got_i[past] == -1).all()
+    if kind == "true":
+        base_d, base_i = plain(*args)
+        assert torch.equal(got_d, base_d) and torch.equal(got_i, base_i)
+    if kind == "zero":
+        assert past.all()
+
+
+@pytest.mark.parametrize("nprobe", [3, 16])
+def test_dense_plain_with_true_marks_matches_pallas(staged, nprobe):
+    """With the true marks, the f32 dense plain version + merge_topk equals
+    the JAX dense program within TOL (ids up to ties), and the int8 plain
+    version + the exact shortlist gives the JAX int8 program's ids and
+    bucket rows, each side's keys its own rounding of the exact integer
+    dot (the module doc)."""
+    arrays, pad, q, _ = staged
+    arrays = _padded(arrays)
+    plain, args = _dense_args(arrays, q, nprobe, "f32")
+    hwm = _marks("true", args[-1])
+    assert (hwm < pad).any()
+    jd, ji = ivf_full_search_program(16, pad, 64, 8, nprobe, 10, exact=True, dense=True)(
+        *(jnp.asarray(arrays[n]) for n in ("cents", "c_sq", "lv", "sqn", "li")), jnp.asarray(q))
+    td, ti = merge_topk(*plain(*args, hwm=hwm), 10)
+    same_up_to_ties(jd, ji, td.numpy(), ti.numpy())
+    plain, args = _dense_args(arrays, q, nprobe, "int8")
+    codes, scale, dec = _sq8(arrays)
+    jd, ji, jr = ivf_sq8_search_program(16, pad, 64, 8, nprobe, 40)(
+        jnp.asarray(arrays["cents"]), jnp.asarray(arrays["c_sq"]), jnp.asarray(codes),
+        jnp.asarray(scale), jnp.asarray(dec), jnp.asarray(arrays["li"]), jnp.asarray(q))
+    d, i, pos = ivf_scan._shortlist_topk(*plain(*args, hwm=hwm), 40)
+    rows = ivf_scan._canvas_rows(pos, args[0], pad)
+    same_up_to_ties(jd, ji, d.numpy(), i.numpy(), tol=1e-6)
+    same_up_to_ties(jd, jr, d.numpy(), rows.numpy(), tol=1e-6)
+
+
+@pytest.mark.parametrize("nprobe", [3, 16])
+def test_full_search_dense_and_sq8_with_hwm_match_pallas(staged, nprobe):
+    """ivf_full_search(dense=True, hwm=) and ivf_sq8_search(hwm=) with the
+    true marks against the JAX ivf_full_search_program(dense=True) and
+    ivf_sq8_search_program; with marks of 0 every result is (inf, -1)."""
+    arrays, pad, q, _ = staged
+    arrays = _padded(arrays)
+    li = _t(arrays["li"])
+    hwm = _marks("true", li)
+    jd, ji = ivf_full_search_program(16, pad, 64, 8, nprobe, 10, exact=True, dense=True)(
+        *(jnp.asarray(arrays[n]) for n in ("cents", "c_sq", "lv", "sqn", "li")), jnp.asarray(q))
+    common = (_t(arrays["cents"]), _t(arrays["c_sq"]))
+    td, ti = ivf_scan.ivf_full_search(*common, _t(arrays["lv"]), _t(arrays["sqn"]), li, _t(q),
+                                      nprobe, 10, dense=True, hwm=hwm)
+    same_up_to_ties(jd, ji, td.numpy(), ti.numpy())
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    codes, scale, dec = _sq8(arrays)
+    sq8 = (_t(codes), _t(scale), _t(dec), li, _t(q), nprobe, 40)
+    jd, ji, jr = ivf_sq8_search_program(16, pad, 64, 8, nprobe, 40)(
+        *(jnp.asarray(a) for a in (arrays["cents"], arrays["c_sq"], codes, scale, dec,
+                                   arrays["li"], q)))
+    td, ti, tr = ivf_scan.ivf_sq8_search(*common, *sq8, hwm=hwm)
+    same_up_to_ties(jd, ji, td.numpy(), ti.numpy(), tol=1e-6)
+    same_up_to_ties(jd, jr, td.numpy(), tr.numpy(), tol=1e-6)
+    zero = torch.zeros_like(hwm)
+    zd, zi = ivf_scan.ivf_full_search(*common, _t(arrays["lv"]), _t(arrays["sqn"]), li, _t(q),
+                                      nprobe, 10, dense=True, hwm=zero)
+    assert torch.isinf(zd).all() and (zi == -1).all()
+    zd, zi, _ = ivf_scan.ivf_sq8_search(*common, *sq8, hwm=zero)
+    assert torch.isinf(zd).all() and (zi == -1).all()
+
+
+@pytest.mark.parametrize("blocks,per_sm,list_tiles,splits", [
+    (384, 2, 36, None), (2048, 7, 36, None), (1024, 2, 8, None), (640, 4, 36, None),
+    (128, 2, 1, None), (4096 * 16, 8, 36, None), (384, 2, 36, 4), (384, 2, 36, 99),
+    (384, 2, 36, 0), (1, 16, 100_000, None),
+])
+def test_row_splits_rule(blocks, per_sm, list_tiles, splits):
+    """The IVF dense grids' row splits: at least one, at most the tiles of
+    a full list; asked nothing, a full list takes at most
+    DENSE_SPLIT_TILES tiles per block, and the grid reaches SELECT_WAVES
+    waves where the lists' tiles allow it."""
+    from c99_vectordb_tpu_torch.ops import select_common as sc
+
+    s = sc.row_splits(blocks, per_sm, 132, list_tiles, splits)
+    assert 1 <= s <= min(list_tiles, 65535)
+    if splits is not None:
+        assert s == max(1, min(splits, list_tiles))
+        return
+    assert s == list_tiles or -(-list_tiles // s) <= sc.DENSE_SPLIT_TILES
+    assert s == list_tiles or blocks * s >= sc.SELECT_WAVES * per_sm * 132
