@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..constants import DIM
-from ..ops.distances import ranked_many_program, ranked_program
+from ..ops.distances import query_rows, ranked_many_program, ranked_program
 from ..ops.rerank import build_id_lookup, exact_rerank_rows, exact_rerank_staged, shortlist_depth
 from ..ops.topk import topk_program
 from ..ops.topk_cuda import fused_topk
@@ -250,21 +250,24 @@ class FlatIndex:
             out_ids = np.pad(out_ids, pad, constant_values=-1)
         return dists, out_ids
 
-    def ranked_all_device(self, query: np.ndarray):
-        """Full exact ranking, left ON DEVICE: (dists, ids_i32, n)."""
-        query = np.ascontiguousarray(query, dtype=np.float32).reshape(self.dim)
+    def ranked_rows(self) -> int:
+        """Rows of the full ranking: the staged store's padded capacity."""
+        return int(self._staged()[0].shape[0])
+
+    def ranked_all_device(self, query):
+        """Full exact ranking, left ON DEVICE: (dists, ids_i32, n). The
+        query is a numpy array or a tensor."""
         vecs, ids, valid = self._staged()[:3]
         # The store is sorted by id with its padding last (_coerce_sorted).
-        dists, out_ids = ranked_program(vecs, ids, valid, torch.from_numpy(query).to(self.device),
+        dists, out_ids = ranked_program(vecs, ids, valid,
+                                        query_rows(query, self.dim, self.device)[0],
                                         in_id_order=True)
         return dists, out_ids, self.ntotal
 
-    def ranked_many_device(self, queries: np.ndarray):
+    def ranked_many_device(self, queries):
         """Batched ranked_all_device: (dists (B, cap), ids (B, cap), n).
         Each row matches the single-query ranking for that query."""
-        q = torch.from_numpy(
-            np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim)
-        ).to(self.device)
+        q = query_rows(queries, self.dim, self.device)
         vecs, ids, valid = self._staged()[:3]
         dists, out_ids = ranked_many_program(vecs, ids, valid, q, in_id_order=True)
         return dists, out_ids, self.ntotal

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..constants import DIM
-from ..ops.distances import ranked_many_program, ranked_program, scores_via_matmul
+from ..ops.distances import query_rows, ranked_many_program, ranked_program, scores_via_matmul
 from ..ops.ivf_scan import ivf_full_search, ivf_sq8_search
 from ..ops.kmeans import assign_clusters, train_kmeans
 from ..ops.rerank import build_id_lookup, exact_rerank_rows, exact_rerank_staged, shortlist_depth
@@ -771,17 +771,21 @@ class IVFFlatIndex:
         self._ranked_cache = (vecs32, ids, ids >= 0)
         return self._ranked_cache
 
-    def ranked_all_device(self, query: np.ndarray):
-        """Full exact ranking, left ON DEVICE: (dists, ids_i32, n)."""
-        q = self._on_device(np.ascontiguousarray(query, dtype=np.float32).reshape(self.dim))
+    def ranked_rows(self) -> int:
+        """Rows of the full ranking (_ranked_staged's store)."""
+        return int(self._ranked_staged()[0].shape[0])
+
+    def ranked_all_device(self, query):
+        """Full exact ranking, left ON DEVICE: (dists, ids_i32, n). The
+        query is a numpy array or a tensor."""
         vecs, ids, valid = self._ranked_staged()
-        dists, out_ids = ranked_program(vecs, ids, valid, q)
+        dists, out_ids = ranked_program(vecs, ids, valid,
+                                        query_rows(query, self.dim, self.device)[0])
         return dists, out_ids, self.ntotal
 
-    def ranked_many_device(self, queries: np.ndarray):
+    def ranked_many_device(self, queries):
         """Batched ranked_all_device: (dists (B, cap), ids (B, cap), n)."""
-        q = self._on_device(
-            np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim))
+        q = query_rows(queries, self.dim, self.device)
         vecs, ids, valid = self._ranked_staged()
         dists, out_ids = ranked_many_program(vecs, ids, valid, q)
         return dists, out_ids, self.ntotal

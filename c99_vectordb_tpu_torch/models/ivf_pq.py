@@ -53,8 +53,8 @@ from ..ops.adc import (
     stage_codes_device,
     unstage_codes_device,
 )
-from ..ops.distances import (INT32_MAX, ranked_many_program, ranked_program, scores_via_matmul,
-                             sort_by_dist_id)
+from ..ops.distances import (INT32_MAX, query_rows, ranked_many_program, ranked_program,
+                             scores_via_matmul, sort_by_dist_id)
 from ..ops.kmeans import assign_clusters, assign_clusters_multi, train_kmeans, train_kmeans_multi
 from ..ops.rerank import build_id_lookup, exact_rerank_staged
 from ..ops.topk import merge_topk, stable_topk
@@ -1006,24 +1006,29 @@ class IVFPQIndex:
 
     # -- full ranking -----------------------------------------------------------------
 
-    def ranked_all_device(self, query: np.ndarray):
+    def ranked_rows(self) -> int | None:
+        """Rows of the full ranking (the refine store); None for pure-code
+        indexes, which have no batched ranking."""
+        return int(self._stage_refine()[0].shape[0]) if self.refine else None
+
+    def ranked_all_device(self, query):
         """Full exact ranking over the refine store, left ON DEVICE: (dists,
-        ids_i32, n). None for pure-code indexes (refine=False), whose full
-        ranking is ranked_all's ADC ranking."""
+        ids_i32, n); the query is a numpy array or a tensor. None for
+        pure-code indexes (refine=False), whose full ranking is ranked_all's
+        ADC ranking."""
         if not self.refine:
             return None
-        q = self._on_device(np.ascontiguousarray(query, dtype=np.float32).reshape(self.dim))
         vecs, _, ids, valid = self._stage_refine()
-        dists, out_ids = ranked_program(vecs.to(torch.float32), ids, valid, q)
+        dists, out_ids = ranked_program(vecs.to(torch.float32), ids, valid,
+                                        query_rows(query, self.dim, self.device)[0])
         return dists, out_ids, self.ntotal
 
-    def ranked_many_device(self, queries: np.ndarray):
+    def ranked_many_device(self, queries):
         """Batched ranked_all_device: (dists (B, cap), ids (B, cap), n); None
         for pure-code indexes."""
         if not self.refine:
             return None
-        q = self._on_device(
-            np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim))
+        q = query_rows(queries, self.dim, self.device)
         vecs, _, ids, valid = self._stage_refine()
         dists, out_ids = ranked_many_program(vecs.to(torch.float32), ids, valid, q)
         return dists, out_ids, self.ntotal
@@ -1038,8 +1043,7 @@ class IVFPQIndex:
         if self.refine:
             dists, out_ids, n = self.ranked_all_device(query)
             return dists[:n].cpu().numpy(), out_ids[:n].cpu().numpy().astype(np.int64)
-        q = self._on_device(np.ascontiguousarray(query, dtype=np.float32).reshape(1, self.dim))
-        q_adc = self._rotate_device(q)[0]
+        q_adc = self._rotate_device(query_rows(query, self.dim, self.device))[0]
         (centroids, _, codebooks, list_codes, list_ids, canvas, _, _) = self._stage()
         if list_codes is None:
             list_codes = unstage_codes_device(canvas, self.m, int(codebooks.shape[1]))

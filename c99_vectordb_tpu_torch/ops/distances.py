@@ -5,28 +5,120 @@ Score semantics contract: ascending squared L2 distance over unit vectors
 
 Two formulations:
   - `pairwise_sq_l2` uses the direct (x - q)^2 expansion — exactly
-    non-negative; it produces the printed scores of the ranking paths.
+    non-negative; it produces the printed scores of the ranking paths, so
+    it sums each row in one fixed order on every device (below).
   - `scores_via_matmul` uses ||q||^2 + ||x||^2 - 2 q.x so the dominant
     cost is one matmul — used by the batched top-k path.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
-# Working-set cap for ranked_many_program: the (b, cap) f32 distances and
-# i32 ids of one chunk of queries plus the stable sort's scratch (values
-# and int64 indices) stay under this many bytes; the batch is cut into as
-# many chunks as that takes.
+# Working-set cap for a batched full ranking: the (b, cap) f32 distances
+# and i32 ids of one chunk of queries plus the stable sort's scratch
+# (values and int64 indices) stay under this many bytes; the batch is cut
+# into as many chunks as that takes (ranked_many_chunk).
 RANKED_MANY_BUDGET_BYTES = 1 << 30
+RANKED_BYTES_PER_ROW = 4 + 4 + 4 + 8  # dists + ids + sorted values + int64 order
+
+# The summation order of pairwise_sq_l2: XLA's on the CPU, which the JAX
+# package's ranking programs run. Up to SUM_WINDOW columns are summed left
+# to right with each square fused into its add (one rounding per step);
+# wider rows are squared, summed left to right in windows of SUM_WINDOW
+# columns, and the window sums summed the same way in turn. Elementwise
+# f32 operations round alike on every device, so the CPU and the card give
+# the same bits, and those of the JAX package on its CPU backend (for
+# D <= 32 and multiples of 32, which covers the embedder's 384).
+SUM_WINDOW = 32
+# Bytes of the two slab temporaries per block of queries scored at once.
+SLAB_BYTES = 1 << 27
+
+
+def ranked_many_chunk(cap: int) -> int:
+    """Queries per chunk of a batched full ranking over `cap` rows whose
+    outputs and sort scratch stay under RANKED_MANY_BUDGET_BYTES."""
+    return max(1, RANKED_MANY_BUDGET_BYTES // (cap * RANKED_BYTES_PER_ROW))
+
+
+def query_rows(queries, dim: int, device) -> torch.Tensor:
+    """Queries, a numpy array or a tensor of shape (dim,) or (B, dim), as a
+    (B, dim) f32 tensor on `device`."""
+    if not isinstance(queries, torch.Tensor):
+        queries = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32))
+    return queries.to(device=device, dtype=torch.float32).reshape(-1, dim)
+
+
+def _window_columns(x: torch.Tensor) -> torch.Tensor:
+    """(N, D) -> (SUM_WINDOW, N, ceil(D / SUM_WINDOW)), contiguous, with
+    [j, n, w] = x[n, w * SUM_WINDOW + j] (zero past D)."""
+    pad = -x.shape[1] % SUM_WINDOW
+    if pad:
+        x = F.pad(x, (0, pad))
+    return x.reshape(x.shape[0], x.shape[1] // SUM_WINDOW, SUM_WINDOW).permute(2, 0, 1).contiguous()
+
+
+def _window_sum(x: torch.Tensor) -> torch.Tensor:
+    """(N, n) -> (N,): row sums, left to right up to SUM_WINDOW columns,
+    else in SUM_WINDOW windows whose sums are summed the same way."""
+    cols = x.T if x.shape[1] <= SUM_WINDOW else _window_columns(x)
+    acc = cols[0].clone()
+    for c in cols[1:]:
+        acc += c
+    return acc if x.shape[1] <= SUM_WINDOW else _window_sum(acc)
+
+
+def _ranking_operand(db: torch.Tensor) -> torch.Tensor:
+    """The store laid out for _sq_l2_block: its columns (D, N) up to
+    SUM_WINDOW columns, else _window_columns."""
+    if db.shape[1] <= SUM_WINDOW:
+        return db.T.contiguous()
+    return _window_columns(db)
+
+
+def _sq_l2_block(qs: torch.Tensor, db_op: torch.Tensor) -> torch.Tensor:
+    """(b, D) queries against a _ranking_operand store -> (b, N) distances.
+    Each distance takes the same elementwise steps whatever b is."""
+    b, n = qs.shape[0], db_op.shape[1]
+    if qs.shape[1] <= SUM_WINDOW:
+        # acc = fma(d, d, acc): d * d is exact in f64, so one f64 add
+        # rounded to f32 is the fused step (a double rounding differs
+        # only when the f64 sum lands on an f32 tie, ~2^-29 of steps).
+        acc = torch.zeros((b, n), dtype=torch.float32, device=db_op.device)
+        for j in range(qs.shape[1]):
+            d = (qs[:, j, None] - db_op[j][None, :]).double()
+            acc = (acc.double() + d * d).float()
+        return acc
+    # Window sums over (b, N, D / SUM_WINDOW) slabs, one column at a time:
+    # the same adds as summing the squared windowed store, in slab-sized
+    # temporaries.
+    q_op = _window_columns(qs)[:, :, None, :]
+    acc = torch.sub(q_op[0], db_op[0])
+    acc.mul_(acc)
+    sq = torch.empty_like(acc)
+    for j in range(1, SUM_WINDOW):
+        torch.sub(q_op[j], db_op[j], out=sq)
+        acc += sq.mul_(sq)
+    return _window_sum(acc.reshape(b * n, -1)).reshape(b, n)
+
+
+def _sq_l2(qs: torch.Tensor, db_op: torch.Tensor) -> torch.Tensor:
+    """_sq_l2_block over blocks of queries whose slab temporaries stay
+    near SLAB_BYTES."""
+    per_query = 2 * 4 * db_op[0].numel()
+    step = max(1, SLAB_BYTES // per_query)
+    return torch.cat([_sq_l2_block(qs[s0 : s0 + step], db_op)
+                      for s0 in range(0, qs.shape[0], step)])
 
 
 def pairwise_sq_l2(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(B, D) x (N, D) -> (B, N) exact squared L2 distances."""
-    diff = queries[:, None, :] - db[None, :, :]
-    return (diff * diff).sum(dim=-1)
+    """(B, D) x (N, D) -> (B, N) exact squared L2 distances, each row
+    summed in the fixed order described at SUM_WINDOW."""
+    return _sq_l2(queries, _ranking_operand(db))
 
 
 def scores_via_matmul(
@@ -62,8 +154,7 @@ def ranked_program(
     Returns (distances, ids), each (cap,), ascending by (distance, id);
     padding rows sort last at (+inf, int32 max). in_id_order: the caller's
     rows are ascending by id with the padding last (sort_by_dist_id)."""
-    dists = pairwise_sq_l2(query[None, :], db)[0]
-    dists = torch.where(valid, dists, torch.inf)
+    dists = torch.where(valid, pairwise_sq_l2(query[None, :], db)[0], torch.inf)
     return sort_by_dist_id(dists, torch.where(valid, ids, INT32_MAX), in_id_order)
 
 
@@ -80,12 +171,11 @@ def ranked_many_program(
     b, cap = queries.shape[0], db.shape[0]
     out_d = torch.empty((b, cap), dtype=torch.float32, device=db.device)
     out_i = torch.empty((b, cap), dtype=torch.int32, device=db.device)
-    per_query = cap * (4 + 4 + 4 + 8)  # dists + ids + sorted values + int64 order
-    chunk = max(1, RANKED_MANY_BUDGET_BYTES // per_query)
+    chunk = ranked_many_chunk(cap)
     tie_ids = torch.where(valid, ids, INT32_MAX)
+    db_op = _ranking_operand(db)
     for s0 in range(0, b, chunk):
-        qs = queries[s0 : s0 + chunk]
-        dists = torch.stack([pairwise_sq_l2(q[None, :], db)[0] for q in qs])
+        dists = _sq_l2(queries[s0 : s0 + chunk], db_op)
         dists = torch.where(valid[None, :], dists, torch.inf)
         out_d[s0 : s0 + chunk], out_i[s0 : s0 + chunk] = sort_by_dist_id(
             dists, tie_ids, in_id_order)

@@ -152,10 +152,12 @@ def _looks_like_faiss(path: Path) -> bool:
     )
 
 
-def load_index_or_fresh(path: Path, dim: int = DIM, fresh_factory=None, device=None) -> Any:
+def load_index_or_fresh(path: Path, dim: int = DIM, verbose_log=None, fresh_factory=None,
+                        device=None) -> Any:
     """Load an index, silently substituting a fresh empty index when the
     file is missing or unreadable (reference recovery semantics).
-    fresh_factory overrides the default FlatIndex for the empty case.
+    fresh_factory overrides the default FlatIndex for the empty case;
+    verbose_log (the CLI's -v) is told of an unreadable non-FAISS file.
     A file of a kind the port does not have yet raises NotImplementedError.
 
     One deliberate loudness exception (VERDICT round 2, missing #1): a
@@ -188,4 +190,6 @@ def load_index_or_fresh(path: Path, dim: int = DIM, fresh_factory=None, device=N
                 "'reindex' to rebuild it from the YAML records.",
                 file=sys.stderr,
             )
+        elif verbose_log is not None:
+            verbose_log(f"Index file '{path}' unreadable; starting fresh (reindex to rebuild)")
         return fresh()

@@ -28,8 +28,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The torch.device an entry point runs on (see the module docstring)."""
     if device is None:
         device = os.environ.get("C99VDB_PLATFORM", "").strip().lower() or "cuda"
-    dev = torch.device(device)
-    if dev.type not in ("cpu", "cuda"):
+    try:
+        dev = torch.device(device)
+    except RuntimeError:  # not a device name torch knows ("auto", "tpu")
+        dev = None
+    if dev is None or dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device '{device}' (expected cpu or cuda)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

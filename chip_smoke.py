@@ -60,7 +60,17 @@ Phases (any failure raises and exits non-zero; none is caught):
                  phase 7; queries whose card and CPU routes probe different
                  lists or shortlist different ids are counted (<= 1%) and
                  skipped.
-  9. times       every kernel, its plain version and a library yardstick
+  9. cli         the memo CLI: ./memo-torch in subprocesses on phase 4's
+                 100,000 notes, every verb (save; recall -k 10, with --filter,
+                 with --yaml; serve; serve --batch 128; analyze; reindex;
+                 clean) on the card and with C99VDB_PLATFORM=cpu on a copy of
+                 the same files: equal rc, stdout, stderr and files, byte for
+                 byte; reindex with ivf_flat and ivf_pq on the card and serve
+                 --batch from its files on both; the launcher without a
+                 visible card (one Error line, exit 1); one serve --batch in
+                 this process (its peak device memory holds the store). The
+                 CLI ranks with plain torch: no kernel is on its path.
+ 10. times       every kernel, its plain version and a library yardstick
                  (never used by the port) beside the bound, on the paths' own
                  operands (every IVF and ADC kernel with the path's
                  high-water marks; scan and merge timed as one call), and the
@@ -93,6 +103,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 from c99_vectordb_tpu_torch.api import MemoDB
 from c99_vectordb_tpu_torch.commands import auto_nlist
@@ -1440,6 +1451,231 @@ def phase_memodb_ivf_pq(device, n_records, seed, workdir, card):
              "swaps": stats["swaps"]}, ops)
 
 
+# -- phase cli: the memo CLI at 100k notes, on the card against the CPU ------------------
+
+CLI = Path(__file__).resolve().parent / "memo-torch"
+
+
+def save_input(records) -> str:
+    """The notes as the multi-doc YAML that `save` reads."""
+    out = []
+    for r in records:
+        m = r.get("metadata")
+        meta = (f"metadata: {{source: {m['source']}, priority: {m['priority']}, "
+                f"topic: {m['topic']}}}\n" if m else "")
+        out.append(f"---\n{meta}body: {r['body']}\n")
+    return "".join(out)
+
+
+def run_cli(jobs):
+    """Run (side, side dir, argv, stdin, env) jobs of ./memo-torch at once,
+    each in its side's directory; returns [(rc, stdout, stderr, seconds)]
+    with the side's directory in the output replaced by <dir>."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(job):
+        _, cwd, argv, stdin, env = job
+        t0 = time.perf_counter()
+        p = subprocess.run([str(CLI), *argv], input=stdin, capture_output=True, text=True,
+                           cwd=cwd, env=env, timeout=600)
+        seconds = time.perf_counter() - t0
+        return (p.returncode, p.stdout.replace(str(cwd), "<dir>"),
+                p.stderr.replace(str(cwd), "<dir>"), seconds)
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(one, jobs))
+
+
+def same_output(label, card, cpu):
+    """The card's (rc, stdout, stderr) equals the CPU's, byte for byte."""
+    if card[:3] != cpu[:3]:
+        g, c = card[1].splitlines(), cpu[1].splitlines()
+        differing = sum(a != b for a, b in zip(g, c)) + abs(len(g) - len(c))
+        raise AssertionError(
+            f"cli {label}: card and CPU differ (rc {card[0]} vs {cpu[0]}; {differing} of "
+            f"{max(len(g), len(c))} stdout lines; stderr {card[2][:200]!r} vs {cpu[2][:200]!r})")
+    assert card[0] == 0 and card[2] == "", f"cli {label}: rc {card[0]}, stderr {card[2][:300]!r}"
+    return card[1]
+
+
+def same_files(label, gdir, cdir, names=("notes.yaml", "notes.memo")):
+    for name in names:
+        assert (gdir / name).read_bytes() == (cdir / name).read_bytes(), (
+            f"cli {label}: {name} differs between the card's and the CPU's run")
+
+
+def phase_cli(n_records, seed, workdir, card):
+    """The memo CLI through ./memo-torch in subprocesses at `n_records`
+    notes (phase 4's corpus): every verb on the card (C99VDB_PLATFORM unset)
+    and with C99VDB_PLATFORM=cpu on a copy of the same files; their (rc,
+    stdout, stderr) and files must be equal. Steps that only read run at
+    the same time (12 to 16 processes), the others in card/CPU pairs. Then
+    reindex with ivf_flat and ivf_pq on the card, and serve --batch from
+    the card's files on both; the launcher without a visible card; one
+    serve --batch in this process on the card."""
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    from c99_vectordb_tpu_torch import cli as torch_cli
+
+    records, queries = synthetic_notes(n_records, seed)
+    gdir, cdir = workdir / "gpu", workdir / "cpu"
+    for d in (gdir, cdir):
+        d.mkdir()
+        (d / "notes_in.yaml").write_text(save_input(records))
+    env_card = {k: v for k, v in os.environ.items()
+                if k not in ("C99VDB_PLATFORM", "C99VDB_INDEX")}
+    env_cpu = dict(env_card, C99VDB_PLATFORM="cpu")
+    times: dict[str, dict] = {}
+
+    def note_time(verb, side, seconds, at_once):
+        entry = times.setdefault(verb, {"card": [], "cpu": [], "at_once": at_once})
+        entry[side].append(seconds)
+
+    def both(steps, dirs=(gdir, cdir)):
+        """Run every (label, argv, stdin) step on the card (in dirs[0]) and
+        on the CPU (in dirs[1]), all at once; hold each card result equal to
+        the CPU's and return the card's stdout of each step."""
+        jobs = [job for _, argv, stdin in steps
+                for job in (("card", dirs[0], argv, stdin, env_card),
+                            ("cpu", dirs[1], argv, stdin, env_cpu))]
+        results = run_cli(jobs)
+        outs = []
+        for i, (label, _, _) in enumerate(steps):
+            card_out, cpu_out = results[2 * i], results[2 * i + 1]
+            note_time(label.split()[0], "card", card_out[3], len(jobs))
+            note_time(label.split()[0], "cpu", cpu_out[3], len(jobs))
+            outs.append(same_output(label, card_out, cpu_out))
+        return outs
+
+    f = ["-f", "notes"]
+    single_in = "\n".join(queries[:16]) + "\n"
+    stream = "\n".join(queries[:100]) + "\n\n" + "\n".join(queries[100:128]) + "\n"
+    out, = both([("save", [*f, "save", "notes_in.yaml"], None)])
+    assert out.count("Memorized: ") == n_records
+    same_files("save", gdir, cdir)
+    shutil.copy2(gdir / "notes.yaml", workdir / "notes.yaml")
+    reads = (
+        [(f"recall -k 10 #{i}", [*f, "recall", "-k", "10", q], None)
+         for i, q in enumerate(queries[:2])]
+        + [(f"recall --filter #{i}", [*f, "recall", "-k", "10", "--filter", "{source: user}", q],
+            None) for i, q in enumerate(queries[2:4])]
+        + [(f"recall --yaml #{i}", [*f, "recall", "--yaml", "-k", "10", q], None)
+           for i, q in enumerate(queries[4:6])]
+        + [("analyze table", [*f, "analyze", "--filter", "{source: user}"], None),
+           ("analyze --stats", [*f, "analyze", "--filter", "{}", "--stats", "priority"], None)])
+    outs = both(reads)
+    assert all(o.startswith("Top 10 results:\n") and o.count("] Score: ") == 10
+               for o in outs[:4])
+    assert all(len(yaml.safe_load(o)["results"]) == 10 for o in outs[4:6])
+    assert outs[6].startswith("Matched: ") and "Range (numeric):" in outs[7]
+    single, batched = both([
+        ("serve -k 10", [*f, "serve", "-k", "10"], single_in),
+        ("serve --batch 128", [*f, "serve", "--batch", "128", "-k", "10"], stream)])
+    assert single.count("Top 10 results:") == 16
+    assert batched.count("Top 10 results:") == 128 and batched.startswith(single)
+    # Where a recall's time goes: its -v stage lines (timings blanked for
+    # the comparison), and a process that only imports torch and wakes the card.
+    verbose = run_cli([(side, d, [*f, "-v", "recall", "-k", "10", queries[0]], None, env)
+                       for side, d, env in (("card", gdir, env_card), ("cpu", cdir, env_cpu))])
+    blank = [(rc, out, re.sub(r"(\[timing\] [^:\n]+: )[0-9.]+ ms", r"\1<ms> ms", err), t)
+             for rc, out, err, t in verbose]
+    assert blank[0][:3] == blank[1][:3], f"cli -v recall: {blank[0][2]!r} vs {blank[1][2]!r}"
+    assert blank[0][0] == 0 and blank[0][1] == outs[0], "cli -v recall differs from recall"
+    for side, res in zip(("card", "cpu"), verbose):
+        log(f"cli -v recall on the {side}: {res[3]:.2f} s wall; "
+            + "; ".join(res[2].strip().splitlines()))
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch; torch.zeros(1, device='cuda')"],
+                   check=True, env=env_card)
+    log(f"cli: a process that imports torch and wakes the card: "
+        f"{time.perf_counter() - t0:.2f} s wall [{card}]")
+    out, = both([("reindex", [*f, "reindex"], None)])
+    assert out == "Rebuilt index from notes.yaml\nWrote index: notes.memo\n"
+    same_files("reindex", gdir, cdir)
+    out, = both([("clean", [*f, "clean"], None)])
+    assert out.startswith("Cleared memory database (<dir>/notes.memo")
+    log(f"cli flat: save, recall (-k 10, --filter, --yaml), serve (16 queries), serve "
+        f"--batch 128 (100 + 28 queries), analyze (table, --stats), reindex, clean: the "
+        f"card's rc, stdout and stderr equal the CPU run's byte for byte, and so do the "
+        f"files ({n_records} notes)")
+
+    # ivf_flat and ivf_pq: reindex on the card (both at once), then serve
+    # --batch from the card's files on the card and on the CPU (all four at once).
+    kinds = ("ivf_flat", "ivf_pq")
+    dirs = {kind: (workdir / kind / "gpu", workdir / kind / "cpu") for kind in kinds}
+    for kind in kinds:
+        for d in dirs[kind]:
+            d.mkdir(parents=True)
+        shutil.copy2(workdir / "notes.yaml", dirs[kind][0] / "notes.yaml")
+    built = run_cli([("card", dirs[kind][0], [*f, "-v", "reindex"], None,
+                      dict(env_card, C99VDB_INDEX=kind)) for kind in kinds])
+    for kind, res in zip(kinds, built):
+        assert res[0] == 0 and f"Rebuilt index with {n_records} vectors" in res[2], (
+            f"cli {kind} reindex: rc {res[0]}, stderr {res[2][:300]!r}")
+        note_time(f"reindex[{kind}]", "card", res[3], len(kinds))
+        for p in dirs[kind][0].iterdir():
+            shutil.copy2(p, dirs[kind][1] / p.name)
+        assert read_index(dirs[kind][0] / "notes.memo", device="cpu").kind == kind
+    jobs = [job for kind in kinds
+            for job in (("card", dirs[kind][0], [*f, "serve", "--batch", "128", "-k", "10"],
+                         stream, env_card),
+                        ("cpu", dirs[kind][1], [*f, "serve", "--batch", "128", "-k", "10"],
+                         stream, env_cpu))]
+    served = run_cli(jobs)
+    for i, kind in enumerate(kinds):
+        out = same_output(f"serve[{kind}] --batch 128", served[2 * i], served[2 * i + 1])
+        note_time(f"serve[{kind}]", "card", served[2 * i][3], len(jobs))
+        note_time(f"serve[{kind}]", "cpu", served[2 * i + 1][3], len(jobs))
+        assert out == batched, f"cli {kind}: serve --batch differs from the flat index's"
+        log(f"cli {kind}: reindex on the card (nlist {auto_nlist(n_records)}); serve "
+            f"--batch 128 from its files equals the CPU run's byte for byte and the flat "
+            f"index's output")
+    pq_dir = dirs["ivf_pq"][0]
+
+    no_card, = run_cli([("card", pq_dir, [*f, "recall", "tea"], None,
+                         dict(env_card, CUDA_VISIBLE_DEVICES=""))])
+    assert no_card[0] == 1 and no_card[1] == "", no_card[:3]
+    assert no_card[2].count("\n") == 1 and no_card[2].startswith("Error: "), no_card[2]
+    log(f"cli without a visible card: exit 1, one stderr line: {no_card[2].strip()}")
+
+    # One serve --batch in this process, on the card: the store lives there
+    # (the peak is counted above what earlier phases still hold).
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    old = {k: os.environ.pop(k, None) for k in ("C99VDB_PLATFORM", "C99VDB_INDEX")}
+    cwd, stdin = os.getcwd(), sys.stdin
+    buf = io.StringIO()
+    try:
+        os.chdir(pq_dir)
+        sys.stdin = io.StringIO(stream)
+        with redirect_stdout(buf):
+            rc = torch_cli.main(["memo", *f, "serve", "--batch", "128", "-k", "10"])
+    finally:
+        os.chdir(cwd)
+        sys.stdin = stdin
+        os.environ.update({k: v for k, v in old.items() if v is not None})
+    peak = torch.cuda.max_memory_allocated() - held
+    store_bytes = n_records * 384 * 4
+    assert rc == 0 and buf.getvalue() == batched, "cli in-process serve --batch differs"
+    assert peak > store_bytes, f"cli: peak device memory {peak} <= store {store_bytes}"
+    launches = {"fused_l2_topk": topk_cuda.fused_l2_topk.launches, **ivf_counts(),
+                **adc_counts()}
+    log(f"cli in-process serve --batch 128 (ivf_pq files): equal output; peak device memory "
+        f"above the {held / 2**20:.1f} MiB held before it {peak / 2**20:.1f} MiB > the store's "
+        f"{store_bytes / 2**20:.1f} MiB; kernel launches "
+        f"{launches} (the CLI ranks with plain torch)")
+
+    for verb, sides in times.items():
+        card_s = ", ".join(f"{t:.2f}" for t in sides["card"])
+        cpu_s = ", ".join(f"{t:.2f}" for t in sides["cpu"]) or "-"
+        log(f"cli {verb}: card {card_s} s, cpu {cpu_s} s (wall, per process; "
+            f"{sides['at_once']} processes at once) [{card}]")
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -1611,6 +1847,12 @@ def main() -> int:
     log(f"phase memodb_ivf_pq: {time.perf_counter() - t0:.1f} s, kernel launches "
         f"{memo_pq_launches}")
     pq_ops.append(("memodb_ivf_pq", "adc_scan_select", 40, memo_pq_ops))
+
+    # 9. the memo CLI on the card against the CPU (no kernel on its path)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=str(Path.cwd())) as tmp:
+        phase_cli(100_000, args.seed, Path(tmp), card)
+    log(f"phase cli: {time.perf_counter() - t0:.1f} s")
     adc_errs = {}
     for label, kernel, k, ops in pq_ops:
         name = kernel if kernel == "adc_scan_select" else f"adc_scan_dense[qpb={ops['qpb']}]"
@@ -1631,7 +1873,7 @@ def main() -> int:
             note_errs(ivf_errs, {kernel: check_ivf_kernel(ops, kernel, k, f"{kernel} {label}")})
             log(f"{kernel} {label}: agrees with plain on the path's own operands")
 
-    # 9. times
+    # 10. times
     t0 = time.perf_counter()
     main_row = time_case(*main_inputs, card)
     rows = [main_row] + phase_times(device, n_kernel, d, (128, 1024), 20, args.seed, card)
