@@ -11,7 +11,8 @@ Layer map:
   - ops/       torch compute (embed, distances, top-k, rerank) and the
                hand-written CUDA fused L2 top-k kernel (ops/topk_cuda.py,
                csrc/fused_l2_topk.cu)
-  - models/    index families: Flat (exact)
+  - models/    index families: Flat (exact), IVF-Flat, IVF-PQ
+  - parallel/  rank meshes over torch.distributed and the sharded flat index
   - api.py     the embedded MemoDB serving surface
 """
 

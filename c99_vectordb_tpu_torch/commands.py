@@ -90,14 +90,20 @@ def make_index(corpus_size: int | None = None, device=None):
     the caller knows the corpus size, else 64), C99VDB_NPROBE (8),
     C99VDB_PAD_CAP; for ivf_flat C99VDB_RERANK_DTYPE = float32 | bfloat16;
     for ivf_pq C99VDB_PQ_M (8), C99VDB_PQ_KSUB (256, or 16 for nibble-packed
-    4-bit codes) and C99VDB_OPQ (on unless empty, 0 or false). The JAX
-    package's sharded families are not ported yet and raise."""
+    4-bit codes) and C99VDB_OPQ (on unless empty, 0 or false).
+    sharded_flat (float32 or int8 scan store) shards over the world's ranks
+    (parallel/mesh.default_data_mesh: one rank without a process group);
+    the other sharded kinds are not ported yet and raise."""
     kind = os.environ.get("C99VDB_INDEX", "flat").strip().lower()
     scan_dtype = os.environ.get("C99VDB_SCAN_DTYPE", "float32").strip() or "float32"
     if kind == "flat":
         from .models.flat import FlatIndex
 
         return FlatIndex(dim=DIM, scan_dtype=scan_dtype, device=device)
+    if kind == "sharded_flat":
+        from .parallel.sharded import ShardedFlatIndex
+
+        return ShardedFlatIndex(dim=DIM, scan_dtype=scan_dtype, device=device)
     nlist_env = os.environ.get("C99VDB_NLIST", "").strip()
     if nlist_env:
         nlist = int(nlist_env)

@@ -1,0 +1,9 @@
+from .mesh import default_data_mesh, make_host_chip_mesh, make_mesh  # noqa: F401
+from .sharded import (  # noqa: F401
+    ShardedFlatIndex,
+    sharded_search_2d,
+    sharded_search_2level,
+    sharded_search_kernels,
+    sharded_search_program,
+    sharded_search_sq8_kernels,
+)

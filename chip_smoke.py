@@ -65,8 +65,8 @@ Phases (any failure raises and exits non-zero; none is caught):
                  with --yaml; serve; serve --batch 128; analyze; reindex;
                  clean) on the card and with C99VDB_PLATFORM=cpu on a copy of
                  the same files: equal rc, stdout, stderr and files, byte for
-                 byte; reindex with ivf_flat and ivf_pq on the card and serve
-                 --batch from its files on both; the launcher without a
+                 byte; reindex with ivf_flat, ivf_pq and sharded_flat (one
+                 rank) on the card and serve --batch from its files on both; the launcher without a
                  visible card (one Error line, exit 1); one serve --batch in
                  this process (its peak device memory holds the store). The
                  CLI ranks with plain torch: no kernel is on its path.
@@ -83,6 +83,17 @@ Phases (any failure raises and exits non-zero; none is caught):
                  select and IVF dense kernels at other group counts and in
                  diagnostic builds, tools/flat_mma_breakdown.py the flat
                  kernel's modes.
+ 11. sharded     (runs after phase 6, on phase 3's corpus) ShardedFlatIndex
+                 (parallel/sharded.py) at 1M x 384, f32 and int8 stores, B=128,
+                 k=10: at W = 1 in this process (no process group) and at
+                 W = 2 (two processes on cuda:0 under gloo, 500,000 rows a
+                 rank), unfiltered and with phase 3's 10% id_mask, then a
+                 10,000-row tail add, remove_ids and a restage: strict
+                 recall@10 = 1.0 against the float64 ground truth, ids equal
+                 to phase 3's FlatIndex and across W; the flat kernel launched
+                 in modes float32 and int8 on each run's path; on every rank,
+                 the kernel against its plain version on that rank's shard;
+                 host-clock search ms per W (informative).
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -118,6 +129,7 @@ from c99_vectordb_tpu_torch.ops.distances import scores_via_matmul
 from c99_vectordb_tpu_torch.ops.embed import embed_texts, embed_texts_device
 from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
 from c99_vectordb_tpu_torch.ops.rerank import exact_rerank_rows, shortlist_depth
+from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex
 from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 # Published H100 SXM figures (NVIDIA data sheet): bytes/s and dense
@@ -336,6 +348,7 @@ def phase_flat(device, n, d, seed, card):
             f"B=128 search {t_search * 1e3:.2f} ms host clock, kernel launches {launched} "
             f"[{card}]")
         out[dt] = t_search
+        out[f"{dt}_results"] = (got_d, got_i, gm_d, gm_i)
         if dt == "int8":
             # The same SQ8 store through fused_topk(q_int8=False): bf16
             # queries against the codes decoded to bf16, then the exact rerank.
@@ -1510,7 +1523,7 @@ def phase_cli(n_records, seed, workdir, card):
     and with C99VDB_PLATFORM=cpu on a copy of the same files; their (rc,
     stdout, stderr) and files must be equal. Steps that only read run at
     the same time (12 to 16 processes), the others in card/CPU pairs. Then
-    reindex with ivf_flat and ivf_pq on the card, and serve --batch from
+    reindex with ivf_flat, ivf_pq and sharded_flat on the card, and serve --batch from
     the card's files on both; the launcher without a visible card; one
     serve --batch in this process on the card."""
     import io
@@ -1601,9 +1614,10 @@ def phase_cli(n_records, seed, workdir, card):
         f"card's rc, stdout and stderr equal the CPU run's byte for byte, and so do the "
         f"files ({n_records} notes)")
 
-    # ivf_flat and ivf_pq: reindex on the card (both at once), then serve
-    # --batch from the card's files on the card and on the CPU (all four at once).
-    kinds = ("ivf_flat", "ivf_pq")
+    # ivf_flat, ivf_pq and sharded_flat: reindex on the card (all at once),
+    # then serve --batch from the card's files on the card and on the CPU
+    # (all six at once).
+    kinds = ("ivf_flat", "ivf_pq", "sharded_flat")
     dirs = {kind: (workdir / kind / "gpu", workdir / kind / "cpu") for kind in kinds}
     for kind in kinds:
         for d in dirs[kind]:
@@ -1629,9 +1643,9 @@ def phase_cli(n_records, seed, workdir, card):
         note_time(f"serve[{kind}]", "card", served[2 * i][3], len(jobs))
         note_time(f"serve[{kind}]", "cpu", served[2 * i + 1][3], len(jobs))
         assert out == batched, f"cli {kind}: serve --batch differs from the flat index's"
-        log(f"cli {kind}: reindex on the card (nlist {auto_nlist(n_records)}); serve "
-            f"--batch 128 from its files equals the CPU run's byte for byte and the flat "
-            f"index's output")
+        built_as = "one rank" if kind == "sharded_flat" else f"nlist {auto_nlist(n_records)}"
+        log(f"cli {kind}: reindex on the card ({built_as}); serve --batch 128 from its files "
+            f"equals the CPU run's byte for byte and the flat index's output")
     pq_dir = dirs["ivf_pq"][0]
 
     no_card, = run_cli([("card", pq_dir, [*f, "recall", "tea"], None,
@@ -1674,6 +1688,190 @@ def phase_cli(n_records, seed, workdir, card):
         cpu_s = ", ".join(f"{t:.2f}" for t in sides["cpu"]) or "-"
         log(f"cli {verb}: card {card_s} s, cpu {cpu_s} s (wall, per process; "
             f"{sides['at_once']} processes at once) [{card}]")
+
+
+# -- phase sharded: ShardedFlatIndex at 1M x 384, one rank and two --------------------
+
+SHARDED_WORLD = 2           # ranks of the multi-rank run, all on cuda:0 under gloo
+SHARDED_TIMEOUT_S = 600     # the ranks' join timeout (a hang fails the phase)
+
+
+def sharded_corpus(seed):
+    """Phase 3's corpus and mask (the same draws), and phase 5's 10,000
+    tail rows."""
+    x, q, rng = clustered_corpus(1_000_000, 384, seed)
+    mask = rng.random(x.shape[0]) < 0.10
+    extra, _, _ = clustered_corpus(10_000, 384, seed + 5)
+    return x, q, mask, extra
+
+
+def run_sharded(mesh, x, q, mask, extra):
+    """ShardedFlatIndex's path on `mesh`, for the f32 and int8 stores:
+    B = 128, k = 10 search, unfiltered and with `mask`; a tail add of
+    `extra`, remove_ids of every 997th id (which folds the tail), and a
+    forced restage. Counts are reset before and read after the path; then
+    the flat kernel is held against its plain version on this rank's shard
+    (its first staging's operands). Returns {dtype: {step: (dists, ids)},
+    "search_ms": {dtype: ms}, "launches": by mode, "kernel_err": {dtype:
+    max |key diff|}, "per": {dtype: rows of this rank's shard}}."""
+    n = x.shape[0]
+    ids = np.arange(n, dtype=np.int64)
+    out = {"search_ms": {}, "per": {}}
+    checks = {}
+    reset_counts()
+    for dt in ("float32", "int8"):
+        index = ShardedFlatIndex(dim=x.shape[1], scan_dtype=dt, mesh=mesh)
+        index.add(x, ids)
+        index.search(q[:1], 10)                  # stage
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = index.search(q, 10)
+        torch.cuda.synchronize()
+        out["search_ms"][dt] = (time.perf_counter() - t0) * 1e3
+        steps = {"unfiltered": got, "10% id_mask": index.search(q, 10, id_mask=mask)}
+        staged = index._stage()
+        out["per"][dt] = int(staged[0].shape[0])
+        qd = torch.from_numpy(q).to(staged[0].device)
+        ks = min(shortlist_depth(10, n), staged[0].shape[0])
+        if dt == "int8":
+            q_st, rs = topk_cuda.stage_queries(qd * staged[5], torch.int8)
+            checks[dt] = (q_st, staged[3], staged[4], ks, rs)
+        else:
+            q_st, rs = topk_cuda.stage_queries(qd, torch.float32)
+            checks[dt] = (q_st, staged[0], staged[2], ks, rs)
+        index.add(extra, np.arange(n, n + extra.shape[0]))
+        assert index._tail is not None and index._tail.count == extra.shape[0]
+        steps["tail"] = index.search(q, 10)
+        removed = index.remove_ids(np.arange(0, n, 997))
+        assert removed == len(range(0, n, 997)) and index._tail is None
+        steps["after remove"] = index.search(q, 10)
+        index._restage_needed = True
+        steps["restaged"] = index.search(q, 10)
+        out[dt] = steps
+        del index, staged
+        torch.cuda.empty_cache()
+    out["launches"] = dict(topk_cuda.fused_l2_topk.launches_by_mode)
+    out["kernel_err"] = {dt: check_selection(*ops, exact=dt == "int8",
+                                             label=f"sharded {dt} shard operands")
+                         for dt, ops in checks.items()}
+    return out
+
+
+def sharded_rank(args) -> int:
+    """One rank of phase sharded's multi-rank run (a child process):
+    regenerates the corpus from the seed, runs run_sharded on the world's
+    data mesh, and writes rank 0's results (every rank's ids) to --out."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    from c99_vectordb_tpu_torch.parallel import default_data_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{args.store}", rank=args.sharded_rank,
+                            world_size=args.world,
+                            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        x, q, mask, extra = sharded_corpus(args.seed)
+        res = run_sharded(default_data_mesh(torch.device("cuda", 0)), x, q, mask, extra)
+        with open(Path(args.out) / f"rank{args.sharded_rank}.pkl", "wb") as fh:
+            pickle.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(device, seed, card, flat_results, corpus):
+    """ShardedFlatIndex on phase 3's 1M x 384 corpus at W = 1 (this process,
+    no process group) and W = 2 (two processes on cuda:0 under gloo, 500,000
+    rows a rank): strict recall@10 = 1.0 against the float64 ground truth,
+    ids equal to phase 3's FlatIndex, the tail, removal and restage against
+    the ground truth of their rows; W = 2's ids equal W = 1's. Returns
+    (summary, W = 1 launches by mode, W = 2 launches, kernel errors)."""
+    import pickle
+
+    from c99_vectordb_tpu_torch.parallel import default_data_mesh
+
+    x, q, mask, gt_i, gtm_i = corpus
+    extra = clustered_corpus(10_000, x.shape[1], seed + 5)[0]
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    one = run_sharded(default_data_mesh(device), x, q, mask, extra)
+    log(f"sharded W=1: {time.perf_counter() - t0:.1f} s, launches {one['launches']}")
+    # The multi-rank run: spawned now, on the same card.
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_", dir=str(Path.cwd())))
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+             "--sharded-rank", str(r), "--world", str(SHARDED_WORLD),
+             "--store", str(workdir / "store"), "--out", str(workdir)],
+            stdout=(workdir / f"log{r}").open("w"), stderr=subprocess.STDOUT)
+            for r in range(SHARDED_WORLD)]
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=SHARDED_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                for other in procs:
+                    other.kill()
+                rcs.append("timeout")
+        for r, rc in enumerate(rcs):
+            assert rc == 0, f"sharded rank {r}: rc {rc}\n" + (
+                workdir / f"log{r}").read_text()[-4000:]
+        ranks = []
+        for r in range(SHARDED_WORLD):
+            with open(workdir / f"rank{r}.pkl", "rb") as fh:
+                ranks.append(pickle.load(fh))
+        log(f"sharded W={SHARDED_WORLD}: {time.perf_counter() - t0:.1f} s in "
+            f"{SHARDED_WORLD} processes, launches {ranks[0]['launches']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    two = ranks[0]
+
+    # Ground truth of the tail's and the removal's rows.
+    x_all = np.concatenate([x, extra])
+    x64 = torch.from_numpy(x_all).to(device, torch.float64)
+    keep = torch.ones(x_all.shape[0], dtype=torch.bool, device=device)
+    keep[torch.arange(0, n, 997, device=device)] = False
+    gt = {"tail": ground_truth(x64, q, 10), "after remove": ground_truth(x64, q, 10, keep)}
+    del x64
+    gt["restaged"] = gt["after remove"]
+    summary = {"search_ms": {1: one["search_ms"], SHARDED_WORLD: two["search_ms"]},
+               "per": {1: one["per"], SHARDED_WORLD: two["per"]}}
+    for dt in ("float32", "int8"):
+        fd, fi, fmd, fmi = flat_results[dt]
+        for step, (gd, gi) in one[dt].items():
+            if step in ("unfiltered", "10% id_mask"):
+                want_d, want_i = (fd, fi) if step == "unfiltered" else (fmd, fmi)
+                assert np.array_equal(gi, want_i), f"sharded {dt} {step}: ids differ from FlatIndex"
+                assert np.abs(gd - want_d).max() <= SCORE_TOL, f"sharded {dt} {step}: distances"
+                truth = gt_i if step == "unfiltered" else gtm_i
+            else:
+                wd, truth = gt[step]
+                assert np.abs(gd - wd).max() <= 1e-5, f"sharded {dt} {step}: distances"
+            rec = recall_at(gi, truth)
+            assert rec == 1.0, f"sharded {dt} {step}: recall@10 {rec}"
+            for r, res in enumerate(ranks):
+                od, oi = res[dt][step]
+                assert np.array_equal(oi, gi), (
+                    f"sharded {dt} {step}: rank {r} of W={SHARDED_WORLD} differs from W=1")
+                assert np.abs(od - gd).max() <= SCORE_TOL
+        log(f"sharded {dt}: W=1 and W={SHARDED_WORLD} (every rank): strict recall@10 = 1.0 "
+            f"unfiltered, with the 10% id_mask, after a {extra.shape[0]}-row tail add, after "
+            f"remove_ids of {len(range(0, n, 997))} rows and after a restage; ids equal to "
+            f"FlatIndex's and across W; B=128 search {one['search_ms'][dt]:.2f} ms (W=1), "
+            f"{two['search_ms'][dt]:.2f} ms (W={SHARDED_WORLD}, rank 0) host clock [{card}]")
+    for mode in ("float32", "int8"):
+        assert one["launches"][mode] > 0 and two["launches"][mode] > 0, (
+            f"sharded: the flat kernel's mode {mode} was not launched "
+            f"(W=1 {one['launches']}, W={SHARDED_WORLD} {two['launches']})")
+    errs = {dt: max([one["kernel_err"][dt]] + [res["kernel_err"][dt] for res in ranks])
+            for dt in ("float32", "int8")}
+    log(f"sharded: the flat kernel agrees with its plain version on every rank's shard "
+        f"(max |key diff| {errs})")
+    return summary, one["launches"], two["launches"], errs
 
 
 # -- main ------------------------------------------------------------------------
@@ -1755,12 +1953,18 @@ def build_all():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
+    # One rank of phase sharded's multi-rank run (the phase spawns these).
+    for flag, kind in (("--sharded-rank", int), ("--world", int), ("--store", str),
+                       ("--out", str)):
+        ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
               file=sys.stderr)
         return 2
+    if args.sharded_rank is not None:
+        return sharded_rank(args)
 
     device = torch.device("cuda", 0)
     n_kernel, d, batches = 1_048_576, 384, (128, 1024, 100)
@@ -1821,9 +2025,20 @@ def main() -> int:
     reset_counts()
     pq_result, pq_ops = phase_ivf_pq(device, d, args.seed, card, corpus)
     pq_launches = adc_counts()
-    del corpus
     assert all(v > 0 for v in pq_launches.values()), f"ivf_pq path launches {pq_launches}"
     log(f"phase ivf_pq: {time.perf_counter() - t0:.1f} s, kernel launches {pq_launches}")
+
+    # 11. ShardedFlatIndex at W = 1 and W = 2 (each run resets the counts
+    # before its path and reads them after)
+    t0 = time.perf_counter()
+    sharded_out, sharded_launches, sharded_w2_launches, sharded_errs = phase_sharded(
+        device, args.seed, card,
+        {dt: flat_out[f"{dt}_results"] for dt in ("float32", "int8")}, corpus)
+    del corpus
+    for mode, err in sharded_errs.items():
+        note_err(errs, mode, err)
+    log(f"phase sharded: {time.perf_counter() - t0:.1f} s, kernel launches W=1 "
+        f"{sharded_launches}, W={SHARDED_WORLD} (rank 0) {sharded_w2_launches}")
 
     # 7. MemoDB on IVFFlatIndex (counts reset before, read after)
     t0 = time.perf_counter()
@@ -1897,8 +2112,11 @@ def main() -> int:
         "source": "c99_vectordb_tpu_torch/csrc/fused_l2_topk.cu",
         "replaces": "c99_vectordb_tpu/ops/topk_pallas.py:44",
         "launches": main_launches,
-        "launches_by_path": {"memodb": main_launches, "flat": flat_launches},
-        "launches_by_mode": {"flat": flat_by_mode},
+        "launches_by_path": {"memodb": main_launches, "flat": flat_launches,
+                             "sharded": sum(sharded_launches.values()),
+                             f"sharded_w{SHARDED_WORLD}": sum(sharded_w2_launches.values())},
+        "launches_by_mode": {"flat": flat_by_mode, "sharded": sharded_launches,
+                             f"sharded_w{SHARDED_WORLD}": sharded_w2_launches},
         "max_abs_err": max(errs[m] for m in ("float32", "bfloat16", "int8")),
         "max_abs_err_by_mode": errs,
         "ms": main_row["ms"],
@@ -1914,6 +2132,7 @@ def main() -> int:
         "check": "pass",
         "recall_many_qps": qps,
         "launches_per_recall_many": per_call,
+        "sharded": sharded_out,
     }]
     replaces = {
         "ivf_scan_select": "c99_vectordb_tpu/ops/ivf_scan_pallas.py:113 (and :202)",

@@ -93,16 +93,25 @@ def test_unsupported_platform_is_one_error_line(cwd, capsys, monkeypatch, platfo
 
 @pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_pq"])
 def test_sharded_kind_is_one_error_line(cwd, capsys, monkeypatch, kind):
+    """sharded_flat is ported: save works (one rank, no process group). The
+    other sharded kinds are not yet: one Error line, exit 1."""
     monkeypatch.setenv("C99VDB_PLATFORM", "cpu")
     monkeypatch.setenv("C99VDB_INDEX", kind)
     rc, out, err = run_torch(capsys, "-f", "db", "save", "in.yaml")
+    if kind == "sharded_flat":
+        assert (rc, err) == (0, "")
+        assert out.startswith("Memorized: 'I prefer tea over coffee' (ID: 0)\n")
+        assert (cwd / "db.memo").exists()
+        return
     assert (rc, out) == (1, "")
     assert err == f"Error: index kind '{kind}' not yet ported\n"
 
 
 def test_sharded_file_from_jax_is_one_error_line(cwd, capsys, monkeypatch):
-    """A DB the JAX CLI saved with a sharded kind: the port's recall refuses
-    it with one Error line (it does not pretend the index is empty)."""
+    """A DB the JAX CLI saved with sharded_flat: the port's recall reads it
+    and prints the JAX CLI's bytes. One saved with sharded_ivf: the port's
+    recall refuses it with one Error line (it does not pretend the index
+    is empty)."""
     from c99_vectordb_tpu.cli import main as jax_main
 
     monkeypatch.setenv("C99VDB_PLATFORM", "cpu")
@@ -110,8 +119,17 @@ def test_sharded_file_from_jax_is_one_error_line(cwd, capsys, monkeypatch):
     assert jax_main(["memo", "-f", "db", "save", "in.yaml"]) == 0
     capsys.readouterr()
     monkeypatch.delenv("C99VDB_INDEX")
+    assert jax_main(["memo", "-f", "db", "recall", "tea"]) == 0
+    want = capsys.readouterr().out
     rc, out, err = run_torch(capsys, "-f", "db", "recall", "tea")
-    assert rc == 1 and err == "Error: index kind 'sharded_flat' not yet ported\n"
+    assert (rc, out, err) == (0, want, "") and "] Score: " in want
+    monkeypatch.setenv("C99VDB_INDEX", "sharded_ivf")
+    monkeypatch.setenv("C99VDB_NLIST", "2")
+    assert jax_main(["memo", "-f", "ivf", "save", "in.yaml"]) == 0
+    capsys.readouterr()
+    monkeypatch.delenv("C99VDB_INDEX")
+    rc, out, err = run_torch(capsys, "-f", "ivf", "recall", "tea")
+    assert rc == 1 and err == "Error: index kind 'sharded_ivf' not yet ported\n"
 
 
 @pytest.mark.parametrize("argv", [("analyze", "--filter", "{source: user}"),

@@ -197,7 +197,9 @@ def test_port_imports_no_jax():
     assert {"c99_vectordb_tpu_torch.ops.kmeans", "c99_vectordb_tpu_torch.ops.ivf_scan",
             "c99_vectordb_tpu_torch.ops.ivf_scan_cuda", "c99_vectordb_tpu_torch.ops.cuda_build",
             "c99_vectordb_tpu_torch.models.ivf_flat", "c99_vectordb_tpu_torch.models.ivf_pq",
-            "c99_vectordb_tpu_torch.ops.adc", "c99_vectordb_tpu_torch.ops.adc_cuda"} <= set(modules)
+            "c99_vectordb_tpu_torch.ops.adc", "c99_vectordb_tpu_torch.ops.adc_cuda",
+            "c99_vectordb_tpu_torch.parallel", "c99_vectordb_tpu_torch.parallel.mesh",
+            "c99_vectordb_tpu_torch.parallel.sharded"} <= set(modules)
     chip = subprocess.run(
         [sys.executable, "-c",
          "import ast, sys; t = ast.parse(open('chip_smoke.py').read());"
