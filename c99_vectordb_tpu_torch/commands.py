@@ -84,16 +84,19 @@ def auto_nlist(corpus_size: int) -> int:
 def make_index(corpus_size: int | None = None, device=None):
     """Build an empty index of the configured family on `device`.
 
-    C99VDB_INDEX = flat (default) | ivf_flat | ivf_pq. C99VDB_SCAN_DTYPE =
+    C99VDB_INDEX = flat (default) | ivf_flat | ivf_pq | sharded_flat | sharded_ivf.
+    C99VDB_SCAN_DTYPE =
     float32 | bfloat16 | int8 selects the scan store of flat and ivf_flat.
     For the IVF families: C99VDB_NLIST (else auto_nlist(corpus_size) when
     the caller knows the corpus size, else 64), C99VDB_NPROBE (8),
     C99VDB_PAD_CAP; for ivf_flat C99VDB_RERANK_DTYPE = float32 | bfloat16;
     for ivf_pq C99VDB_PQ_M (8), C99VDB_PQ_KSUB (256, or 16 for nibble-packed
     4-bit codes) and C99VDB_OPQ (on unless empty, 0 or false).
-    sharded_flat (float32 or int8 scan store) shards over the world's ranks
+    sharded_flat (float32 or int8 scan store) and sharded_ivf (C99VDB_NLIST,
+    C99VDB_NPROBE, C99VDB_SCAN_DTYPE = float32 | int8, C99VDB_RERANK_DTYPE =
+    float32 | bfloat16 with int8) shard over the world's ranks
     (parallel/mesh.default_data_mesh: one rank without a process group);
-    the other sharded kinds are not ported yet and raise."""
+    sharded_ivf_pq is not ported yet and raises."""
     kind = os.environ.get("C99VDB_INDEX", "flat").strip().lower()
     scan_dtype = os.environ.get("C99VDB_SCAN_DTYPE", "float32").strip() or "float32"
     if kind == "flat":
@@ -120,6 +123,12 @@ def make_index(corpus_size: int | None = None, device=None):
         rerank_dtype = os.environ.get("C99VDB_RERANK_DTYPE", "float32").strip() or "float32"
         return IVFFlatIndex(dim=DIM, nlist=nlist, nprobe=nprobe, scan_dtype=scan_dtype,
                             rerank_dtype=rerank_dtype, pad_cap=pad_cap, device=device)
+    if kind == "sharded_ivf":
+        from .parallel.sharded import ShardedIVFIndex
+
+        rerank_dtype = os.environ.get("C99VDB_RERANK_DTYPE", "float32").strip() or "float32"
+        return ShardedIVFIndex(dim=DIM, nlist=nlist, nprobe=nprobe, scan_dtype=scan_dtype,
+                               rerank_dtype=rerank_dtype, device=device)
     if kind == "ivf_pq":
         from .models.ivf_pq import IVFPQIndex
 

@@ -93,13 +93,16 @@ _SQ8_BLOCK_BYTES = 256 << 20
 _CPU_STEP_BYTES = 128 << 20
 
 
-def _sq8_stage(lv: torch.Tensor, li: torch.Tensor):
+def _sq8_stage(lv: torch.Tensor, li: torch.Tensor, reduce_maxabs=None):
     """Symmetric per-dimension SQ8 of the bucketed lists, on their device.
 
     Scale and statistics compute in f32 whatever the store dtype. Both
     passes walk ~256 MB macro-blocks, so a 1M x 384 store never exists
-    whole in f32 beside itself. Returns (codes (nlist, pad, D) int8, scale
-    (D,), decoded-space norms (nlist, pad))."""
+    whole in f32 beside itself. reduce_maxabs: applied to the (D,) maxabs
+    of the live rows before the scale is taken (the sharded index passes
+    a MAX all_reduce over its shards, so every shard codes alike). Returns
+    (codes (nlist, pad, D) int8, scale (D,), decoded-space norms (nlist,
+    pad))."""
     nlist, pad, d = lv.shape
     total = nlist * pad
     nblocks = 1
@@ -112,6 +115,8 @@ def _sq8_stage(lv: torch.Tensor, li: torch.Tensor):
     for s0 in range(0, total, step):
         v32 = torch.where(live[s0 : s0 + step, None], rows[s0 : s0 + step].to(torch.float32), 0.0)
         maxabs = torch.maximum(maxabs, v32.abs().amax(dim=0))
+    if reduce_maxabs is not None:
+        maxabs = reduce_maxabs(maxabs)
     scale = torch.clamp_min(maxabs, 1e-30) / 127.0
     codes = torch.empty((total, d), dtype=torch.int8, device=lv.device)
     dec_sqn = torch.empty((total,), dtype=torch.float32, device=lv.device)

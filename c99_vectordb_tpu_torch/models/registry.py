@@ -9,7 +9,7 @@ _REGISTRY: dict[str, Any] = {}
 # Kinds the JAX package writes that the port cannot read yet. A file of
 # one of these kinds must fail loudly: silently substituting an empty
 # index would lose the user's data from view.
-NOT_YET_PORTED = ("sharded_ivf", "sharded_ivf_pq")
+NOT_YET_PORTED = ("sharded_ivf_pq",)
 
 
 def register(cls: Any) -> Any:

@@ -1,9 +1,10 @@
-"""Multi-rank flat search over torch.distributed (SPMD, one process per rank).
+"""Multi-rank flat and IVF search over torch.distributed (SPMD, one process
+per rank).
 
-Counterpart of the flat half of the JAX package's parallel/sharded.py
-(shard_map programs over a device mesh). Here every rank runs the same
-code on its own row shard, and the collectives of parallel/mesh.py stand
-in for JAX's all_gather / psum:
+Counterpart of the flat and IVF-Flat halves of the JAX package's
+parallel/sharded.py (shard_map programs over a device mesh). Here every
+rank runs the same code on its own shard, and the collectives of
+parallel/mesh.py stand in for JAX's all_gather / psum:
 
   - search (data parallel): the padded store's rows are split over the
     mesh's corpus axes (a 1-D `data` axis, or ("host", "chip") with the
@@ -19,10 +20,21 @@ in for JAX's all_gather / psum:
     shard codes alike).
   - search (2-D): rows over `data`, dims over `model`; the partial inner
     products and norms are summed over `model` before the local top-k.
+  - IVF (ShardedIVFIndex): the inverted lists are SLOT-SHARDED. Each
+    list's rows are dealt over the shards by in-list rank (rank r goes to
+    shard r % S, local slot r // S), so every rank holds a (nlist,
+    pad_local, D) block with 1/S of EVERY list and scans exactly 1/S of
+    the single-device work at any nprobe. Per shard the port's IVF kernels
+    run unchanged with pad -> pad_local (the select or dense kernel for the
+    f32 store; the int8 dense kernel, then an exact rerank of the shard's
+    own rows, for the SQ8 store), then the merge. Centroids are
+    replicated: every rank trains the same k-means on the same rows.
+  - k-means (data parallel): `sharded_kmeans_step`, one Lloyd iteration
+    whose per-list sums and counts are summed over `data`.
 
-A rank's results are replicated after the merge. On the CPU the kernel
-wrapper takes its plain version; the exact route (matmul + top-k) is plain
-torch, as the JAX package leaves it to XLA.
+A rank's results are replicated after the merge. On the CPU each kernel
+wrapper takes its plain version; the exact routes (matmul + top-k, the IVF
+probe scan) are plain torch, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -32,13 +44,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.base import next_pow2
+from ..models.base import list_pad, next_pow2
 from ..models.devbuild import (
-    ChunkStore, GrowTail, MaskCache, apply_removal, is_device_array, merge_tail,
-    removal_table, tail_restage_threshold,
+    ChunkStore, GrowTail, MaskCache, apply_removal, bucketize_device, is_device_array, list_hwm,
+    merge_tail, removal_table, rows_sqn, scatter_list_ids_device, scatter_lists_device,
+    tail_restage_threshold, tail_scores,
 )
+from ..models.ivf_flat import DENSE_MAX_F32, _sq8_stage
 from ..models.registry import register
 from ..ops.distances import query_rows, ranked_many_program, ranked_program
+from ..ops.ivf_scan import coarse_probes, ivf_full_search, ivf_sq8_search
+from ..ops.kmeans import assign_clusters, train_kmeans
 from ..ops.rerank import exact_rerank_rows, shortlist_depth
 from ..ops.topk import merge_topk, stable_topk
 from ..ops.topk_cuda import fused_topk
@@ -307,11 +323,11 @@ class _ShardedBase:
         if self._mesh is not None and self._mode == "device":
             # The staged shards are the storage: gather them (on the old
             # mesh) back into chunks, which the new mesh stages.
-            parts = self._rows_all() if self.ntotal else None
-            self._dev_vecs, self._dev_ids = ChunkStore(), ChunkStore()
-            if parts is not None:
-                self._dev_vecs.append(parts[0].to(mesh.device))
-                self._dev_ids.append(parts[1].to(mesh.device))
+            parts = self._rows_all() if self.ntotal else ()
+            for store in self._row_stores():
+                store.clear()
+            for store, part in zip(self._row_stores(), parts):
+                store.append(part.to(mesh.device))
         self._mesh = mesh
         self._staged = None
         self._tail = None
@@ -337,6 +353,16 @@ class _ShardedBase:
             return self._n_dev
         return int(self._ids.shape[0])
 
+    @property
+    def _keep_dtype(self) -> torch.dtype:
+        """Row dtype of the chunks and the tail (a family with a bf16 store
+        keeps bf16)."""
+        return torch.float32
+
+    def _row_stores(self) -> tuple[ChunkStore, ...]:
+        """The pending-chunk stores, in the order of _rows_all's parts."""
+        return (self._dev_vecs, self._dev_ids)
+
     def ids(self) -> np.ndarray:
         if self._mode == "device":
             if self._n_dev == 0:
@@ -346,11 +372,24 @@ class _ShardedBase:
 
     # -- mutation ---------------------------------------------------------------------
 
+    def _tail_spec(self) -> dict:
+        return {"vecs": (self.dim, str(self._keep_dtype).removeprefix("torch.")),
+                "ids": (None, "int32")}
+
+    def _tail_extras(self, vecs) -> dict:
+        """Extra tail fields of a parked batch (IVF: its assignment)."""
+        return {}
+
+    def _absorb_device_extras(self, vectors) -> None:
+        """Extra per-chunk stores of a pending device batch (IVF: its
+        assignment)."""
+
     def _tail_park(self, vecs, ids) -> None:
         if self._tail is None:
-            self._tail = GrowTail({"vecs": (self.dim, "float32"), "ids": (None, "int32")},
-                                  self.device, initial_cap=tail_restage_threshold(self.ntotal))
-        self._tail.append(vecs=vecs, ids=ids)
+            self._tail = GrowTail(self._tail_spec(), self.device,
+                                  initial_cap=tail_restage_threshold(self.ntotal))
+        vecs = vecs.to(self.device, torch.float32)
+        self._tail.append(vecs=vecs, ids=ids, **self._tail_extras(vecs))
         if self._tail.count > tail_restage_threshold(self.ntotal):
             self._restage_needed = True
 
@@ -369,8 +408,9 @@ class _ShardedBase:
             if self._staged is not None:
                 self._tail_park(vectors, ids)
             else:
-                self._dev_vecs.append(vectors)
+                self._dev_vecs.append(vectors.to(self._keep_dtype))
                 self._dev_ids.append(ids)
+                self._absorb_device_extras(vectors)
             self._n_dev += int(vectors.shape[0])
             self._ranked_cache = None
             return
@@ -397,7 +437,7 @@ class _ShardedBase:
         if self._mode == "device":
             if self._n_dev == 0:
                 raise KeyError(f"id {doc_id} not in index")
-            vecs, idsa = self._rows_all()
+            vecs, idsa = self._rows_all()[:2]
             pos = torch.nonzero(idsa == int(doc_id)).flatten()
             if not pos.numel():
                 raise KeyError(f"id {doc_id} not in index")
@@ -453,7 +493,7 @@ class _ShardedBase:
             ids = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
             if self._mode == "device":
                 if n:
-                    rows, idsa = self._rows_all()
+                    rows, idsa = self._rows_all()[:2]
                     vecs[:n] = rows.to(torch.float32)
                     ids[:n] = idsa
             else:
@@ -686,4 +726,593 @@ class ShardedFlatIndex(_ShardedBase):
                     mesh=mesh, device=device)
         if arrays["vectors"].size:
             index.add(arrays["vectors"], arrays["ids"])
+        return index
+
+
+# -- IVF: the slot-sharded layout --------------------------------------------------------
+
+
+def _slot_shard_layout(assign: np.ndarray, nlist: int, shards: int):
+    """Staging math of the slot-sharded inverted lists (host form).
+
+    Each list's rows are dealt round-robin over the S shards by in-list
+    rank (the id-stable order): rank r -> shard r % S, local slot r // S,
+    so a list's occupancy differs by at most one row between shards and
+    each shard's sub-list keeps the list's order. The GLOBAL slot axis is
+    shard-major, slot = (r % S) * pad_local + r // S, as a JAX P(None,
+    axes) sharding of (nlist, S * pad_local, ...) lays it out.
+
+    Returns (pad_local, order, sorted_lists, slots): `order` is the
+    id-stable row permutation grouping rows by list; `slots` the global
+    slot per row (shard slot // pad_local, local slot slot % pad_local)."""
+    n = assign.shape[0]
+    counts = np.bincount(assign, minlength=nlist)
+    per_shard = -(-int(counts.max(initial=1)) // shards)
+    pad_local = list_pad(per_shard)
+    order = np.argsort(assign, kind="stable")
+    sorted_lists = assign[order]
+    starts = np.zeros((nlist,), np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    rank = np.arange(n) - starts[sorted_lists]
+    slots = (rank % shards) * pad_local + rank // shards
+    return pad_local, order, sorted_lists, slots
+
+
+def _slot_shard_layout_device(assign: torch.Tensor, nlist: int, shards: int):
+    """Device form of _slot_shard_layout over devbuild.bucketize_device
+    (whose stable sort keeps each list's input order). Only the (nlist,)
+    counts cross to the host. Returns (pad_local, order, sorted_lists,
+    slots, counts)."""
+    order, lists, rank, counts = bucketize_device(assign, nlist)
+    per_shard = -(-int(counts.max(initial=1)) // shards)
+    pad_local = list_pad(per_shard)
+    return pad_local, order, lists, (rank % shards) * pad_local + rank // shards, counts
+
+
+def _own_rows(order, lists, slots, pad_local: int, shard: int):
+    """The rows of one shard in a slot-shard layout: (order, lists, local
+    slots) of the rows with slot // pad_local == shard."""
+    mine = slots // pad_local == shard
+    return order[mine], lists[mine], slots[mine] % pad_local
+
+
+# -- IVF: the per-shard programs (each rank passes its own block) -------------------------
+
+
+# Rows of one (rows, k) one-hot block of the distributed Lloyd step.
+_KMEANS_STEP_ROWS = 65_536
+
+
+def sharded_kmeans_step(mesh: Mesh, data, valid, centroids):
+    """One distributed Lloyd iteration over this rank's row shard: data (n,
+    D) and valid (n,) weights are this rank's rows, centroids (k, D) are
+    replicated. Rows go to argmin(c_sq - 2 x.c) (ties to the lowest list);
+    the weighted per-list sums and counts are summed over `data` (one
+    all_reduce); a list with no rows keeps its centroid. Returns the
+    replicated (k, D) centroids."""
+    data = data.to(torch.float32)
+    valid = valid.to(torch.float32)
+    centroids = centroids.to(torch.float32)
+    k, dim = centroids.shape
+    c_sq = (centroids * centroids).sum(dim=1)
+    lists = torch.arange(k, device=data.device)
+    sums = torch.zeros((k, dim), dtype=torch.float32, device=data.device)
+    counts = torch.zeros((k,), dtype=torch.float32, device=data.device)
+    for s0 in range(0, data.shape[0], _KMEANS_STEP_ROWS):
+        block = data[s0 : s0 + _KMEANS_STEP_ROWS]
+        assign = torch.argmin(c_sq[None, :] - 2.0 * (block @ centroids.T), dim=1)
+        # A one-hot product, not index_add_: the sums come out in one fixed
+        # order on every device (atomics would not).
+        onehot = (assign[:, None] == lists[None, :]).to(torch.float32)
+        onehot = onehot * valid[s0 : s0 + _KMEANS_STEP_ROWS, None]
+        sums += onehot.T @ block
+        counts += onehot.sum(dim=0)
+    total = all_reduce_axis(torch.cat([sums.reshape(-1), counts]), mesh, "data", "sum")
+    sums, counts = total[: k * dim].reshape(k, dim), total[k * dim :]
+    fresh = sums / torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where((counts > 0.0)[:, None], fresh, centroids)
+
+
+# Bytes of one step of the plain IVF probe scan's gathered lists.
+_IVF_STEP_BYTES = 128 << 20
+
+
+def _ivf_probe_scan(centroids, c_sq, list_vecs, list_ids, queries, nprobe: int, k: int,
+                    keep=None):
+    """The JAX package's CPU route of the sharded IVF search, on this
+    rank's block: probes by c_sq - 2 q.c (ties to the lowest list), then
+    per probe rank direct (x - q)^2 distances of the probed lists' rows and
+    a (distance, id) merge. keep: a (nlist, pad_local) keep canvas of a
+    filter."""
+    probes = coarse_probes(queries, centroids, c_sq, nprobe).to(torch.int64)
+    b, pad, dim = queries.shape[0], list_vecs.shape[1], list_vecs.shape[2]
+    chunk = max(1, _IVF_STEP_BYTES // max(pad * dim * 4, 1))
+    out_d, out_i = [], []
+    for q0 in range(0, b, chunk):
+        qc = queries[q0 : q0 + chunk]
+        best_d = torch.full((qc.shape[0], k), torch.inf, device=queries.device)
+        best_i = torch.full((qc.shape[0], k), -1, dtype=torch.int32, device=queries.device)
+        for p in range(nprobe):
+            lists = probes[q0 : q0 + chunk, p]
+            diff = list_vecs[lists].to(torch.float32) - qc[:, None, :]
+            d = (diff * diff).sum(dim=-1)
+            ids = list_ids[lists]
+            d = torch.where(ids >= 0, d, torch.inf)
+            if keep is not None:
+                d = torch.where(keep[lists], d, torch.inf)
+            best_d, best_i = merge_topk(torch.cat([best_d, d], 1), torch.cat([best_i, ids], 1), k)
+        out_d.append(best_d)
+        out_i.append(best_i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def sharded_ivf_search_program(mesh: Mesh, centroids, c_sq, list_vecs, list_sqn, list_ids,
+                               queries, nprobe: int, k: int, use_kernels: bool = False,
+                               axes: tuple[str, ...] = ("data",), keep=None, hwm=None,
+                               dense: bool | None = None):
+    """Exact-distance IVF search over slot-sharded lists: centroids (nlist,
+    D) and c_sq (nlist,) replicated; list_vecs (nlist, pad_local, D) f32,
+    list_sqn and list_ids (nlist, pad_local) this rank's block; queries (B,
+    D) replicated. Returns the replicated (dists (B, k), ids (B, k)).
+
+    use_kernels=True (the card route): ops/ivf_scan.ivf_full_search on the
+    block, the dense kernel + merge while nprobe * pad_local <= 4096, else
+    the select kernel; a filter is the caller's masked list_sqn (+inf IS
+    the kernels' exclusion marker), and hwm (nlist,) the block's own
+    high-water marks; dense=True / False forces the dense / select
+    kernel. A select kernel may fill an underfilled list with masked rows
+    (+inf, real id); the merge turns every +inf to -1. False:
+    the plain probe scan, with a filter's keep canvas `keep` (its diff^2
+    scoring never reads list_sqn)."""
+    queries = queries.to(torch.float32)
+    if use_kernels:
+        if dense is None:
+            dense = nprobe * list_vecs.shape[1] <= DENSE_MAX_F32
+        local_d, local_i = ivf_full_search(centroids, c_sq, list_vecs, list_sqn, list_ids,
+                                           queries, nprobe, k, dense=dense, hwm=hwm)
+    else:
+        local_d, local_i = _ivf_probe_scan(centroids, c_sq, list_vecs, list_ids, queries,
+                                           nprobe, k, keep)
+    return _merge_axes(local_d, local_i, k, mesh, axes)
+
+
+def sharded_ivf_search_2level(mesh: Mesh, *args, **kwargs):
+    """sharded_ivf_search_program on a ("host", "chip") mesh: the lists are
+    slot-sharded over both axes and merge two-level (k candidates a host
+    cross `host`); bit for bit the 1-D merge's result."""
+    return sharded_ivf_search_program(mesh, *args, axes=("host", "chip"), **kwargs)
+
+
+def sharded_ivf_sq8_search_program(mesh: Mesh, centroids, c_sq, codes, dim_scale, dec_sqn,
+                                   list_ids, rerank_vecs, queries, nprobe: int, k: int, ks: int,
+                                   axes: tuple[str, ...] = ("data",), keep=None, hwm=None):
+    """Slot-sharded SQ8 IVF search: per shard, the int8 dense kernel's
+    shortlist of ks over the block's codes (ops/ivf_scan.ivf_sq8_search;
+    dim_scale is the GLOBAL per-dimension scale), then an exact rerank of
+    the shard's own rerank store (nlist, pad_local, D) by the scan's bucket
+    rows (every shortlisted row lives on this shard), then the merge. keep:
+    a filter's (cap,) keep table; masked rows pad the shortlist at +inf with
+    their REAL ids, so their ids are scrubbed before the rerank (with the
+    caller's masked dec_sqn)."""
+    queries = queries.to(torch.float32)
+    _, si, srows = ivf_sq8_search(centroids, c_sq, codes, dim_scale, dec_sqn, list_ids, queries,
+                                  nprobe, ks, hwm=hwm)
+    if keep is not None:
+        si = _scrub_ids(si, keep)
+    local_d, local_i = exact_rerank_rows(rerank_vecs.reshape(-1, rerank_vecs.shape[-1]), srows,
+                                         si, queries, k)
+    return _merge_axes(local_d, local_i, k, mesh, axes)
+
+
+def _gather_rows(mesh: Mesh, axes: tuple[str, ...], vecs, keys):
+    """Every shard's (n_s, D) rows and (n_s, 2) int64 (sort key, id) pairs,
+    gathered over `axes` (padded to the largest n_s: gloo gathers equal
+    shapes) and put in key order. Returns (vecs, ids int32, keys)."""
+    count = torch.tensor([keys.shape[0]], dtype=torch.int64, device=keys.device)
+    m = int(all_reduce_axes(count, mesh, axes, "max")[0])
+    v = torch.zeros((m, vecs.shape[1]), dtype=vecs.dtype, device=vecs.device)
+    v[: vecs.shape[0]] = vecs
+    kk = torch.full((m, 2), -1, dtype=torch.int64, device=keys.device)
+    kk[: keys.shape[0]] = keys
+    # bf16 rows ride as their int16 bits (gloo has no bf16 reduction type).
+    wire = v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+    gv = all_gather_axes(wire, mesh, axes)
+    gv = gv.view(torch.bfloat16) if v.dtype == torch.bfloat16 else gv
+    gk = all_gather_axes(kk, mesh, axes)
+    live = torch.nonzero(gk[:, 0] >= 0).flatten()
+    order = live[torch.argsort(gk[live, 0])]
+    return gv[order], gk[order, 1].to(torch.int32), gk[order, 0]
+
+
+# -- IVF: the index ---------------------------------------------------------------------------
+
+
+@register
+class ShardedIVFIndex(_ShardedBase):
+    """IVF-Flat index with its inverted lists slot-sharded over the mesh's
+    corpus axes (a 1-D `data` axis, or ("host", "chip") with the two-level
+    merge).
+
+    The build mirrors IVFFlatIndex (k-means coarse quantizer, dense padded
+    lists), but every list's slots are dealt over the shards, so each rank
+    holds a (nlist, pad_local, D) block with 1/S of every list
+    (_slot_shard_layout) and never the whole canvas. Centroids are
+    replicated: every rank trains the same k-means on the same rows (the
+    JAX class's `train`); sharded_kmeans_step is the distributed Lloyd
+    step. On a CUDA device search runs each shard's IVF kernels (the
+    card route, sharded_ivf_search_program), else the plain probe scan;
+    scan_dtype="int8" stages SQ8 codes under a GLOBAL scale and reranks
+    each shard's shortlist exactly (rerank_dtype="bfloat16" halves the
+    rerank store at the bf16 recall ceiling). Adds after staging park in a
+    replicated GrowTail with their list assignment; id_mask pushes a
+    filter into the scan through masked norms staged once per mask
+    object; remove_ids works in place on every shard.
+    """
+
+    kind = "sharded_ivf"
+
+    def __init__(self, dim: int, nlist: int = 64, nprobe: int = 8,
+                 scan_dtype: str = "float32", rerank_dtype: str = "float32",
+                 mesh: Mesh | None = None, device=None):
+        if scan_dtype not in ("float32", "int8"):
+            raise ValueError(f"unsupported scan_dtype: {scan_dtype}")
+        if rerank_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported rerank_dtype: {rerank_dtype}")
+        if scan_dtype == "float32" and rerank_dtype == "bfloat16":
+            raise ValueError(
+                "rerank_dtype='bfloat16' requires scan_dtype='int8'; the "
+                "float32 scan is exact and has no rerank stage"
+            )
+        self.nlist = int(nlist)
+        self.nprobe = int(nprobe)
+        self.scan_dtype = str(scan_dtype)
+        self.rerank_dtype = str(rerank_dtype)
+        super().__init__(dim, mesh, device)
+
+    def _reset_rows(self) -> None:
+        super()._reset_rows()
+        self._centroids = None          # numpy (host mode) or a tensor (device mode)
+        self._dev_assign = ChunkStore()
+        self._params = None             # (nlist, pad_local) of the staging
+        self._hwm = None                # (nlist,) int32 list_hwm of this rank's block
+
+    @property
+    def is_trained(self) -> bool:
+        return self._centroids is not None
+
+    @property
+    def _keep_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.rerank_dtype == "bfloat16" else torch.float32
+
+    def _row_stores(self) -> tuple[ChunkStore, ...]:
+        return (self._dev_vecs, self._dev_ids, self._dev_assign)
+
+    def _centroids_dev(self) -> torch.Tensor:
+        if self._staged is not None:
+            return self._staged[0]
+        c = self._centroids
+        if not isinstance(c, torch.Tensor):
+            c = torch.from_numpy(np.array(c, dtype=np.float32))
+        return c.to(self.device, torch.float32)
+
+    def _centroids_host(self) -> np.ndarray:
+        if self._centroids is None:
+            return np.zeros((0, self.dim), np.float32)
+        if isinstance(self._centroids, torch.Tensor):
+            return self._centroids.to(torch.float32).cpu().numpy()
+        return np.asarray(self._centroids, np.float32)
+
+    def _assign(self, vecs: torch.Tensor) -> torch.Tensor:
+        return assign_clusters(vecs.to(self.device, torch.float32), self._centroids_dev(),
+                               out_device=True)
+
+    def _tail_spec(self) -> dict:
+        spec = super()._tail_spec()
+        spec["assign"] = (None, "int32")
+        return spec
+
+    def _tail_extras(self, vecs) -> dict:
+        return {"assign": self._assign(vecs)}
+
+    def _absorb_device_extras(self, vectors) -> None:
+        self._dev_assign.append(self._assign(vectors))
+
+    def _unstage(self) -> None:
+        self._staged = None
+        self._params = None
+        self._hwm = None
+        self._tail = None
+        self._restage_needed = False
+        self._ranked_cache = None
+        self._mask_cache.clear()
+
+    # -- training / mutation ---------------------------------------------------------
+
+    def train(self, data, *, iters: int = 8, seed: int = 0) -> None:
+        """The coarse quantizer: ops/kmeans.train_kmeans on every rank over
+        the same rows (replicated, so every rank gets the same centroids).
+        A tensor puts an empty index in device mode; a device-mode index
+        that holds rows re-assigns them."""
+        if is_device_array(data) and self._mode == "host" and self.ntotal == 0:
+            self._mode = "device"
+        if self._mode == "device":
+            if not is_device_array(data):
+                data = torch.from_numpy(np.ascontiguousarray(data, np.float32))
+            data = data.to(self.device, torch.float32).reshape(-1, self.dim)
+            nlist_eff = min(self.nlist, max(1, int(data.shape[0])))
+            centroids = train_kmeans(data, nlist_eff, iters=iters, seed=seed, out_device=True)
+            rows = self._rows_all() if self.ntotal else None
+            self._centroids = centroids
+            self._unstage()
+            if rows is not None:
+                for store in self._row_stores():
+                    store.clear()
+                self._dev_vecs.append(rows[0])
+                self._dev_ids.append(rows[1])
+                self._dev_assign.append(self._assign(rows[0]))
+            return
+        if is_device_array(data):
+            data = data.detach().to("cpu", torch.float32).numpy()
+        data = np.ascontiguousarray(data, dtype=np.float32).reshape(-1, self.dim)
+        nlist_eff = min(self.nlist, max(1, data.shape[0]))
+        self._centroids = train_kmeans(data, nlist_eff, iters=iters, seed=seed,
+                                       device=self.device)
+        self._unstage()
+
+    def add(self, vectors, ids) -> None:
+        if is_device_array(vectors) and self._mode == "host" and self.ntotal == 0:
+            self._mode = "device"
+        if not self.is_trained:
+            self.train(vectors)
+        self._absorb(vectors, ids)
+
+    def load(self, vectors, ids, *, kmeans_iters: int = 8) -> None:
+        """Bulk (re)load: reset, train on the corpus, then add."""
+        self._reset_rows()
+        if not is_device_array(vectors):
+            vectors = np.ascontiguousarray(vectors, dtype=np.float32).reshape(-1, self.dim)
+        self.train(vectors, iters=kmeans_iters)
+        self.add(vectors, ids)
+
+    # -- storage ------------------------------------------------------------------------------
+
+    def _staged_store_ids(self):
+        """(store, list ids) of this rank's block: the rows whatever the
+        scan dtype (the rerank store of the int8 route)."""
+        if self.scan_dtype == "int8":
+            return self._staged[6], self._staged[5]
+        return self._staged[2], self._staged[4]
+
+    def _staged_rows(self):
+        """Every staged row as (vecs, ids, assign) on this rank, in the JAX
+        package's global canvas order (list-major, then shard-major slots):
+        each shard sends its live rows with their global canvas position,
+        never its padding."""
+        store, li = self._staged_store_ids()
+        pad_local = li.shape[1]
+        shards = self._shards
+        live = torch.nonzero(li.reshape(-1) >= 0).flatten()
+        lists = live // pad_local
+        key = (lists * shards + shard_index(self._mesh, self._axes)) * pad_local \
+            + live % pad_local
+        keys = torch.stack([key, li.reshape(-1)[live].to(torch.int64)], dim=1)
+        vecs, ids, key = _gather_rows(self._mesh, self._axes,
+                                      store.reshape(-1, self.dim)[live], keys)
+        return vecs, ids, (key // (shards * pad_local)).to(torch.int32)
+
+    def _rows_all(self):
+        """Device mode: every stored row as (vecs, ids, assign) on this
+        rank's device: the staged shards (gathered over the mesh, in the
+        JAX package's canvas order), the tail, then pending chunks."""
+        parts = []
+        if self._staged is not None:
+            staged = self._staged_rows()
+            if staged[1].numel():
+                parts.append(staged)
+        if self._tail and self._tail.count:
+            c = self._tail.count
+            parts.append((self._tail["vecs"][:c], self._tail["ids"][:c],
+                          self._tail["assign"][:c]))
+        if len(self._dev_vecs):
+            parts.append((self._dev_vecs.consolidated(self._keep_dtype),
+                          self._dev_ids.consolidated(torch.int32),
+                          self._dev_assign.consolidated(torch.int32)))
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+
+    # -- staging --------------------------------------------------------------------------------
+
+    def _put_staged(self, staged) -> None:
+        """Keep a staging and its block's high-water marks (where the scan
+        kernels stop); every change to the staged ids comes through here."""
+        self._staged = staged
+        self._hwm = list_hwm(self._staged_store_ids()[1]).to(torch.int32)
+
+    def _stage(self):
+        if self._staged is not None and not self._restage_needed:
+            return self._staged
+        if self._mode == "device":
+            rows = self._rows_all()
+            # Free the source chunks and the old block before the new
+            # block allocates (at 1M x 384 each is gigabytes).
+            for store in self._row_stores():
+                store.clear()
+            self._staged = None
+            self._stage_rows_device(*rows)
+        else:
+            self._staged = None
+            self._stage_host()
+        self._tail = None
+        self._restage_needed = False
+        self._mask_cache.clear()
+        return self._staged
+
+    def _finish_stage(self, lv, li, centroids, pad_local: int) -> None:
+        """Shared epilogue: the scan stores from this rank's block, on its
+        device. int8: SQ8 codes under the GLOBAL per-dimension scale (a MAX
+        all_reduce of the live rows' maxabs over the corpus axes), and the
+        block itself as the rerank store (bf16 for rerank_dtype
+        bfloat16)."""
+        nlist = int(centroids.shape[0])
+        self._params = (nlist, pad_local)
+        common = (centroids, (centroids * centroids).sum(dim=1))
+        if self.scan_dtype == "int8":
+            codes, scale, dec_sqn = _sq8_stage(
+                lv, li, lambda m: all_reduce_axes(m, self._mesh, self._axes, "max"))
+            self._put_staged(common + (codes, scale, dec_sqn, li, lv.to(self._keep_dtype)))
+        else:
+            sqn = rows_sqn(lv.reshape(-1, self.dim)).reshape(nlist, pad_local)
+            self._put_staged(common + (lv, sqn, li))
+
+    def _stage_host(self) -> None:
+        """Host mode: assign and deal on the host, then push only this
+        rank's block."""
+        centroids = self._centroids_host()
+        nlist = int(centroids.shape[0])
+        assign = assign_clusters(self._vectors, centroids, device=self.device)
+        pad_local, order, lists, slots = _slot_shard_layout(assign, nlist, self._shards)
+        rows, lists, local = _own_rows(order, lists, slots, pad_local,
+                                       shard_index(self._mesh, self._axes))
+        list_vecs = np.zeros((nlist, pad_local, self.dim), np.float32)
+        list_ids = np.full((nlist, pad_local), -1, np.int32)
+        list_vecs[lists, local] = self._vectors[rows]
+        list_ids[lists, local] = self._ids[rows]
+        self._finish_stage(torch.from_numpy(list_vecs).to(self.device),
+                           torch.from_numpy(list_ids).to(self.device),
+                           torch.from_numpy(centroids).to(self.device), pad_local)
+
+    def _stage_rows_device(self, vecs, idsa, assign) -> None:
+        """Device mode: deal the rows on the device and scatter only this
+        rank's rows into its block (the global canvas is never built)."""
+        centroids = self._centroids_dev()
+        nlist = int(centroids.shape[0])
+        pad_local, order, lists, slots, _ = _slot_shard_layout_device(
+            assign.to(torch.int64), nlist, self._shards)
+        order, lists, local = _own_rows(order, lists, slots, pad_local,
+                                        shard_index(self._mesh, self._axes))
+        lv = scatter_lists_device(vecs.to(self._keep_dtype), order, lists, local, nlist,
+                                  pad_local)
+        li = scatter_list_ids_device(idsa, order, lists, local, nlist, pad_local)
+        self._finish_stage(lv, li, centroids, pad_local)
+
+    def _apply_removal_staged(self, table) -> int:
+        staged = list(self._staged)
+        li_at, norms_at = (5, 4) if self.scan_dtype == "int8" else (4, 3)
+        staged[li_at], removed, staged[norms_at] = apply_removal(staged[li_at], table,
+                                                                 staged[norms_at])
+        self._put_staged(tuple(staged))
+        count = torch.tensor([removed], dtype=torch.int64, device=self.device)
+        return int(all_reduce_axes(count, self._mesh, self._axes, "sum")[0])
+
+    def _build_masked(self, keep):
+        """Once-per-mask staged operands: the masked scan norms (list_sqn,
+        or dec_sqn for int8; +inf IS the kernels' exclusion marker) and the
+        block's keep canvas for the plain probe scan (which scores diff^2
+        and never reads the norms)."""
+        staged = self._stage()
+        li_at, norms_at = (5, 4) if self.scan_dtype == "int8" else (4, 3)
+        kept = _keep_of(staged[li_at], keep)
+        return keep, torch.where(kept, staged[norms_at], torch.inf), kept
+
+    def scan_rows_per_chip(self, b: int, nprobe: int | None = None) -> dict:
+        """Candidate rows each rank scans for a (b,)-query batch: B * nprobe
+        * pad_local, 1/S of the single-device scan."""
+        self._stage()
+        nlist, pad_local = self._params
+        nprobe_eff = min(nprobe or self.nprobe, nlist)
+        shards = self._shards
+        return {"shards": shards, "pad_local": pad_local,
+                "rows_per_chip": b * nprobe_eff * pad_local,
+                "rows_all_chips": b * nprobe_eff * pad_local * shards}
+
+    def _merge_ivf_tail(self, d, i, q, k: int, nprobe: int, keep):
+        """Rows added after staging: exact distances, visible only to the
+        queries that probe their assigned list (devbuild.tail_scores), then
+        one (distance, id) merge on the replicated results."""
+        tail_ids = self._tail["ids"]
+        td = tail_scores(self._tail, self._staged[0], self._staged[1], q, nprobe)
+        if keep is not None:
+            td = torch.where(_keep_of(tail_ids, keep)[None, :], td, torch.inf)
+        return merge_tail(d, i, td, tail_ids, k)
+
+    # -- search -----------------------------------------------------------------------------------
+
+    def search(self, queries, k: int, *, nprobe: int | None = None,
+               id_mask=None) -> tuple[np.ndarray, np.ndarray]:
+        """id_mask: optional (cap,) bool keyed by EXTERNAL id (filter
+        pushdown): masked rows get +inf scan norms (and, on the plain
+        route, a keep canvas) staged once per mask object; pass the SAME
+        object across calls to reuse them."""
+        return self._search(queries, k, nprobe=nprobe, id_mask=id_mask, kernel_route=None)
+
+    def _search(self, queries, k: int, *, nprobe: int | None = None, id_mask=None,
+                kernel_route: bool | None, scan: str | None = None):
+        """search() with the f32 route explicit: kernel_route=True is the
+        IVF kernels per shard (their plain versions on CPU tensors), False
+        the plain probe scan, None the device's choice (the kernels on a
+        CUDA device); scan = "dense" or "select" forces that kernel instead
+        of the width gate. The int8 route always runs the int8 dense
+        kernel, as the JAX package's SQ8 program does."""
+        q = query_rows(queries, self.dim, self.device)
+        if self.ntotal == 0 or not self.is_trained:
+            shape = (q.shape[0], k)
+            return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
+        staged = self._stage()
+        nlist, pad_local = self._params
+        nprobe_eff = min(nprobe or self.nprobe, nlist)
+        keep = masked_norms = keep_canvas = None
+        if id_mask is not None:
+            keep, masked_norms, keep_canvas = self._mask_table(id_mask)
+        if self.scan_dtype == "int8":
+            centroids, c_sq, codes, scale, dec_sqn, li, rerank = staged
+            ks = min(shortlist_depth(k, self.ntotal), nprobe_eff * pad_local)
+            d, i = sharded_ivf_sq8_search_program(
+                self._mesh, centroids, c_sq, codes, scale,
+                dec_sqn if keep is None else masked_norms, li, rerank, q, nprobe_eff, k, ks,
+                self._axes, keep=keep, hwm=self._hwm)
+        else:
+            if kernel_route is None:
+                kernel_route = self.device.type == "cuda"
+            centroids, c_sq, lv, sqn, li = staged
+            d, i = sharded_ivf_search_program(
+                self._mesh, centroids, c_sq, lv, sqn if keep is None else masked_norms, li, q,
+                nprobe_eff, k, use_kernels=kernel_route, axes=self._axes,
+                keep=None if kernel_route else keep_canvas, hwm=self._hwm,
+                dense=None if scan is None else scan == "dense")
+        if self._tail and self._tail.count:
+            d, i = self._merge_ivf_tail(d, i, q, k, nprobe_eff, keep)
+        return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+
+    # -- serialization ----------------------------------------------------------------------------
+
+    def state(self) -> tuple[dict[str, Any], dict[str, np.ndarray]]:
+        params = {"dim": self.dim, "nlist": self.nlist, "nprobe": self.nprobe,
+                  "scan_dtype": self.scan_dtype, "rerank_dtype": self.rerank_dtype}
+        if self._mode == "device" and self.ntotal:
+            # bf16-kept rows widen to f32, as in the JAX package.
+            vecs, idsa, _ = self._rows_all()
+            return params, {"vectors": vecs.to(torch.float32).cpu().numpy(),
+                            "ids": idsa.cpu().numpy().astype(np.int64),
+                            "centroids": self._centroids_dev().cpu().numpy()}
+        return params, {"vectors": self._vectors, "ids": self._ids,
+                        "centroids": self._centroids_host()}
+
+    @classmethod
+    def from_state(cls, params, arrays, device=None, mesh: Mesh | None = None
+                   ) -> "ShardedIVFIndex":
+        """Accepts the JAX package's ShardedIVFIndex.state() (written at any
+        device count) unchanged; an old file's float32 scan + bfloat16
+        rerank pair (a no-op) loads as float32 + float32."""
+        scan_dtype = str(params.get("scan_dtype", "float32"))
+        rerank_dtype = str(params.get("rerank_dtype", "float32"))
+        if scan_dtype == "float32":
+            rerank_dtype = "float32"
+        index = cls(dim=int(params["dim"]), nlist=int(params["nlist"]),
+                    nprobe=int(params["nprobe"]), scan_dtype=scan_dtype,
+                    rerank_dtype=rerank_dtype, mesh=mesh, device=device)
+        if arrays["centroids"].size:
+            index._centroids = np.array(arrays["centroids"], dtype=np.float32)
+        if arrays["vectors"].size:
+            index._absorb(arrays["vectors"], arrays["ids"])
         return index

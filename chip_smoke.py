@@ -65,8 +65,9 @@ Phases (any failure raises and exits non-zero; none is caught):
                  with --yaml; serve; serve --batch 128; analyze; reindex;
                  clean) on the card and with C99VDB_PLATFORM=cpu on a copy of
                  the same files: equal rc, stdout, stderr and files, byte for
-                 byte; reindex with ivf_flat, ivf_pq and sharded_flat (one
-                 rank) on the card and serve --batch from its files on both; the launcher without a
+                 byte; reindex with ivf_flat, ivf_pq, sharded_flat and
+                 sharded_ivf (one rank) on the card and serve --batch from
+                 its files on both; the launcher without a
                  visible card (one Error line, exit 1); one serve --batch in
                  this process (its peak device memory holds the store). The
                  CLI ranks with plain torch: no kernel is on its path.
@@ -93,6 +94,22 @@ Phases (any failure raises and exits non-zero; none is caught):
                  to phase 3's FlatIndex and across W; the flat kernel launched
                  in modes float32 and int8 on each run's path; on every rank,
                  the kernel against its plain version on that rank's shard;
+                 host-clock search ms per W (informative).
+ 12. sharded_ivf (runs after phase 11, on phase 3's corpus and phase 5's
+                 quantizer, nlist 4096) ShardedIVFIndex (parallel/sharded.py)
+                 at 1M x 384, device mode, f32 and int8 (f32 rerank) stores,
+                 B=128, k=10, at W = 1 in this process and W = 2 (two
+                 processes on cuda:0 under gloo, the centroids through a
+                 file; each rank holds 1/2 of every list): nprobe 3 (the
+                 dense kernel at both W) and 16 (the select kernel),
+                 unfiltered and with the 10% id_mask, then a 10,000-row tail
+                 add, remove_ids (1,004 rows, folding the tail) and a
+                 restage. Every search equals the same route with every IVF
+                 kernel on its plain version (int8 bit for bit); f32 ids
+                 equal phase 5's IVFFlatIndex at the same nprobe and step,
+                 and across W; on every rank, each IVF kernel against its
+                 plain version on that rank's block; the select, dense and
+                 int8 dense kernels launched at each W; recall@10 and
                  host-clock search ms per W (informative).
 
 Before the last line it prints the card line from nvidia-smi and one JSON
@@ -129,7 +146,7 @@ from c99_vectordb_tpu_torch.ops.distances import scores_via_matmul
 from c99_vectordb_tpu_torch.ops.embed import embed_texts, embed_texts_device
 from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
 from c99_vectordb_tpu_torch.ops.rerank import exact_rerank_rows, shortlist_depth
-from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex
+from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
 from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 # Published H100 SXM figures (NVIDIA data sheet): bytes/s and dense
@@ -725,6 +742,8 @@ def phase_ivf(device, d, seed, card, corpus):
     errs = dict.fromkeys(IVF_KERNELS, 0.0)
     result = {"kmeans_s": t_km, "nlist": nlist, "routes": []}
     operands = {}
+    # The f32 index's results by step, and the quantizer: phase sharded_ivf's reference.
+    ref = {"centroids": base._centroids.cpu().numpy(), "dense_nprobe": None}
     extra, _, _ = clustered_corpus(10_000, d, seed + 5)
     for dt in ("float32", "bfloat16", "int8"):
         index = base if dt == "float32" else IVFFlatIndex(
@@ -738,6 +757,8 @@ def phase_ivf(device, d, seed, card, corpus):
         log(f"ivf {dt}: staged {n} rows in {time.perf_counter() - t0:.2f} s, nlist={nlist}, "
             f"pad={pad}")
         dense_np = max(1, (DENSE_MAX_BF16 if dt == "bfloat16" else DENSE_MAX_F32) // pad)
+        if dt == "float32":
+            ref["dense_nprobe"] = dense_np
         for nprobe in sorted({dense_np, 16}):
             route = route_of(index, dt, nprobe)
             for name, kw, gt in (("unfiltered", {}, gt_i),
@@ -745,6 +766,8 @@ def phase_ivf(device, d, seed, card, corpus):
                 (gd, gi), secs, got = check_route(index, q, 10, f"ivf {dt} p={nprobe} {name}",
                                                    nprobe=nprobe, **kw)
                 note_errs(errs, got)
+                if dt == "float32":
+                    ref[(nprobe, name)] = (gd, gi)
                 err = max(got.values(), default=0.0)
                 rec = recall_at(gi, gt)
                 log(f"ivf {dt} nprobe={nprobe} {name}: route {route} (pad {pad}, width "
@@ -769,16 +792,20 @@ def phase_ivf(device, d, seed, card, corpus):
         index.add(torch.from_numpy(extra).to(device),
                   torch.arange(n, n + extra.shape[0], dtype=torch.int32, device=device))
         assert index._tail is not None and index._tail.count == extra.shape[0]
-        note_errs(errs, check_route(index, q, 10, f"ivf {dt} tail")[2])
+        tail_out, _, got = check_route(index, q, 10, f"ivf {dt} tail")
+        note_errs(errs, got)
         removed = index.remove_ids(np.arange(0, n, 997))    # folds the tail first
         assert removed == len(range(0, n, 997)) and index._tail is None
-        note_errs(errs, check_route(index, q, 10, f"ivf {dt} after remove + fold")[2])
+        removed_out, _, got = check_route(index, q, 10, f"ivf {dt} after remove + fold")
+        note_errs(errs, got)
+        if dt == "float32":
+            ref[(16, "tail")], ref[(16, "after remove")] = tail_out, removed_out
         log(f"ivf {dt}: tail add of {extra.shape[0]} rows, remove_ids of {removed} rows and "
             f"the fold-restage agree with the plain route")
         del index
     del base, x_dev
     torch.cuda.empty_cache()
-    return result, errs, operands
+    return result, errs, operands, ref
 
 
 def staged_operands(index, q, nprobe):
@@ -1523,8 +1550,8 @@ def phase_cli(n_records, seed, workdir, card):
     and with C99VDB_PLATFORM=cpu on a copy of the same files; their (rc,
     stdout, stderr) and files must be equal. Steps that only read run at
     the same time (12 to 16 processes), the others in card/CPU pairs. Then
-    reindex with ivf_flat, ivf_pq and sharded_flat on the card, and serve --batch from
-    the card's files on both; the launcher without a visible card; one
+    reindex with ivf_flat, ivf_pq, sharded_flat and sharded_ivf on the card, and serve
+    --batch from the card's files on both; the launcher without a visible card; one
     serve --batch in this process on the card."""
     import io
     import os
@@ -1614,10 +1641,10 @@ def phase_cli(n_records, seed, workdir, card):
         f"card's rc, stdout and stderr equal the CPU run's byte for byte, and so do the "
         f"files ({n_records} notes)")
 
-    # ivf_flat, ivf_pq and sharded_flat: reindex on the card (all at once),
+    # ivf_flat, ivf_pq, sharded_flat and sharded_ivf: reindex on the card (all at once),
     # then serve --batch from the card's files on the card and on the CPU
-    # (all six at once).
-    kinds = ("ivf_flat", "ivf_pq", "sharded_flat")
+    # (all eight at once).
+    kinds = ("ivf_flat", "ivf_pq", "sharded_flat", "sharded_ivf")
     dirs = {kind: (workdir / kind / "gpu", workdir / kind / "cpu") for kind in kinds}
     for kind in kinds:
         for d in dirs[kind]:
@@ -1643,7 +1670,8 @@ def phase_cli(n_records, seed, workdir, card):
         note_time(f"serve[{kind}]", "card", served[2 * i][3], len(jobs))
         note_time(f"serve[{kind}]", "cpu", served[2 * i + 1][3], len(jobs))
         assert out == batched, f"cli {kind}: serve --batch differs from the flat index's"
-        built_as = "one rank" if kind == "sharded_flat" else f"nlist {auto_nlist(n_records)}"
+        built_as = ("one rank" if kind == "sharded_flat" else
+                    f"nlist {auto_nlist(n_records)}" + (", one rank" if kind == "sharded_ivf" else ""))
         log(f"cli {kind}: reindex on the card ({built_as}); serve --batch 128 from its files "
             f"equals the CPU run's byte for byte and the flat index's output")
     pq_dir = dirs["ivf_pq"][0]
@@ -1758,9 +1786,10 @@ def run_sharded(mesh, x, q, mask, extra):
 
 
 def sharded_rank(args) -> int:
-    """One rank of phase sharded's multi-rank run (a child process):
-    regenerates the corpus from the seed, runs run_sharded on the world's
-    data mesh, and writes rank 0's results (every rank's ids) to --out."""
+    """One rank of phase sharded's (or, with --ivf-centroids, phase
+    sharded_ivf's) multi-rank run (a child process): regenerates the corpus
+    from the seed, runs run_sharded (run_sharded_ivf on those centroids) on
+    the world's data mesh, and writes this rank's results to --out."""
     import datetime
     import pickle
 
@@ -1774,7 +1803,12 @@ def sharded_rank(args) -> int:
                             timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
     try:
         x, q, mask, extra = sharded_corpus(args.seed)
-        res = run_sharded(default_data_mesh(torch.device("cuda", 0)), x, q, mask, extra)
+        mesh = default_data_mesh(torch.device("cuda", 0))
+        if args.ivf_centroids:
+            res = run_sharded_ivf(mesh, x, q, mask, extra, np.load(args.ivf_centroids),
+                                  time_shard=True)
+        else:
+            res = run_sharded(mesh, x, q, mask, extra)
         with open(Path(args.out) / f"rank{args.sharded_rank}.pkl", "wb") as fh:
             pickle.dump(res, fh)
     finally:
@@ -1782,31 +1816,24 @@ def sharded_rank(args) -> int:
     return 0
 
 
-def phase_sharded(device, seed, card, flat_results, corpus):
-    """ShardedFlatIndex on phase 3's 1M x 384 corpus at W = 1 (this process,
-    no process group) and W = 2 (two processes on cuda:0 under gloo, 500,000
-    rows a rank): strict recall@10 = 1.0 against the float64 ground truth,
-    ids equal to phase 3's FlatIndex, the tail, removal and restage against
-    the ground truth of their rows; W = 2's ids equal W = 1's. Returns
-    (summary, W = 1 launches by mode, W = 2 launches, kernel errors)."""
+def spawn_ranks(seed, label, centroids=None):
+    """The multi-rank run of a sharded phase: SHARDED_WORLD processes of this
+    script on cuda:0 (gloo), each regenerating the corpus from the seed
+    (the IVF run also reads `centroids` from a file). Returns every rank's
+    results; fails if a rank fails or outlives SHARDED_TIMEOUT_S."""
     import pickle
 
-    from c99_vectordb_tpu_torch.parallel import default_data_mesh
-
-    x, q, mask, gt_i, gtm_i = corpus
-    extra = clustered_corpus(10_000, x.shape[1], seed + 5)[0]
-    n = x.shape[0]
-    t0 = time.perf_counter()
-    one = run_sharded(default_data_mesh(device), x, q, mask, extra)
-    log(f"sharded W=1: {time.perf_counter() - t0:.1f} s, launches {one['launches']}")
-    # The multi-rank run: spawned now, on the same card.
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_", dir=str(Path.cwd())))
     try:
         t0 = time.perf_counter()
+        extra = []
+        if centroids is not None:
+            np.save(workdir / "centroids.npy", centroids)
+            extra = ["--ivf-centroids", str(workdir / "centroids.npy")]
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
              "--sharded-rank", str(r), "--world", str(SHARDED_WORLD),
-             "--store", str(workdir / "store"), "--out", str(workdir)],
+             "--store", str(workdir / "store"), "--out", str(workdir), *extra],
             stdout=(workdir / f"log{r}").open("w"), stderr=subprocess.STDOUT)
             for r in range(SHARDED_WORLD)]
         rcs = []
@@ -1818,16 +1845,35 @@ def phase_sharded(device, seed, card, flat_results, corpus):
                     other.kill()
                 rcs.append("timeout")
         for r, rc in enumerate(rcs):
-            assert rc == 0, f"sharded rank {r}: rc {rc}\n" + (
+            assert rc == 0, f"{label} rank {r}: rc {rc}\n" + (
                 workdir / f"log{r}").read_text()[-4000:]
         ranks = []
         for r in range(SHARDED_WORLD):
             with open(workdir / f"rank{r}.pkl", "rb") as fh:
                 ranks.append(pickle.load(fh))
-        log(f"sharded W={SHARDED_WORLD}: {time.perf_counter() - t0:.1f} s in "
+        log(f"{label} W={SHARDED_WORLD}: {time.perf_counter() - t0:.1f} s in "
             f"{SHARDED_WORLD} processes, launches {ranks[0]['launches']}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    return ranks
+
+
+def phase_sharded(device, seed, card, flat_results, corpus):
+    """ShardedFlatIndex on phase 3's 1M x 384 corpus at W = 1 (this process,
+    no process group) and W = 2 (two processes on cuda:0 under gloo, 500,000
+    rows a rank): strict recall@10 = 1.0 against the float64 ground truth,
+    ids equal to phase 3's FlatIndex, the tail, removal and restage against
+    the ground truth of their rows; W = 2's ids equal W = 1's. Returns
+    (summary, W = 1 launches by mode, W = 2 launches, kernel errors)."""
+    from c99_vectordb_tpu_torch.parallel import default_data_mesh
+
+    x, q, mask, gt_i, gtm_i = corpus
+    extra = clustered_corpus(10_000, x.shape[1], seed + 5)[0]
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    one = run_sharded(default_data_mesh(device), x, q, mask, extra)
+    log(f"sharded W=1: {time.perf_counter() - t0:.1f} s, launches {one['launches']}")
+    ranks = spawn_ranks(seed, "sharded")
     two = ranks[0]
 
     # Ground truth of the tail's and the removal's rows.
@@ -1872,6 +1918,196 @@ def phase_sharded(device, seed, card, flat_results, corpus):
     log(f"sharded: the flat kernel agrees with its plain version on every rank's shard "
         f"(max |key diff| {errs})")
     return summary, one["launches"], two["launches"], errs
+
+
+# -- phase sharded_ivf: ShardedIVFIndex at 1M x 384, one rank and two ------------------
+
+# nprobe 3: the dense route at W = 1 (3 x pad 1152 <= 4096) and W = 2 (pad_local 576);
+# 16: the select route at both.
+SHARDED_IVF_NPROBES = (3, 16)
+
+
+def sharded_ivf_operands(index, q, nprobe):
+    """The scan operands of this rank's block at `nprobe` (its lists, its
+    marks, the probes and staged queries), in staged_operands' form."""
+    staged = index._stage()
+    qd = torch.from_numpy(q).to(staged[2].device)
+    probes = ivf_scan.coarse_probes(qd, staged[0], staged[1], nprobe)
+    ops = {"probes": probes, "pad": index._params[1], "hwm": index._hwm}
+    if index.scan_dtype == "int8":
+        q8, rs = ivf_scan.sq8_stage_queries(qd, staged[3])
+        ops.update(kind="int8", q8=q8, rs=rs, codes=staged[2], sqn=staged[4], ids=staged[5])
+    else:
+        ops.update(kind="float", q=qd, q_sq=(qd * qd).sum(1), lists=staged[2], sqn=staged[3],
+                   ids=staged[4])
+    return ops
+
+
+def sharded_ivf_step(index, q, label, **kw):
+    """One B = 128, k = 10 search on the card route, against the same route
+    with every IVF kernel swapped for its plain version (f32 within
+    IVF_REL_TOL, int8 bit for bit). Returns ((dists, ids), host seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kd, ki = index.search(q, 10, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with plain_kernels():
+        pd, pi = index.search(q, 10, **kw)
+    if index.scan_dtype == "int8":
+        assert np.array_equal(kd, pd) and np.array_equal(ki, pi), (
+            f"{label}: the route differs from its plain version")
+    else:
+        compare_topk(pd, pi, kd, ki, label)
+    return (kd, ki), secs
+
+
+def run_sharded_ivf(mesh, x, q, mask, extra, centroids, time_shard=False):
+    """ShardedIVFIndex's path on `mesh`, device mode, on `centroids`, for the
+    f32 store and the int8 store (f32 rerank): B = 128, k = 10 search at
+    nprobe 3 and 16, unfiltered and with `mask`; a tail add of `extra`,
+    remove_ids of every 997th id (which folds the tail) and a forced
+    restage, at nprobe 16. Every search is held against the same route on
+    the plain versions. Counts are reset before and read after the path;
+    then each IVF kernel the path ran is held against its plain version on
+    this rank's block. time_shard (a multi-rank run): rank 0 then times each
+    kernel on its block while the other ranks wait (time_ivf; its
+    "kernel_times"). Returns {dtype: {(nprobe, step): (dists, ids)},
+    "search_ms": {(dtype, nprobe, step): ms}, "pad_local", "launches",
+    "kernel_err": {kernel: max |diff|}}."""
+    device = mesh.device
+    n, d = x.shape
+    x_dev = torch.from_numpy(x).to(device)
+    ids_dev = torch.arange(n, dtype=torch.int32, device=device)
+    extra_dev = torch.from_numpy(extra).to(device)
+    extra_ids = torch.arange(n, n + extra.shape[0], dtype=torch.int32, device=device)
+    out = {"search_ms": {}}
+    checks = []
+    reset_counts()
+    for dt in ("float32", "int8"):
+        index = ShardedIVFIndex(dim=d, nlist=centroids.shape[0], nprobe=16, scan_dtype=dt,
+                                mesh=mesh)
+        index._centroids = torch.from_numpy(centroids).to(device)    # phase ivf's quantizer
+        index.add(x_dev, ids_dev)
+        index.search(q[:1], 10)                  # stage
+        out["pad_local"] = index._params[1]
+        steps = {}
+        for nprobe in SHARDED_IVF_NPROBES:
+            for name, kw in (("unfiltered", {}), ("10% id_mask", {"id_mask": mask})):
+                steps[(nprobe, name)], secs = sharded_ivf_step(
+                    index, q, f"sharded_ivf {dt} p={nprobe} {name}", nprobe=nprobe, **kw)
+                out["search_ms"][(dt, nprobe, name)] = secs * 1e3
+        if dt == "int8":
+            checks.append(("ivf_scan_dense_int8", sharded_ivf_operands(index, q, 16),
+                           shortlist_depth(10, n)))
+        else:
+            checks += [("ivf_scan_dense", sharded_ivf_operands(index, q, 3), 10),
+                       ("ivf_scan_select", sharded_ivf_operands(index, q, 16), 10)]
+        index.add(extra_dev, extra_ids)
+        assert index._tail is not None and index._tail.count == extra.shape[0]
+        steps[(16, "tail")] = sharded_ivf_step(index, q, f"sharded_ivf {dt} tail")[0]
+        removed = index.remove_ids(np.arange(0, n, 997))     # folds the tail first
+        assert removed == len(range(0, n, 997)) and index._tail is None
+        steps[(16, "after remove")] = sharded_ivf_step(index, q, f"sharded_ivf {dt} removed")[0]
+        index._restage_needed = True
+        steps[(16, "restaged")] = sharded_ivf_step(index, q, f"sharded_ivf {dt} restaged")[0]
+        out[dt] = steps
+        del index
+    out["launches"] = ivf_counts()
+    out["kernel_err"] = {}
+    for kernel, ops, k in checks:
+        err = check_ivf_kernel(ops, kernel, k, f"sharded_ivf {kernel} shard operands")
+        out["kernel_err"][kernel] = max(out["kernel_err"].get(kernel, 0.0), err)
+    if time_shard:
+        import torch.distributed as dist
+
+        dist.barrier()
+        if dist.get_rank() == 0:
+            card = card_line()
+            out["kernel_times"] = {
+                kernel: time_ivf(ops, kernel, k, f"sharded_ivf W={dist.get_world_size()} rank 0",
+                                 card)
+                for kernel, ops, k in checks}
+        dist.barrier()
+    del checks, x_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_ivf(device, seed, card, ivf_ref, corpus):
+    """ShardedIVFIndex on phase 3's 1M x 384 corpus with phase ivf's
+    quantizer (nlist 4096) at W = 1 (this process, no process group) and
+    W = 2 (two processes on cuda:0 under gloo, the centroids through a
+    file): every search equals the same route on the plain versions; f32
+    ids equal phase ivf's IVFFlatIndex at the same nprobe and step, and
+    across W; each rank's kernels equal their plain versions on its block;
+    every IVF kernel launched at both W; W = 2's rank 0 times each kernel
+    on its block (its rows go into the kernels line's variants). Returns
+    (summary, W = 1 launches, W = 2 launches (rank 0), kernel errors,
+    {kernel: [W = 2 rank 0's time row]})."""
+    from c99_vectordb_tpu_torch.parallel import default_data_mesh
+
+    x, q, mask, gt_i, gtm_i = corpus
+    extra = clustered_corpus(10_000, x.shape[1], seed + 5)[0]
+    assert ivf_ref["dense_nprobe"] == SHARDED_IVF_NPROBES[0], ivf_ref["dense_nprobe"]
+    t0 = time.perf_counter()
+    one = run_sharded_ivf(default_data_mesh(device), x, q, mask, extra, ivf_ref["centroids"])
+    log(f"sharded_ivf W=1: {time.perf_counter() - t0:.1f} s, pad_local {one['pad_local']}, "
+        f"launches {one['launches']}")
+    ranks = spawn_ranks(seed, "sharded_ivf", ivf_ref["centroids"])
+    two = ranks[0]
+    summary = {"pad_local": {1: one["pad_local"], SHARDED_WORLD: two["pad_local"]},
+               "search_ms": {}, "recall": {}, "int8_rows_equal_across_w": {}}
+    for dt in ("float32", "int8"):
+        for key, (gd, gi) in one[dt].items():
+            nprobe, step = key
+            label = f"sharded_ivf {dt} p={nprobe} {step}"
+            ref_key = (nprobe, "after remove") if step == "restaged" else key
+            if dt == "float32":
+                wd, wi = ivf_ref[ref_key]
+                assert np.array_equal(gi, wi), f"{label}: ids differ from IVFFlatIndex's"
+                compare_topk(wd, wi, gd, gi, f"{label} against IVFFlatIndex")
+            for r, res in enumerate(ranks):
+                od, oi = res[dt][key]
+                assert np.array_equal(oi, ranks[0][dt][key][1]), f"{label}: rank {r} differs"
+                if dt == "float32":
+                    assert np.array_equal(oi, gi), f"{label}: W={SHARDED_WORLD} ids differ"
+                    compare_topk(gd, gi, od, oi, f"{label} W={SHARDED_WORLD}")
+            if dt == "int8":
+                summary["int8_rows_equal_across_w"][f"p{nprobe} {step}"] = int(
+                    (two[dt][key][1] == gi).all(axis=1).sum())
+            if step in ("unfiltered", "10% id_mask"):
+                truth = gt_i if step == "unfiltered" else gtm_i
+                for w, res in ((1, one), (SHARDED_WORLD, two)):
+                    summary["recall"][f"W={w} {dt} p{nprobe} {step}"] = recall_at(
+                        res[dt][key][1], truth)
+                    summary["search_ms"][f"W={w} {dt} p{nprobe} {step}"] = res["search_ms"][
+                        (dt, nprobe, step)]
+        rec = {k: v for k, v in summary["recall"].items() if f" {dt} " in k}
+        ms = {k: round(v, 2) for k, v in summary["search_ms"].items() if f" {dt} " in k}
+        log(f"sharded_ivf {dt}: W=1 and W={SHARDED_WORLD} (every rank) equal their plain "
+            f"routes at nprobe {SHARDED_IVF_NPROBES}, unfiltered and with the 10% id_mask, after "
+            f"a {extra.shape[0]}-row tail add, remove_ids of {len(range(0, x.shape[0], 997))} "
+            f"rows and a restage" + (
+                "; ids equal IVFFlatIndex's at every step and across W" if dt == "float32"
+                else f"; rows equal across W: {summary['int8_rows_equal_across_w']}")
+            + f"; recall@10 {rec}; B=128 search ms (host clock) {ms} [{card}]")
+    for w, res in [(1, one)] + [(SHARDED_WORLD, r) for r in ranks]:
+        assert all(v > 0 for v in res["launches"].values()), (
+            f"sharded_ivf W={w}: an IVF kernel was not launched: {res['launches']}")
+    errs = {}
+    for res in [one] + ranks:
+        for kernel, err in res["kernel_err"].items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    log(f"sharded_ivf: every IVF kernel agrees with its plain version on every rank's block "
+        f"(max |diff| {errs})")
+    for kernel, row in two["kernel_times"].items():
+        log(f"times {kernel} {row['label']} (pad_local {row['pad']}, nprobe {row['nprobe']}): "
+            f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library yardstick "
+            f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) "
+            f"[{card}]")
+    return (summary, one["launches"], two["launches"], errs,
+            {kernel: [row] for kernel, row in two["kernel_times"].items()})
 
 
 # -- main ------------------------------------------------------------------------
@@ -1955,7 +2191,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1234)
     # One rank of phase sharded's multi-rank run (the phase spawns these).
     for flag, kind in (("--sharded-rank", int), ("--world", int), ("--store", str),
-                       ("--out", str)):
+                       ("--out", str), ("--ivf-centroids", str)):
         ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -2015,7 +2251,7 @@ def main() -> int:
     # 5. IVFFlatIndex at 1M x 384 (counts reset before, read after)
     t0 = time.perf_counter()
     reset_counts()
-    ivf_result, ivf_errs, ivf_ops = phase_ivf(device, d, args.seed, card, corpus)
+    ivf_result, ivf_errs, ivf_ops, ivf_ref = phase_ivf(device, d, args.seed, card, corpus)
     ivf_launches = ivf_counts()
     assert all(v > 0 for v in ivf_launches.values()), f"ivf path launches {ivf_launches}"
     log(f"phase ivf: {time.perf_counter() - t0:.1f} s, kernel launches {ivf_launches}")
@@ -2034,11 +2270,20 @@ def main() -> int:
     sharded_out, sharded_launches, sharded_w2_launches, sharded_errs = phase_sharded(
         device, args.seed, card,
         {dt: flat_out[f"{dt}_results"] for dt in ("float32", "int8")}, corpus)
-    del corpus
     for mode, err in sharded_errs.items():
         note_err(errs, mode, err)
     log(f"phase sharded: {time.perf_counter() - t0:.1f} s, kernel launches W=1 "
         f"{sharded_launches}, W={SHARDED_WORLD} (rank 0) {sharded_w2_launches}")
+
+    # 12. ShardedIVFIndex at W = 1 and W = 2 on phase 5's quantizer (each
+    # run resets the counts before its path and reads them after)
+    t0 = time.perf_counter()
+    sivf_out, sivf_launches, sivf_w2_launches, sivf_errs, sivf_times = phase_sharded_ivf(
+        device, args.seed, card, ivf_ref, corpus)
+    del corpus, ivf_ref
+    note_errs(ivf_errs, sivf_errs)
+    log(f"phase sharded_ivf: {time.perf_counter() - t0:.1f} s, kernel launches W=1 "
+        f"{sivf_launches}, W={SHARDED_WORLD} (rank 0) {sivf_w2_launches}")
 
     # 7. MemoDB on IVFFlatIndex (counts reset before, read after)
     t0 = time.perf_counter()
@@ -2093,7 +2338,7 @@ def main() -> int:
     main_row = time_case(*main_inputs, card)
     rows = [main_row] + phase_times(device, n_kernel, d, (128, 1024), 20, args.seed, card)
     ivf_rows = {kernel: [time_ivf(ops, kernel, k, label, card) for label, ops, k in items]
-                for kernel, items in cases.items()}
+                + sivf_times.get(kernel, []) for kernel, items in cases.items()}
     adc_rows = {}
     for label, kernel, k, ops in pq_ops:
         name = kernel if kernel == "adc_scan_select" else f"adc_scan_dense[qpb={ops['qpb']}]"
@@ -2148,7 +2393,9 @@ def main() -> int:
             "replaces": replaces[kernel],
             "launches": ivf_launches[kernel],
             "launches_by_path": {"ivf": ivf_launches[kernel],
-                                 "memodb_ivf": memo_ivf_launches[kernel]},
+                                 "memodb_ivf": memo_ivf_launches[kernel],
+                                 "sharded_ivf": sivf_launches[kernel],
+                                 f"sharded_ivf_w{SHARDED_WORLD}": sivf_w2_launches[kernel]},
             "max_abs_err": ivf_errs[kernel],
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
@@ -2164,6 +2411,7 @@ def main() -> int:
         })
     kernels[1]["ivf"] = ivf_result
     kernels[1]["memodb_ivf"] = memo_ivf
+    kernels[1]["sharded_ivf"] = sivf_out
     kernels.append({
         "name": "fused_l2_topk[q_int8=False]",
         "route": "cuda",

@@ -1,6 +1,6 @@
 """PyTorch port's memo CLI against the JAX package's across the index
-families it has (flat, ivf_flat, ivf_pq, sharded_flat at one rank, the bf16
-and int8 scan stores, ksub 16, a pure-code IVF-PQ file), files cross-read
+families it has (flat, ivf_flat, ivf_pq, sharded_flat and sharded_ivf at one
+rank, the bf16 and int8 scan stores, ksub 16, a pure-code IVF-PQ file), files cross-read
 between the two CLIs, and `serve --batch`'s sub-batches. Every comparison
 runs both CLIs on the
 same files (the runner of tests/test_torch_cli_golden.py: same argv, stdin
@@ -20,6 +20,7 @@ from c99_vectordb_tpu_torch.models.ivf_flat import IVFFlatIndex as TIVF
 from c99_vectordb_tpu_torch.models.ivf_pq import IVFPQIndex as TPQ
 from c99_vectordb_tpu_torch.ops import distances as tdist
 from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex as TSharded
+from c99_vectordb_tpu_torch.parallel import ShardedIVFIndex as TShardedIVF
 from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 INPUT = """\
@@ -71,7 +72,8 @@ def engine(monkeypatch, kind, **env):
         monkeypatch.setenv(key, value)
 
 
-@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat"])
+@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
+                                  "sharded_ivf"])
 def test_save_recall_reindex_cycle(pair, monkeypatch, kind):
     engine(monkeypatch, kind)
     rc, out, _ = pair.run("-f", "db", "save", "in.yaml")
@@ -102,6 +104,22 @@ def test_sharded_flat_int8_cycle(pair, monkeypatch):
     process group), through both CLIs: save, reindex, recall, serve
     --batch, then an incremental save and recall."""
     engine(monkeypatch, "sharded_flat", C99VDB_SCAN_DTYPE="int8")
+    assert pair.run("-f", "db", "save", "in.yaml")[0] == 0
+    assert pair.run("-f", "db", "reindex")[0] == 0
+    rc, out, _ = pair.run("-f", "db", "recall", "-k", "1", "cat sat mat")
+    assert out.splitlines()[2] == "      the cat sat on the mat"
+    pair.run("-f", "db", "serve", "--yaml", "-k", "3", "--batch", "4", stdin=QUERIES)
+    (pair.root / "more.yaml").write_text("---\nbody: a brand new note about sailing\n")
+    assert pair.run("-f", "db", "save", "more.yaml")[0] == 0
+    rc, out, _ = pair.run("-f", "db", "recall", "-k", "1", "sailing note")
+    assert out.splitlines()[1].startswith("  [3] Score: ")
+
+
+def test_sharded_ivf_int8_cycle(pair, monkeypatch):
+    """C99VDB_INDEX=sharded_ivf with the SQ8 scan store and a bf16 rerank
+    store (one rank: no process group), through both CLIs: save, reindex,
+    recall, serve --batch, then an incremental save and recall."""
+    engine(monkeypatch, "sharded_ivf", C99VDB_SCAN_DTYPE="int8", C99VDB_RERANK_DTYPE="bfloat16")
     assert pair.run("-f", "db", "save", "in.yaml")[0] == 0
     assert pair.run("-f", "db", "reindex")[0] == 0
     rc, out, _ = pair.run("-f", "db", "recall", "-k", "1", "cat sat mat")
@@ -185,7 +203,8 @@ def test_pure_code_ivf_pq_file_serves_per_query(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat"])
+@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
+                                  "sharded_ivf"])
 def test_cross_read(pair, monkeypatch, kind, writer):
     """A DB saved (and reindexed) by either CLI recalls and serves with the
     same bytes through both."""
@@ -199,7 +218,8 @@ def test_cross_read(pair, monkeypatch, kind, writer):
     pair.run("-f", "db", "serve", "-k", "3", "--batch", "4", stdin=queries(9, seed=11))
 
 
-@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat"])
+@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
+                                  "sharded_ivf"])
 @pytest.mark.parametrize("per_batch", [1, 3])
 def test_serve_batch_sub_batches(pair, monkeypatch, kind, per_batch):
     """--batch 8 under a budget that holds `per_batch` queries' outputs
@@ -211,7 +231,8 @@ def test_serve_batch_sub_batches(pair, monkeypatch, kind, per_batch):
     rows = read_index(pair.root / "db.memo", device="cpu").ranked_rows()
     budget = per_batch * rows * tdist.RANKED_BYTES_PER_ROW
     monkeypatch.setattr(tdist, "RANKED_MANY_BUDGET_BYTES", budget)
-    cls = {"flat": TFlat, "ivf_flat": TIVF, "ivf_pq": TPQ, "sharded_flat": TSharded}[kind]
+    cls = {"flat": TFlat, "ivf_flat": TIVF, "ivf_pq": TPQ, "sharded_flat": TSharded,
+           "sharded_ivf": TShardedIVF}[kind]
     seen = []
     real = cls.ranked_many_device
 
@@ -250,7 +271,8 @@ def test_serve_batch_keeps_the_block_on_the_device(pair, monkeypatch):
     assert shapes == [(3, 384)]
 
 
-@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat"])
+@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
+                                  "sharded_ivf"])
 def test_ranked_device_accepts_tensors(monkeypatch, tmp_path, kind):
     """ranked_all_device / ranked_many_device take a tensor on the
     index's device as well as a numpy array, with the same bits."""

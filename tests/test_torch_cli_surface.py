@@ -93,12 +93,12 @@ def test_unsupported_platform_is_one_error_line(cwd, capsys, monkeypatch, platfo
 
 @pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_pq"])
 def test_sharded_kind_is_one_error_line(cwd, capsys, monkeypatch, kind):
-    """sharded_flat is ported: save works (one rank, no process group). The
-    other sharded kinds are not yet: one Error line, exit 1."""
+    """sharded_flat and sharded_ivf are ported: save works (one rank, no
+    process group). sharded_ivf_pq is not yet: one Error line, exit 1."""
     monkeypatch.setenv("C99VDB_PLATFORM", "cpu")
     monkeypatch.setenv("C99VDB_INDEX", kind)
     rc, out, err = run_torch(capsys, "-f", "db", "save", "in.yaml")
-    if kind == "sharded_flat":
+    if kind in ("sharded_flat", "sharded_ivf"):
         assert (rc, err) == (0, "")
         assert out.startswith("Memorized: 'I prefer tea over coffee' (ID: 0)\n")
         assert (cwd / "db.memo").exists()
@@ -108,10 +108,10 @@ def test_sharded_kind_is_one_error_line(cwd, capsys, monkeypatch, kind):
 
 
 def test_sharded_file_from_jax_is_one_error_line(cwd, capsys, monkeypatch):
-    """A DB the JAX CLI saved with sharded_flat: the port's recall reads it
-    and prints the JAX CLI's bytes. One saved with sharded_ivf: the port's
-    recall refuses it with one Error line (it does not pretend the index
-    is empty)."""
+    """A DB the JAX CLI saved with sharded_flat or sharded_ivf: the port's
+    recall reads it and prints the JAX CLI's bytes. One whose index file is
+    a JAX sharded_ivf_pq index: the port's recall refuses it with one Error
+    line (it does not pretend the index is empty)."""
     from c99_vectordb_tpu.cli import main as jax_main
 
     monkeypatch.setenv("C99VDB_PLATFORM", "cpu")
@@ -128,8 +128,20 @@ def test_sharded_file_from_jax_is_one_error_line(cwd, capsys, monkeypatch):
     assert jax_main(["memo", "-f", "ivf", "save", "in.yaml"]) == 0
     capsys.readouterr()
     monkeypatch.delenv("C99VDB_INDEX")
+    assert jax_main(["memo", "-f", "ivf", "recall", "tea"]) == 0
+    want = capsys.readouterr().out
     rc, out, err = run_torch(capsys, "-f", "ivf", "recall", "tea")
-    assert rc == 1 and err == "Error: index kind 'sharded_ivf' not yet ported\n"
+    assert (rc, out, err) == (0, want, "") and "] Score: " in want
+    from c99_vectordb_tpu.parallel.sharded import ShardedIVFPQIndex
+    from c99_vectordb_tpu.storage.index_io import write_index
+
+    pq = ShardedIVFPQIndex(dim=384, nlist=2, nprobe=2, m=8, ksub=16)
+    rows = np.random.default_rng(0).standard_normal((64, 384)).astype(np.float32)
+    pq.train(rows)
+    pq.add(rows[:1], np.arange(1))
+    write_index(pq, cwd / "ivf.memo")
+    rc, out, err = run_torch(capsys, "-f", "ivf", "recall", "tea")
+    assert rc == 1 and err == "Error: index kind 'sharded_ivf_pq' not yet ported\n"
 
 
 @pytest.mark.parametrize("argv", [("analyze", "--filter", "{source: user}"),

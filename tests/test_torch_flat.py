@@ -172,19 +172,20 @@ def test_unported_kind_raises(tmp_path, monkeypatch):
     np.testing.assert_array_equal(loaded.search(pts[:4], 3)[1], pq.search(pts[:4], 3)[1])
     monkeypatch.setenv("C99VDB_INDEX", "ivf_pq")
     assert tcommands.make_index(device="cpu").kind == "ivf_pq"
-    # sharded_flat is ported (one rank without a process group); the other
-    # sharded kinds are not yet.
-    monkeypatch.setenv("C99VDB_INDEX", "sharded_flat")
-    index = tcommands.make_index(device="cpu")
-    assert index.kind == "sharded_flat" and index.mesh.shape == {"data": 1}
-    for kind in ("sharded_ivf", "sharded_ivf_pq"):
-        monkeypatch.setenv("C99VDB_INDEX", kind)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tcommands.make_index(device="cpu")
-    with pytest.raises(NotImplementedError, match="index kind 'sharded_ivf' not yet ported"):
-        from c99_vectordb_tpu_torch.models.registry import resolve
+    # sharded_flat and sharded_ivf are ported (one rank without a process
+    # group); sharded_ivf_pq is not yet.
+    from c99_vectordb_tpu_torch.models.registry import resolve
 
-        resolve("sharded_ivf")
+    for kind in ("sharded_flat", "sharded_ivf"):
+        monkeypatch.setenv("C99VDB_INDEX", kind)
+        index = tcommands.make_index(device="cpu")
+        assert index.kind == kind and index.mesh.shape == {"data": 1}
+        assert type(index) is resolve(kind)
+    monkeypatch.setenv("C99VDB_INDEX", "sharded_ivf_pq")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tcommands.make_index(device="cpu")
+    with pytest.raises(NotImplementedError, match="index kind 'sharded_ivf_pq' not yet ported"):
+        resolve("sharded_ivf_pq")
     monkeypatch.setenv("C99VDB_INDEX", "bogus")
     with pytest.raises(ValueError):
         tcommands.make_index(device="cpu")

@@ -199,7 +199,8 @@ def test_port_imports_no_jax():
             "c99_vectordb_tpu_torch.models.ivf_flat", "c99_vectordb_tpu_torch.models.ivf_pq",
             "c99_vectordb_tpu_torch.ops.adc", "c99_vectordb_tpu_torch.ops.adc_cuda",
             "c99_vectordb_tpu_torch.parallel", "c99_vectordb_tpu_torch.parallel.mesh",
-            "c99_vectordb_tpu_torch.parallel.sharded"} <= set(modules)
+            "c99_vectordb_tpu_torch.parallel.sharded",
+            "c99_vectordb_tpu_torch.parallel.dryrun"} <= set(modules)
     chip = subprocess.run(
         [sys.executable, "-c",
          "import ast, sys; t = ast.parse(open('chip_smoke.py').read());"

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the sharded flat index (parallel/sharded.py)
-over the flat kernel (csrc/fused_l2_topk.cu), at W = 1 in this process and
-at W = 1, 2 and 4 gloo ranks sharing cuda:0 (tests/torch_parallel_worker.py,
-spawned once for the module).
+over the flat kernel (csrc/fused_l2_topk.cu), and the sharded IVF index
+over the IVF kernels (csrc/ivf_scan.cu), at W = 1 in this process and at
+W = 1, 2 and 4 gloo ranks sharing cuda:0 (tests/torch_parallel_worker.py
+and tests/torch_parallel_ivf_worker.py, each spawned once for the module).
 
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor the JAX package:
@@ -13,6 +14,10 @@ rerank, merge). Ids must equal the float64 numpy oracle's (or FlatIndex's
 on the card); distances agree within TOL relative to the row's largest
 distance (the card sums the rerank's squares in another order than
 numpy). The kernel must have launched in mode float32 and in mode int8.
+The sharded IVF index's f32 ids must equal IVFFlatIndex's on the card on
+the same centroids; on every rank each IVF kernel equals its plain version
+on that rank's block (select and dense within IVF_REL_TOL, int8 bit for
+bit), and the select, dense and int8 dense kernels must all have launched.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parallel_ivf_worker as ivf_worker
 import torch_parallel_worker as worker
 from c99_vectordb_tpu_torch.models.flat import FlatIndex
-from c99_vectordb_tpu_torch.ops import topk_cuda
+from c99_vectordb_tpu_torch.models.ivf_flat import IVFFlatIndex
+from c99_vectordb_tpu_torch.ops import ivf_scan_cuda, topk_cuda
 from c99_vectordb_tpu_torch.ops.rerank import shortlist_depth
-from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex
+from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -48,18 +55,17 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(scope="module")
-def card_runs(cuda, tmp_path_factory):
-    """{W: [rank results]} of the worker's cases with every rank on cuda:0."""
-    root = tmp_path_factory.mktemp("card_ranks")
+def spawn_worlds(script, root, extra=()):
+    """{W: [rank results]} of a worker's cases at every W, every rank on
+    cuda:0, all spawned at once."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", C99VDB_PLATFORM="cuda")
     procs = {}
     for w in WORLDS:
         out = root / f"w{w}"
         out.mkdir()
         procs[w] = [subprocess.Popen(
-            [sys.executable, worker.__file__, "--world", str(w), "--rank", str(r), "--store",
-             str(out / "store"), "--out", str(out)], stdout=(out / f"log{r}").open("w"),
+            [sys.executable, script, "--world", str(w), "--rank", str(r), "--store",
+             str(out / "store"), "--out", str(out), *extra], stdout=(out / f"log{r}").open("w"),
             stderr=subprocess.STDOUT, env=env) for r in range(w)]
     failed = []
     for w, ps in procs.items():
@@ -80,6 +86,27 @@ def card_runs(cuda, tmp_path_factory):
             with np.load(root / f"w{w}" / f"r{r}.npz") as z:
                 out[w].append({key: z[key] for key in z.files})
     return out
+
+
+@pytest.fixture(scope="module")
+def card_runs(cuda, tmp_path_factory):
+    """{W: [rank results]} of the flat worker's cases with every rank on cuda:0."""
+    return spawn_worlds(worker.__file__, tmp_path_factory.mktemp("card_ranks"))
+
+
+@pytest.fixture(scope="module")
+def ivf_card_runs(cuda, tmp_path_factory):
+    """{W: [rank results]} of the IVF worker's cases with every rank on
+    cuda:0, on a quantizer the port's k-means trains on the CPU."""
+    from c99_vectordb_tpu_torch.ops import cuda_build
+    from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
+
+    cuda_build.build("ivf_scan")           # once, before the ranks start
+    root = tmp_path_factory.mktemp("ivf_card_ranks")
+    shared = root / "shared"
+    shared.mkdir()
+    np.save(shared / "centroids.npy", train_kmeans(X, ivf_worker.NLIST, iters=8, device="cpu"))
+    return spawn_worlds(ivf_worker.__file__, root, ("--shared", str(shared)))
 
 
 def got(runs, w, case):
@@ -202,3 +229,124 @@ def test_one_rank_in_process_equals_flat_index(cuda, scan_dtype):
     exact = ((qd[b_idx] - staged[0][rows]) ** 2).sum(1)
     want = pd[b_idx, s_idx]
     assert bool(((exact - want).abs() <= 1e-4 * torch.clamp_min(want.abs(), 1.0)).all())
+
+
+# -- the sharded IVF index ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_ivf_ranks_on_the_card(ivf_card_runs, w):
+    """The IVF worker's cases at W ranks on the card: exhaustive probes give
+    the oracle's ids on both routes and both stores, masked, after the tail,
+    the removal and the restage, and in device mode; a filter that leaves
+    every list underfilled returns no masked id (the select kernel's +inf
+    fill becomes -1); each rank's kernels equal their plain versions on its
+    block; every IVF kernel launched; results are replicated."""
+    got_ = lambda case: got(ivf_card_runs, w, case)  # noqa: E731
+    od, oi = oracle(X, IDS, Q, worker.K)
+    for case in ("trained",):
+        r = got_(case)
+        np.testing.assert_array_equal(r["i"], oi)
+        assert_close(r["d"], od)
+    r = got_("routes_p16")
+    for d, i in ((r["d"], r["i"]), (r["kd"], r["ki"])):
+        np.testing.assert_array_equal(i, oi)
+        assert_close(d, od)
+    dense, select = got_("routes_dense"), got_("routes_select")
+    np.testing.assert_array_equal(dense["i"], select["i"])
+    np.testing.assert_array_equal(dense["d"], select["d"])
+    few = ivf_worker.underfilled_mask()
+    u = got_("underfilled")
+    raw_inf = np.isinf(u["raw_d"])
+    assert raw_inf.any() and (u["raw_i"][raw_inf] >= 0).all()
+    assert ((u["i"] == -1) == np.isinf(u["d"])).all() and (u["i"] == -1).any()
+    assert ((u["i"] < 0) | few[u["i"].clip(0)]).all()
+    np.testing.assert_array_equal(u["i"], u["di"])
+    np.testing.assert_array_equal(u["i"], u["ci"])
+    want5 = oracle(X, IDS, Q, 5)
+    for dt in ("float32", "int8"):
+        m = got_(f"masked_{dt}")
+        for i in (m["i"], m["ci"]):
+            np.testing.assert_array_equal(i, oracle(X, IDS, Q, 5, MASK)[1])
+        r5 = got_(f"round5_1d_{dt}")
+        assert bool(r5["staged"]) and int(r5["tail"]) == 200 and int(r5["removed"]) == 10
+        np.testing.assert_array_equal(r5["i"], want5[1])
+        np.testing.assert_array_equal(r5["mi"], oracle(X, IDS, Q, 5, MASK)[1])
+        keep = IDS >= 10
+        np.testing.assert_array_equal(r5["ri"], oracle(X[keep], IDS[keep], Q, 5)[1])
+        dv = got_(f"device_{dt}")
+        assert str(dv["mode"]) == "device" and int(dv["ntotal"]) == 999
+        keep = IDS != 42
+        np.testing.assert_array_equal(dv["after"], oracle(X[keep], IDS[keep], Q, 5)[1])
+        np.testing.assert_array_equal(dv["loaded"], dv["after"])
+    np.testing.assert_array_equal(got_("sq8")["i"], want5[1])
+    for mode in ("host", "device"):
+        rs = got_(f"restage_{mode}")
+        np.testing.assert_array_equal(rs["i_fold"], rs["i_tail"])
+        np.testing.assert_array_equal(rs["i_tail"], want5[1])
+    for rank in ivf_card_runs[w]:
+        errs = {k: float(v) for k, v in rank.items() if k.startswith("kernels.")}
+        assert set(errs) == {f"kernels.{k}" for k in ivf_worker.IVF_KERNELS}, errs
+        assert errs["kernels.ivf_scan_dense_int8"] == 0.0
+        launches = {k: int(v) for k, v in rank.items() if k.startswith("launches.")}
+        assert all(v > 0 for v in launches.values()) and len(launches) == 3, launches
+    for other in ivf_card_runs[w][1:]:
+        for key, value in ivf_card_runs[w][0].items():
+            if key not in ivf_worker.PER_RANK and not key.startswith("kernels."):
+                np.testing.assert_array_equal(other[key], value, err_msg=key)
+    if w == 4:
+        t = got_("two_level")
+        np.testing.assert_array_equal(t["ai"], t["bi"])
+        np.testing.assert_array_equal(t["ad"], t["bd"])
+        np.testing.assert_array_equal(t["a8i"], t["b8i"])
+        np.testing.assert_array_equal(t["ki"], t["bi"])
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "int8"])
+def test_ivf_one_rank_in_process_equals_ivf_flat(cuda, scan_dtype):
+    """W = 1 without a process group at 200k x 384, nlist 256, device mode,
+    on IVFFlatIndex's own centroids: ids equal IVFFlatIndex's on the card at
+    a dense-route nprobe and at 16 (the select route for f32), unfiltered,
+    with a 10% filter, and with a filter that leaves every probed list
+    underfilled (nprobe 1, both f32 kernels); the block's kernels equal
+    their plain versions; the path launched the kernels its store runs."""
+    rng = np.random.default_rng(7)
+    n, d = 200_000, 384
+    centers = rng.standard_normal((256, d), dtype=np.float32)
+    x = centers[rng.integers(0, 256, n)] + 0.6 * rng.standard_normal((n, d), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, n, 64)] + 0.05 * rng.standard_normal((64, d), dtype=np.float32)
+    mask = rng.random(n) < 0.1
+    sparse = rng.random(n) < 0.002
+    x_dev = torch.from_numpy(x).to(cuda)
+    ids_dev = torch.arange(n, dtype=torch.int32, device=cuda)
+    flat = IVFFlatIndex(dim=d, nlist=256, nprobe=16, scan_dtype=scan_dtype, device=cuda)
+    flat.train(x_dev)
+    flat.add(x_dev, ids_dev)
+    index = ShardedIVFIndex(dim=d, nlist=256, nprobe=16, scan_dtype=scan_dtype, device=cuda)
+    index._centroids = flat._centroids
+    index.add(x_dev, ids_dev)
+    index.search(q[:1], 10)
+    pad_local = index._params[1]
+    assert pad_local == flat._stage()[6]
+    before = {k: getattr(ivf_scan_cuda, k).launches for k in ivf_worker.IVF_KERNELS}
+    dense_np = max(1, 4096 // pad_local)
+    cases = [({"nprobe": p}, {}) for p in (dense_np, 16)]
+    cases += [({"nprobe": p, "id_mask": mask}, {}) for p in (dense_np, 16)]
+    if scan_dtype == "float32":
+        cases += [({"nprobe": 1, "id_mask": sparse}, {"scan": s}) for s in ("dense", "select")]
+    for kw, route in cases:
+        got_d, got_i = index._search(q, 10, kernel_route=True, **kw, **route)
+        want_d, want_i = flat._search(q, 10, card_route=True, **kw, **route)
+        np.testing.assert_array_equal(got_i, want_i)
+        assert_close(got_d, want_d)
+        if "scan" in route:
+            assert (got_i == -1).any() and ((got_i < 0) | sparse[got_i.clip(0)]).all()
+    launched = {k: getattr(ivf_scan_cuda, k).launches - v for k, v in before.items()}
+    if scan_dtype == "float32":
+        assert launched["ivf_scan_dense"] > 0 and launched["ivf_scan_select"] > 0, launched
+    else:
+        assert launched["ivf_scan_dense_int8"] > 0, launched
+    errs = ivf_worker.kernel_check(index, q, 16, 10 if scan_dtype == "float32" else 20)
+    assert set(errs) == ({"ivf_scan_dense", "ivf_scan_select"} if scan_dtype == "float32"
+                         else {"ivf_scan_dense_int8"}), errs
