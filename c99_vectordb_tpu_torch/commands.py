@@ -51,8 +51,8 @@ def _load_store(yaml_path) -> RecordStore:
 
 def _compute_verb(verb):
     """Run a compute verb with `device=` the device rule's device. The
-    rule's refusal (no card, an unknown device name) and an index kind
-    that is not ported yet each end the verb with one `Error:` line."""
+    rule's refusal (no card, an unknown device name) ends the verb with
+    one `Error:` line."""
 
     @functools.wraps(verb)
     def run(*args, **kwargs):
@@ -62,10 +62,7 @@ def _compute_verb(verb):
             device = resolve_device()
         except (RuntimeError, ValueError) as e:
             return _fail(str(e))
-        try:
-            return verb(*args, device=device, **kwargs)
-        except NotImplementedError as e:
-            return _fail(str(e))
+        return verb(*args, device=device, **kwargs)
 
     return run
 
@@ -84,7 +81,8 @@ def auto_nlist(corpus_size: int) -> int:
 def make_index(corpus_size: int | None = None, device=None):
     """Build an empty index of the configured family on `device`.
 
-    C99VDB_INDEX = flat (default) | ivf_flat | ivf_pq | sharded_flat | sharded_ivf.
+    C99VDB_INDEX = flat (default) | ivf_flat | ivf_pq | sharded_flat | sharded_ivf |
+    sharded_ivf_pq.
     C99VDB_SCAN_DTYPE =
     float32 | bfloat16 | int8 selects the scan store of flat and ivf_flat.
     For the IVF families: C99VDB_NLIST (else auto_nlist(corpus_size) when
@@ -92,11 +90,12 @@ def make_index(corpus_size: int | None = None, device=None):
     C99VDB_PAD_CAP; for ivf_flat C99VDB_RERANK_DTYPE = float32 | bfloat16;
     for ivf_pq C99VDB_PQ_M (8), C99VDB_PQ_KSUB (256, or 16 for nibble-packed
     4-bit codes) and C99VDB_OPQ (on unless empty, 0 or false).
-    sharded_flat (float32 or int8 scan store) and sharded_ivf (C99VDB_NLIST,
+    sharded_flat (float32 or int8 scan store), sharded_ivf (C99VDB_NLIST,
     C99VDB_NPROBE, C99VDB_SCAN_DTYPE = float32 | int8, C99VDB_RERANK_DTYPE =
-    float32 | bfloat16 with int8) shard over the world's ranks
-    (parallel/mesh.default_data_mesh: one rank without a process group);
-    sharded_ivf_pq is not ported yet and raises."""
+    float32 | bfloat16 with int8) and sharded_ivf_pq (C99VDB_NLIST,
+    C99VDB_NPROBE, C99VDB_PQ_M, C99VDB_PQ_KSUB, C99VDB_OPQ) shard over the
+    world's ranks (parallel/mesh.default_data_mesh: one rank without a
+    process group)."""
     kind = os.environ.get("C99VDB_INDEX", "flat").strip().lower()
     scan_dtype = os.environ.get("C99VDB_SCAN_DTYPE", "float32").strip() or "float32"
     if kind == "flat":
@@ -129,18 +128,18 @@ def make_index(corpus_size: int | None = None, device=None):
         rerank_dtype = os.environ.get("C99VDB_RERANK_DTYPE", "float32").strip() or "float32"
         return ShardedIVFIndex(dim=DIM, nlist=nlist, nprobe=nprobe, scan_dtype=scan_dtype,
                                rerank_dtype=rerank_dtype, device=device)
+    pq = {"m": int(os.environ.get("C99VDB_PQ_M", "8")),
+          "ksub": int(os.environ.get("C99VDB_PQ_KSUB", "256")),
+          "opq": os.environ.get("C99VDB_OPQ", "").strip() not in ("", "0", "false")}
     if kind == "ivf_pq":
         from .models.ivf_pq import IVFPQIndex
 
-        opq = os.environ.get("C99VDB_OPQ", "").strip() not in ("", "0", "false")
-        return IVFPQIndex(dim=DIM, nlist=nlist, nprobe=nprobe,
-                          m=int(os.environ.get("C99VDB_PQ_M", "8")),
-                          ksub=int(os.environ.get("C99VDB_PQ_KSUB", "256")), opq=opq,
-                          pad_cap=pad_cap, device=device)
-    from .models.registry import NOT_YET_PORTED
+        return IVFPQIndex(dim=DIM, nlist=nlist, nprobe=nprobe, pad_cap=pad_cap, device=device,
+                          **pq)
+    if kind == "sharded_ivf_pq":
+        from .parallel.sharded import ShardedIVFPQIndex
 
-    if kind in NOT_YET_PORTED:
-        raise NotImplementedError(f"index kind '{kind}' not yet ported")
+        return ShardedIVFPQIndex(dim=DIM, nlist=nlist, nprobe=nprobe, device=device, **pq)
     raise ValueError(f"unknown C99VDB_INDEX '{kind}'")
 
 

@@ -6,11 +6,6 @@ from typing import Any
 
 _REGISTRY: dict[str, Any] = {}
 
-# Kinds the JAX package writes that the port cannot read yet. A file of
-# one of these kinds must fail loudly: silently substituting an empty
-# index would lose the user's data from view.
-NOT_YET_PORTED = ("sharded_ivf_pq",)
-
 
 def register(cls: Any) -> Any:
     _REGISTRY[cls.kind] = cls
@@ -24,6 +19,4 @@ def resolve(kind: str) -> Any:
     try:
         return _REGISTRY[kind]
     except KeyError:
-        if kind in NOT_YET_PORTED:
-            raise NotImplementedError(f"index kind '{kind}' not yet ported") from None
         raise ValueError(f"unknown index kind '{kind}'") from None

@@ -5,9 +5,10 @@ its shapes: one distributed Lloyd step (`sharded_kmeans_step`) and one
 exact 2-D search (`sharded_search_2d`) on a make_mesh(n_data, n_model)
 of the world's ranks (n_model 2 on an even world of 4 or more ranks), then
 the slot-sharded IVF index on a 1-D mesh of every rank (f32; SQ8 with a
-tail add, a filter and an in-place removal) and, on an even world of 4 or
-more, the two-level (host, chip) merge of the IVF, SQ8 and flat indexes.
-The IVF-PQ steps of the JAX function wait for the port's sharded IVF-PQ.
+tail add, a filter and an in-place removal), the slot-sharded IVF-PQ
+index on that mesh, a one-device IVFFlatIndex's device-mode incremental
+add (the tail merge) and, on an even world of 4 or more, the two-level
+(host, chip) merge of the IVF, SQ8, flat and IVF-PQ indexes.
 
 Every rank calls `dryrun_multichip()` with the same arguments (SPMD) after
 torch.distributed is initialized (or with no process group: one rank). Its
@@ -20,9 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.ivf_flat import IVFFlatIndex
 from .mesh import make_host_chip_mesh, make_mesh, world_size
 from .sharded import (
-    ShardedFlatIndex, ShardedIVFIndex, shard_rows, sharded_kmeans_step, sharded_search_2d,
+    ShardedFlatIndex, ShardedIVFIndex, ShardedIVFPQIndex, shard_rows, sharded_kmeans_step,
+    sharded_search_2d,
 )
 
 
@@ -86,6 +89,23 @@ def dryrun_multichip(device=None) -> dict[str, np.ndarray]:
     assert sq8._staged is not None               # removal was in place
     out["sq8_i"], out["sq8_masked_i"] = i_sq8, i_m
 
+    # Serving step: slot-sharded IVF-PQ (per-shard ADC + local refine).
+    pq = ShardedIVFPQIndex(dim=dim, nlist=8, nprobe=8, m=8, mesh=dmesh)
+    pq.load(data, ids64)
+    d_pq, i_pq = pq.search(queries, k)
+    assert d_pq.shape == (b, k) and (i_pq[:, 0] >= 0).all()
+    out["pq_d"], out["pq_i"] = d_pq, i_pq
+
+    # Serving step: a one-device IVFFlatIndex's device-mode incremental add
+    # (the tail merge).
+    inc = IVFFlatIndex(dim=dim, nlist=4, nprobe=4, device=dmesh.device)
+    inc.add(on(data[: n // 2]), on(ids[: n // 2]))
+    inc.search(queries, k)                       # stage
+    inc.add(on(data[n // 2 :]), on(ids[n // 2 :]))
+    d_inc, i_inc = inc.search(queries, k)        # tail-merged
+    assert inc._tail is not None and (i_inc[:, 0] >= 0).all()
+    out["inc_d"], out["inc_i"] = d_inc, i_inc
+
     # The two-level (host, chip) merge: k candidates a host cross `host`.
     if world % 2 == 0 and world >= 4:
         hmesh = make_host_chip_mesh(2, world // 2, device=device)
@@ -100,5 +120,10 @@ def dryrun_multichip(device=None) -> dict[str, np.ndarray]:
         fl2.add(data, ids64)
         d_f2, i_f2 = fl2.search(queries, k)
         assert d_f2.shape == (b, k) and (i_f2 >= 0).all()
+        pq2 = ShardedIVFPQIndex(dim=dim, nlist=8, nprobe=8, m=8, mesh=hmesh)
+        pq2.load(data, ids64)
+        d_p2, i_p2 = pq2.search(queries, k)
+        assert d_p2.shape == (b, k) and (i_p2[:, 0] >= 0).all()
         out["ivf_2level_i"], out["flat_2level_i"] = i_i2, i_f2
+        out["pq_2level_d"], out["pq_2level_i"] = d_p2, i_p2
     return out

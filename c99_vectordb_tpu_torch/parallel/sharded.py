@@ -1,10 +1,10 @@
-"""Multi-rank flat and IVF search over torch.distributed (SPMD, one process
-per rank).
+"""Multi-rank flat, IVF and IVF-PQ search over torch.distributed (SPMD, one
+process per rank).
 
-Counterpart of the flat and IVF-Flat halves of the JAX package's
-parallel/sharded.py (shard_map programs over a device mesh). Here every
-rank runs the same code on its own shard, and the collectives of
-parallel/mesh.py stand in for JAX's all_gather / psum:
+Counterpart of the JAX package's parallel/sharded.py (shard_map programs
+over a device mesh). Here every rank runs the same code on its own shard,
+and the collectives of parallel/mesh.py stand in for JAX's all_gather /
+psum:
 
   - search (data parallel): the padded store's rows are split over the
     mesh's corpus axes (a 1-D `data` axis, or ("host", "chip") with the
@@ -29,6 +29,12 @@ parallel/mesh.py stand in for JAX's all_gather / psum:
     f32 store; the int8 dense kernel, then an exact rerank of the shard's
     own rows, for the SQ8 store), then the merge. Centroids are
     replicated: every rank trains the same k-means on the same rows.
+  - IVF-PQ (ShardedIVFPQIndex): the same slot-sharded lists, holding PQ
+    codes and the f32 refine rows. Per shard, the dense ADC kernel (or, off
+    the card, a per-probe lookup-table scan) shortlists k * refine_factor
+    of the block's rows; an exact f32 refine of those rows (a rank only
+    ever reranks rows it holds), then the merge. OPQ rotates the ADC side
+    only: the refine stays in the original space.
   - k-means (data parallel): `sharded_kmeans_step`, one Lloyd iteration
     whose per-list sums and counts are summed over `data`.
 
@@ -51,10 +57,16 @@ from ..models.devbuild import (
     tail_restage_threshold, tail_scores,
 )
 from ..models.ivf_flat import DENSE_MAX_F32, _sq8_stage
+from ..models.ivf_pq import _residual_subs, train_opq_rotation
 from ..models.registry import register
-from ..ops.distances import query_rows, ranked_many_program, ranked_program
+from ..ops.adc import (
+    adc_dense_search, build_item_constants, build_item_constants_device, kernel_shape,
+    stage_codes_device, unstage_codes_device,
+)
+from ..ops.distances import INT32_MAX, query_rows, ranked_many_program, ranked_program
 from ..ops.ivf_scan import coarse_probes, ivf_full_search, ivf_sq8_search
-from ..ops.kmeans import assign_clusters, train_kmeans
+from ..ops.kmeans import assign_clusters, assign_clusters_multi, train_kmeans, \
+    train_kmeans_multi
 from ..ops.rerank import exact_rerank_rows, shortlist_depth
 from ..ops.topk import merge_topk, stable_topk
 from ..ops.topk_cuda import fused_topk
@@ -137,6 +149,24 @@ def _merge_axes(local_d, local_i, k: int, mesh: Mesh, axes: tuple[str, ...]):
     for axis in reversed(axes):
         d, i = _merge_gathered(d, i, k, mesh, axis)
     return d, i
+
+
+def _merge_topk_with_rows(dists, ids, rows, k: int):
+    """merge_topk carrying a per-candidate payload (`rows`) through the
+    (distance, id) selection: +inf candidates tie at INT32_MAX and come
+    back as id -1. The output pads to width k with (inf, -1, 0)."""
+    if dists.shape[-1] < k:
+        pad = k - dists.shape[-1]
+        dists = torch.nn.functional.pad(dists, (0, pad), value=torch.inf)
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        rows = torch.nn.functional.pad(rows, (0, pad), value=0)
+    tie_ids = torch.where(torch.isinf(dists), INT32_MAX, ids)
+    by_id = torch.argsort(tie_ids, dim=-1, stable=True)
+    dists, tie_ids, rows = (torch.gather(a, -1, by_id) for a in (dists, tie_ids, rows))
+    by_d = torch.argsort(dists, dim=-1, stable=True)[..., :k]
+    out_i = torch.gather(tie_ids, -1, by_d)
+    return (torch.gather(dists, -1, by_d), torch.where(out_i == INT32_MAX, -1, out_i),
+            torch.gather(rows, -1, by_d))
 
 
 def _keep_of(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -904,6 +934,89 @@ def sharded_ivf_sq8_search_program(mesh: Mesh, centroids, c_sq, codes, dim_scale
     return _merge_axes(local_d, local_i, k, mesh, axes)
 
 
+def _pq_probe_scan(centroids, c_sq, codebooks, list_codes, list_ids, list_vecs, q_adc, queries,
+                   nprobe: int, k: int, k_adc: int, keep=None):
+    """The JAX package's CPU route of the sharded IVF-PQ search, on this
+    rank's block: probes by c_sq - 2 q.c (no q_sq term; ties to the lowest
+    list), then per probe rank the lookup table sum_j ||r_j - y_j||^2 of the
+    residual gathered at the list's codes, +inf where id < 0 (masked ids
+    become -1 first: `keep` is a filter's (cap,) keep table), and a
+    (distance, id) merge of k_adc candidates carrying their block rows
+    (list * pad_local + slot). Then an exact f32 refine of those rows
+    against the original-space queries."""
+    coarse = c_sq[None, :] - 2.0 * (q_adc @ centroids.T)
+    _, probes = stable_topk(coarse, nprobe)
+    m, ksub, dsub = codebooks.shape
+    b, pad, dim = q_adc.shape[0], list_codes.shape[1], list_vecs.shape[2]
+    flat_vecs = list_vecs.reshape(-1, dim)
+    lane = torch.arange(pad, dtype=torch.int32, device=q_adc.device)
+    chunk = max(1, _IVF_STEP_BYTES // max(12 * m * pad, 4 * ksub * dim, 4 * k_adc * dim))
+    out_d, out_i = [], []
+    for q0 in range(0, b, chunk):
+        qa = q_adc[q0 : q0 + chunk]
+        bc = qa.shape[0]
+        best_d = torch.full((bc, k_adc), torch.inf, device=qa.device)
+        best_i = torch.full((bc, k_adc), -1, dtype=torch.int32, device=qa.device)
+        best_r = torch.zeros((bc, k_adc), dtype=torch.int32, device=qa.device)
+        for p in range(nprobe):
+            lists = probes[q0 : q0 + chunk, p]
+            r_sub = (qa - centroids[lists]).reshape(bc, m, 1, dsub)
+            lut = ((r_sub - codebooks[None]) ** 2).sum(dim=-1)              # (bc, m, ksub)
+            codes = list_codes[lists].long().transpose(1, 2)                # (bc, m, pad)
+            ids = list_ids[lists]
+            if keep is not None:
+                ids = _scrub_ids(ids, keep)
+            d = torch.gather(lut, 2, codes).sum(dim=1)
+            d = torch.where(ids >= 0, d, torch.inf)
+            rows = lists[:, None].to(torch.int32) * pad + lane[None, :]
+            best_d, best_i, best_r = _merge_topk_with_rows(
+                torch.cat([best_d, d], 1), torch.cat([best_i, ids], 1),
+                torch.cat([best_r, rows], 1), k_adc)
+        d, i = exact_rerank_rows(flat_vecs, best_r, best_i, queries[q0 : q0 + chunk], k)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def sharded_pq_search_program(mesh: Mesh, centroids, c_sq, codebooks, canvas, item_const,
+                              list_ids, list_vecs, q_adc, queries, nprobe: int, k: int,
+                              k_adc: int, use_kernels: bool = False,
+                              axes: tuple[str, ...] = ("data",), keep=None, hwm=None):
+    """Slot-sharded IVF-PQ search with a per-shard exact refine: centroids
+    (nlist, D) (quantization space), c_sq (nlist,) and codebooks (m, ksub,
+    dsub) replicated; canvas (nlist, m or m/2, pad_local) (ops/adc's code
+    canvas, nibble-packed for 4-bit codes), item_const and list_ids
+    (nlist, pad_local) and the f32 refine rows list_vecs (nlist,
+    pad_local, D) this rank's block; q_adc the (rotated) ADC-space queries,
+    queries the original-space ones. Returns the replicated (dists (B, k),
+    ids (B, k)).
+
+    use_kernels=True (the card route): ops/adc.adc_dense_search on the
+    block (the dense ADC kernel at every k_adc) shortlists k_adc rows of
+    the block; a filter is the caller's masked item_const (+inf IS the
+    kernel's exclusion marker) plus its (cap,) keep table `keep`, which
+    scrubs masked shortlist ids (they pad at +inf with their real ids);
+    then an exact rerank of the shortlisted block rows. False: the plain
+    route (_pq_probe_scan) on the unstaged codes, invalidating masked ids
+    at scan time through `keep`. hwm (nlist,): the block's high-water
+    marks, where the kernel stops."""
+    queries = queries.to(torch.float32)
+    q_adc = q_adc.to(torch.float32)
+    m, ksub = int(codebooks.shape[0]), int(codebooks.shape[1])
+    if use_kernels:
+        _, si, rows = adc_dense_search(centroids, c_sq, codebooks, canvas, item_const, list_ids,
+                                       q_adc, nprobe, k_adc, return_rows=True, hwm=hwm)
+        if keep is not None:
+            si = _scrub_ids(si, keep)
+        local_d, local_i = exact_rerank_rows(list_vecs.reshape(-1, list_vecs.shape[-1]), rows,
+                                             si, queries, k)
+    else:
+        local_d, local_i = _pq_probe_scan(centroids, c_sq, codebooks,
+                                          unstage_codes_device(canvas, m, ksub), list_ids,
+                                          list_vecs, q_adc, queries, nprobe, k, k_adc, keep)
+    return _merge_axes(local_d, local_i, k, mesh, axes)
+
+
 def _gather_rows(mesh: Mesh, axes: tuple[str, ...], vecs, keys):
     """Every shard's (n_s, D) rows and (n_s, 2) int64 (sort key, id) pairs,
     gathered over `axes` (padded to the largest n_s: gloo gathers equal
@@ -950,6 +1063,8 @@ class ShardedIVFIndex(_ShardedBase):
     """
 
     kind = "sharded_ivf"
+    # The tail field its scores read (tail_scores' vec_field).
+    _tail_field = "vecs"
 
     def __init__(self, dim: int, nlist: int = 64, nprobe: int = 8,
                  scan_dtype: str = "float32", rerank_dtype: str = "float32",
@@ -1229,9 +1344,11 @@ class ShardedIVFIndex(_ShardedBase):
     def _merge_ivf_tail(self, d, i, q, k: int, nprobe: int, keep):
         """Rows added after staging: exact distances, visible only to the
         queries that probe their assigned list (devbuild.tail_scores), then
-        one (distance, id) merge on the replicated results."""
+        one (distance, id) merge on the replicated results. q is in the
+        space of the tail's _tail_field rows (IVF-PQ: the rotated one)."""
         tail_ids = self._tail["ids"]
-        td = tail_scores(self._tail, self._staged[0], self._staged[1], q, nprobe)
+        td = tail_scores(self._tail, self._staged[0], self._staged[1], q, nprobe,
+                         vec_field=self._tail_field)
         if keep is not None:
             td = torch.where(_keep_of(tail_ids, keep)[None, :], td, torch.inf)
         return merge_tail(d, i, td, tail_ids, k)
@@ -1313,6 +1430,335 @@ class ShardedIVFIndex(_ShardedBase):
                     rerank_dtype=rerank_dtype, mesh=mesh, device=device)
         if arrays["centroids"].size:
             index._centroids = np.array(arrays["centroids"], dtype=np.float32)
+        if arrays["vectors"].size:
+            index._absorb(arrays["vectors"], arrays["ids"])
+        return index
+
+
+# -- IVF-PQ: the index ------------------------------------------------------------------------
+
+# Rows one step of the device-mode encode handles at once.
+_ENCODE_ROWS = 262_144
+
+
+@register
+class ShardedIVFPQIndex(ShardedIVFIndex):
+    """IVF-PQ with its code lists AND its f32 refine store slot-sharded over
+    the mesh's corpus axes (a 1-D `data` axis, or ("host", "chip") with the
+    two-level merge).
+
+    The lists are ShardedIVFIndex's (each rank holds pad_local slots of
+    every list); per shard the block's codes are ADC-scanned, k *
+    refine_factor of its rows shortlisted and refined exactly from the
+    rank's own f32 rows (sharded_pq_search_program), so the scan reads m
+    bytes a row (m/2 for 4-bit codes) while results are exact distances.
+    The quantizer trains like IVFPQIndex's (coarse k-means, then per-
+    subspace k-means of the residuals), the same on every rank from the
+    same rows; opq=True learns IVFPQIndex's OPQ rotation first, and the
+    quantization runs in the rotated space while the refine stays in the
+    original one. Each rank stages only its own rows: the codes in the
+    ADC kernels' canvas (ops/adc.stage_codes_device, nibble-packed at
+    ksub 16 with even m) and their item constants at pad_local. On a CUDA
+    device for those shapes search runs the dense ADC kernel per shard
+    (the card route), else the lookup-table scan on the unstaged codes.
+    Adds after staging park in the replicated tail with their ROTATED rows
+    ("rvecs"), whose exact distances merge after the refine; id_mask pushes
+    a filter into the scan (a masked item-constant copy plus the keep
+    table, once per mask object); remove_ids works in place on every
+    shard.
+    """
+
+    kind = "sharded_ivf_pq"
+    _tail_field = "rvecs"
+
+    def __init__(self, dim: int, nlist: int = 64, nprobe: int = 8, m: int = 8, ksub: int = 256,
+                 refine_factor: int = 4, opq: bool = False, opq_iters: int = 8,
+                 mesh: Mesh | None = None, device=None):
+        if dim % m != 0:
+            raise ValueError(f"dim ({dim}) must be divisible by m ({m})")
+        self.m = int(m)
+        self.ksub = int(ksub)
+        self.refine_factor = int(refine_factor)
+        self.opq = bool(opq)
+        self.opq_iters = int(opq_iters)
+        self._rotation: np.ndarray | None = None    # (D, D); x_rot = x @ R
+        self._rotation_dev = None
+        super().__init__(dim, nlist, nprobe, mesh=mesh, device=device)
+
+    def _reset_rows(self) -> None:
+        super()._reset_rows()
+        self._codebooks = None          # numpy (host mode) or a tensor (device mode)
+
+    @property
+    def is_trained(self) -> bool:
+        return self._centroids is not None and self._codebooks is not None
+
+    # -- the quantizer --------------------------------------------------------------------
+
+    def _rotate(self, data: np.ndarray) -> np.ndarray:
+        if self._rotation is None:
+            return data
+        return np.ascontiguousarray(data @ self._rotation)
+
+    def _rotate_device(self, data: torch.Tensor) -> torch.Tensor:
+        """Rows or queries into the quantization space, f32 on their device."""
+        data = data.to(torch.float32)
+        if self._rotation is None:
+            return data
+        if self._rotation_dev is None or self._rotation_dev.device != data.device:
+            self._rotation_dev = torch.from_numpy(self._rotation).to(data.device)
+        return data @ self._rotation_dev
+
+    def _codebooks_dev(self) -> torch.Tensor:
+        if self._staged is not None:
+            return self._staged[2]
+        c = self._codebooks
+        if not isinstance(c, torch.Tensor):
+            c = torch.from_numpy(np.array(c, dtype=np.float32))
+        return c.to(self.device, torch.float32)
+
+    def _codebooks_host(self) -> np.ndarray:
+        if self._codebooks is None:
+            return np.zeros((self.m, 0, self.dim // self.m), np.float32)
+        if isinstance(self._codebooks, torch.Tensor):
+            return self._codebooks.to(torch.float32).cpu().numpy()
+        return np.asarray(self._codebooks, np.float32)
+
+    def _assign(self, vecs: torch.Tensor) -> torch.Tensor:
+        return assign_clusters(self._rotate_device(vecs.to(self.device)), self._centroids_dev(),
+                               out_device=True)
+
+    def _tail_spec(self) -> dict:
+        # "vecs" keeps the original rows (extraction, serialization);
+        # "rvecs" the rotated ones, which the tail scores against the
+        # rotated queries (the rotation preserves L2).
+        spec = super()._tail_spec()
+        spec["rvecs"] = (self.dim, "float32")
+        return spec
+
+    def _tail_extras(self, vecs) -> dict:
+        rvecs = self._rotate_device(vecs)
+        return {"rvecs": rvecs,
+                "assign": assign_clusters(rvecs, self._centroids_dev(), out_device=True)}
+
+    def _encode_device(self, rows: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+        """(n, D) original-space rows and their lists -> (n, m) uint8 codes
+        of their rotated residuals, in steps of _ENCODE_ROWS rows."""
+        centroids, codebooks = self._centroids_dev(), self._codebooks_dev()
+        parts = [assign_clusters_multi(
+            _residual_subs(self._rotate_device(rows[s0 : s0 + _ENCODE_ROWS]), centroids,
+                           assign[s0 : s0 + _ENCODE_ROWS], self.m), codebooks,
+            out_device=True).T.to(torch.uint8)
+            for s0 in range(0, rows.shape[0], _ENCODE_ROWS)]
+        if not parts:
+            return torch.zeros((0, self.m), dtype=torch.uint8, device=rows.device)
+        return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
+
+    def train(self, data, *, iters: int = 8, seed: int = 0) -> None:
+        """Every rank trains the same quantizer from the same rows: the OPQ
+        rotation (opq=True, once), coarse k-means of the rotated rows, then
+        the codebooks (ops/kmeans.train_kmeans_multi of the residual
+        subspaces, seed + 1). A tensor puts an empty index in device mode;
+        a device-mode index that holds rows re-parks them under the new
+        quantizer."""
+        if is_device_array(data) and self._mode == "host" and self.ntotal == 0:
+            self._mode = "device"
+        if self._mode == "device":
+            if not is_device_array(data):
+                data = torch.from_numpy(np.ascontiguousarray(data, np.float32))
+            data = data.to(self.device, torch.float32).reshape(-1, self.dim)
+            n = int(data.shape[0])
+            if self.opq and self._rotation is None:
+                self._rotation = train_opq_rotation(data, self.m, ksub=self.ksub,
+                                                    iters=self.opq_iters, seed=seed)
+            data_r = self._rotate_device(data)
+            centroids = train_kmeans(data_r, min(self.nlist, max(1, n)), iters=iters, seed=seed,
+                                     out_device=True)
+            subs = _residual_subs(data_r, centroids,
+                                  assign_clusters(data_r, centroids, out_device=True), self.m)
+            del data_r
+            codebooks = train_kmeans_multi(subs, min(self.ksub, max(1, n)), iters=iters,
+                                           seed=seed + 1, out_device=True)
+            del subs
+            rows = self._rows_all() if self.ntotal else None
+            self._centroids, self._codebooks = centroids, codebooks
+            self._unstage()
+            if rows is not None:
+                for store in self._row_stores():
+                    store.clear()
+                self._dev_vecs.append(rows[0])
+                self._dev_ids.append(rows[1])
+                self._dev_assign.append(self._assign(rows[0]))
+            return
+        if is_device_array(data):
+            data = data.detach().to("cpu", torch.float32).numpy()
+        data = np.ascontiguousarray(data, dtype=np.float32).reshape(-1, self.dim)
+        n = data.shape[0]
+        if self.opq and self._rotation is None:
+            self._rotation = train_opq_rotation(data, self.m, ksub=self.ksub,
+                                                iters=self.opq_iters, seed=seed,
+                                                device=self.device)
+        data_r = self._rotate(data)
+        self._centroids = train_kmeans(data_r, min(self.nlist, max(1, n)), iters=iters,
+                                       seed=seed, device=self.device)
+        assign = assign_clusters(data_r, self._centroids, device=self.device)
+        subs = np.ascontiguousarray((data_r - self._centroids[assign]).reshape(
+            n, self.m, self.dim // self.m).transpose(1, 0, 2))
+        self._codebooks = train_kmeans_multi(subs, min(self.ksub, max(1, n)), iters=iters,
+                                             seed=seed + 1, device=self.device)
+        self._unstage()
+
+    # -- staging ----------------------------------------------------------------------------
+
+    def _staged_store_ids(self):
+        return self._staged[6], self._staged[5]
+
+    def _finish_pq_stage(self, centroids, codebooks, list_codes, item_const, li, lv,
+                         pad_local: int) -> None:
+        """Shared epilogue: (centroids, c_sq, codebooks, canvas, item
+        constants, list ids, refine rows) of this rank's block."""
+        self._params = (int(centroids.shape[0]), pad_local)
+        canvas = stage_codes_device(list_codes, self.m, int(codebooks.shape[1]))
+        self._put_staged((centroids, (centroids * centroids).sum(dim=1), codebooks, canvas,
+                          item_const, li, lv))
+
+    def _stage_host(self) -> None:
+        """Host mode: assign every row (the layout needs every list's
+        count), then encode, scatter and build item constants for this
+        rank's rows only, and push its block."""
+        centroids, codebooks = self._centroids_host(), self._codebooks_host()
+        nlist = int(centroids.shape[0])
+        vecs_r = self._rotate(self._vectors)
+        assign = assign_clusters(vecs_r, centroids, device=self.device)
+        pad_local, order, lists, slots = _slot_shard_layout(assign, nlist, self._shards)
+        rows, lists, local = _own_rows(order, lists, slots, pad_local,
+                                       shard_index(self._mesh, self._axes))
+        own_assign = assign[rows]
+        subs = np.ascontiguousarray((vecs_r[rows] - centroids[own_assign]).reshape(
+            -1, self.m, self.dim // self.m).transpose(1, 0, 2))
+        codes = np.ascontiguousarray(
+            assign_clusters_multi(subs, codebooks, device=self.device).T.astype(np.uint8))
+        list_codes = np.zeros((nlist, pad_local, self.m), np.uint8)
+        list_ids = np.full((nlist, pad_local), -1, np.int32)
+        list_vecs = np.zeros((nlist, pad_local, self.dim), np.float32)
+        list_codes[lists, local] = codes
+        list_ids[lists, local] = self._ids[rows]
+        list_vecs[lists, local] = self._vectors[rows]
+        item_const = build_item_constants(centroids, own_assign, codes, codebooks,
+                                          np.arange(rows.shape[0]), lists, local, nlist, pad_local)
+        on = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        self._finish_pq_stage(on(centroids), on(codebooks), on(list_codes), on(item_const),
+                              on(list_ids), on(list_vecs), pad_local)
+
+    def _stage_rows_device(self, vecs, idsa, assign) -> None:
+        """Device mode: deal the rows on the device; this rank's rows are
+        re-encoded from their raw rows (codes are not kept between
+        stagings) and scattered into its block (the global canvases are
+        never built)."""
+        centroids, codebooks = self._centroids_dev(), self._codebooks_dev()
+        nlist = int(centroids.shape[0])
+        pad_local, order, lists, slots, _ = _slot_shard_layout_device(
+            assign.to(torch.int64), nlist, self._shards)
+        order, lists, local = _own_rows(order, lists, slots, pad_local,
+                                        shard_index(self._mesh, self._axes))
+        lv = scatter_lists_device(vecs.to(torch.float32), order, lists, local, nlist, pad_local)
+        li = scatter_list_ids_device(idsa, order, lists, local, nlist, pad_local)
+        own_assign = assign[order]
+        codes = self._encode_device(vecs[order], own_assign)
+        mine = torch.arange(codes.shape[0], device=codes.device)
+        list_codes = scatter_lists_device(codes, mine, lists, local, nlist, pad_local)
+        item_const = build_item_constants_device(centroids, own_assign, codes, codebooks, mine,
+                                                 lists, local, nlist, pad_local)
+        del codes
+        self._finish_pq_stage(centroids, codebooks, list_codes, item_const, li, lv, pad_local)
+
+    def _apply_removal_staged(self, table) -> int:
+        staged = list(self._staged)
+        staged[5], removed, staged[4] = apply_removal(staged[5], table, staged[4])
+        self._put_staged(tuple(staged))
+        count = torch.tensor([removed], dtype=torch.int64, device=self.device)
+        return int(all_reduce_axes(count, self._mesh, self._axes, "sum")[0])
+
+    def _build_masked(self, keep):
+        """Once-per-mask staged operands: the keep table and a masked copy
+        of the block's item constants (+inf IS the ADC kernel's exclusion
+        marker; the plain route reads the table only)."""
+        staged = self._stage()
+        return keep, torch.where(_keep_of(staged[5], keep), staged[4], torch.inf)
+
+    # -- search -----------------------------------------------------------------------------
+
+    def search(self, queries, k: int, *, nprobe: int | None = None,
+               id_mask=None) -> tuple[np.ndarray, np.ndarray]:
+        """id_mask: optional (cap,) bool keyed by EXTERNAL id (filter
+        pushdown; pass the SAME object across calls to reuse its staging).
+        Tail rows merge AFTER the per-shard refine with their exact
+        distances: they never compete for shortlist slots, so a tail row
+        can only add a true neighbour the shortlist would have dropped."""
+        return self._search(queries, k, nprobe=nprobe, id_mask=id_mask, kernel_route=None)
+
+    def _search(self, queries, k: int, *, nprobe: int | None = None, id_mask=None,
+                kernel_route: bool | None):
+        """search() with the route explicit: kernel_route=True is the dense
+        ADC kernel per shard (its plain version on CPU tensors), False the
+        plain lookup-table route, None the device's choice (the kernel on a
+        CUDA device for the shapes it serves: ksub 256, or 16 with even
+        m). The shortlist is k * refine_factor (at least k, at most
+        ntotal) rows per shard at every depth."""
+        q = query_rows(queries, self.dim, self.device)
+        if self.ntotal == 0 or not self.is_trained:
+            shape = (q.shape[0], k)
+            return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
+        centroids, c_sq, codebooks, canvas, item_const, li, lv = self._stage()
+        nprobe_eff = min(nprobe or self.nprobe, self._params[0])
+        k_adc = max(min(k * self.refine_factor, self.ntotal), k)
+        keep = None
+        if id_mask is not None:
+            keep, item_const = self._mask_table(id_mask)
+        if kernel_route is None:
+            kernel_route = self.device.type == "cuda" and kernel_shape(int(codebooks.shape[1]),
+                                                                       self.m)
+        q_adc = self._rotate_device(q)
+        d, i = sharded_pq_search_program(self._mesh, centroids, c_sq, codebooks, canvas,
+                                         item_const, li, lv, q_adc, q, nprobe_eff, k, k_adc,
+                                         use_kernels=kernel_route, axes=self._axes, keep=keep,
+                                         hwm=self._hwm)
+        if self._tail and self._tail.count:
+            d, i = self._merge_ivf_tail(d, i, q_adc, k, nprobe_eff, keep)
+        return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+
+    # -- serialization ----------------------------------------------------------------------
+
+    def state(self) -> tuple[dict[str, Any], dict[str, np.ndarray]]:
+        params = {"dim": self.dim, "nlist": self.nlist, "nprobe": self.nprobe, "m": self.m,
+                  "ksub": self.ksub, "refine_factor": self.refine_factor, "opq": self.opq,
+                  "opq_iters": self.opq_iters}
+        rotation = (self._rotation if self._rotation is not None
+                    else np.zeros((0, self.dim), np.float32))
+        quantizer = {"centroids": self._centroids_host(), "codebooks": self._codebooks_host(),
+                     "rotation": rotation}
+        if self._mode == "device" and self.ntotal:
+            vecs, idsa, _ = self._rows_all()
+            return params, {"vectors": vecs.to(torch.float32).cpu().numpy(),
+                            "ids": idsa.cpu().numpy().astype(np.int64), **quantizer}
+        return params, {"vectors": self._vectors, "ids": self._ids, **quantizer}
+
+    @classmethod
+    def from_state(cls, params, arrays, device=None, mesh: Mesh | None = None
+                   ) -> "ShardedIVFPQIndex":
+        """Accepts the JAX package's ShardedIVFPQIndex.state() (written at
+        any device count) unchanged."""
+        index = cls(dim=int(params["dim"]), nlist=int(params["nlist"]),
+                    nprobe=int(params["nprobe"]), m=int(params["m"]), ksub=int(params["ksub"]),
+                    refine_factor=int(params.get("refine_factor", 4)),
+                    opq=bool(params.get("opq", False)),
+                    opq_iters=int(params.get("opq_iters", 8)), mesh=mesh, device=device)
+        if arrays.get("rotation") is not None and arrays["rotation"].size:
+            index._rotation = np.array(arrays["rotation"], dtype=np.float32)
+        if arrays["centroids"].size:
+            index._centroids = np.array(arrays["centroids"], dtype=np.float32)
+        if arrays["codebooks"].size:
+            index._codebooks = np.array(arrays["codebooks"], dtype=np.float32)
         if arrays["vectors"].size:
             index._absorb(arrays["vectors"], arrays["ids"])
         return index

@@ -65,9 +65,9 @@ Phases (any failure raises and exits non-zero; none is caught):
                  with --yaml; serve; serve --batch 128; analyze; reindex;
                  clean) on the card and with C99VDB_PLATFORM=cpu on a copy of
                  the same files: equal rc, stdout, stderr and files, byte for
-                 byte; reindex with ivf_flat, ivf_pq, sharded_flat and
-                 sharded_ivf (one rank) on the card and serve --batch from
-                 its files on both; the launcher without a
+                 byte; reindex with ivf_flat, ivf_pq, sharded_flat,
+                 sharded_ivf and sharded_ivf_pq (one rank) on the card and
+                 serve --batch from its files on both; the launcher without a
                  visible card (one Error line, exit 1); one serve --batch in
                  this process (its peak device memory holds the store). The
                  CLI ranks with plain torch: no kernel is on its path.
@@ -111,6 +111,27 @@ Phases (any failure raises and exits non-zero; none is caught):
                  plain version on that rank's block; the select, dense and
                  int8 dense kernels launched at each W; recall@10 and
                  host-clock search ms per W (informative).
+ 13. sharded_ivf_pq (runs after phase 12, on phase 3's corpus and mask and
+                 phase 6's quantizer: nlist 4096, m 96, ksub 256)
+                 ShardedIVFPQIndex (parallel/sharded.py) at 1M x 384, device
+                 mode, refine_factor 20, nprobe 16, at W = 1 in this process
+                 and W = 2 (two processes on cuda:0 under gloo, the quantizer
+                 through a file; each rank holds 1/2 of every list's codes
+                 and refine rows): B=128 at k=10 and k=20 (shortlists of 200
+                 and 400 a rank), unfiltered and with the 10% id_mask, B=100
+                 at k=20, then a 10,000-row tail add, remove_ids (1,004 rows,
+                 folding the tail) and a restage; at W = 1 also a ksub=16
+                 nibble-packed index (phase 6's) on the first 100,000 rows.
+                 Every search launches the dense ADC kernel once (qpb 8 at
+                 B=128, 1 at B=100), equals the same route with it on its
+                 plain version bit for bit, returns the float64 distances of
+                 its ids within 1e-5 relative and no masked or removed id;
+                 rows_per_chip x W = rows_all_chips; on every rank the kernel
+                 equals its plain version on that rank's block; W = 2's ranks
+                 agree. Informative: W = 1's rows equal to phase 6's
+                 IVFPQIndex dense route at k=20, rows equal across W,
+                 recall@10, host-clock search ms per W; W = 2's rank 0 times
+                 the kernel on its block.
 
 Before the last line it prints the card line from nvidia-smi and one JSON
 object {"kernels": [...]}; the last line is
@@ -146,7 +167,7 @@ from c99_vectordb_tpu_torch.ops.distances import scores_via_matmul
 from c99_vectordb_tpu_torch.ops.embed import embed_texts, embed_texts_device
 from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
 from c99_vectordb_tpu_torch.ops.rerank import exact_rerank_rows, shortlist_depth
-from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
+from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, ShardedIVFPQIndex
 from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 # Published H100 SXM figures (NVIDIA data sheet): bytes/s and dense
@@ -1291,11 +1312,13 @@ def phase_ivf_pq(device, d, seed, card, corpus):
     ids_dev = torch.arange(n, dtype=torch.int32, device=device)
     result = {"nlist": nlist, "routes": []}
     operands = []
-    errs = {"adc_scan_select": 0.0, "adc_scan_dense": 0.0}
+    # Phase sharded_ivf_pq's reference: the quantizers and results by step.
+    pq_ref = {}
 
     def run_routes(index, name, cases):
         for label, qq, k, kw, gt in cases:
             (gd, gi), secs, launched = check_route_pq(index, qq, k, f"{name} {label}", **kw)
+            pq_ref[(name, label)] = (gd, gi)
             rec = recall_at(gi, gt[: qq.shape[0]])
             log(f"ivf_pq {name} {label}: kernels {launched}, equals the plain route bit for bit, "
                 f"recall@10 {rec:.4f}, exact-tie pairs {tie_pairs(gd)}, search "
@@ -1324,6 +1347,8 @@ def phase_ivf_pq(device, d, seed, card, corpus):
 
     q100 = np.ascontiguousarray(q[:100])
     idx = build("m96_ksub256", ksub=256, refine_factor=20)
+    pq_ref["ksub256"] = {"centroids": idx._centroids.cpu().numpy(),
+                         "codebooks": idx._codebooks.cpu().numpy()}
     run_routes(idx, "m96_ksub256", [
         ("B=128 k=10 (shortlist 200, select)", q, 10, {}, gt_i),
         ("B=128 k=20 (shortlist 400, dense qpb 8)", q, 20, {}, gt_i),
@@ -1361,6 +1386,8 @@ def phase_ivf_pq(device, d, seed, card, corpus):
     del idx
     torch.cuda.empty_cache()
     idx16 = build("m96_ksub16_packed_bf16", ksub=16, refine_factor=20, refine_dtype="bfloat16")
+    pq_ref["ksub16"] = {"centroids": idx16._centroids.cpu().numpy(),
+                        "codebooks": idx16._codebooks.cpu().numpy()}
     run_routes(idx16, "m96_ksub16_packed_bf16", [
         ("B=128 k=10 (select)", q, 10, {}, gt_i),
         ("B=128 k=20 (dense qpb 8)", q, 20, {}, gt_i),
@@ -1371,7 +1398,7 @@ def phase_ivf_pq(device, d, seed, card, corpus):
                   adc_operands(idx16, q, 8))]
     del idx16, x_dev
     torch.cuda.empty_cache()
-    return result, operands
+    return result, operands, pq_ref
 
 
 # -- phase memodb_ivf_pq: MemoDB on IVFPQIndex at 100k notes --------------------------------
@@ -1550,9 +1577,10 @@ def phase_cli(n_records, seed, workdir, card):
     and with C99VDB_PLATFORM=cpu on a copy of the same files; their (rc,
     stdout, stderr) and files must be equal. Steps that only read run at
     the same time (12 to 16 processes), the others in card/CPU pairs. Then
-    reindex with ivf_flat, ivf_pq, sharded_flat and sharded_ivf on the card, and serve
-    --batch from the card's files on both; the launcher without a visible card; one
-    serve --batch in this process on the card."""
+    reindex with ivf_flat, ivf_pq, sharded_flat, sharded_ivf and
+    sharded_ivf_pq on the card, and serve --batch from the card's files on
+    both; the launcher without a visible card; one serve --batch in this
+    process on the card."""
     import io
     import os
     from contextlib import redirect_stdout
@@ -1641,10 +1669,10 @@ def phase_cli(n_records, seed, workdir, card):
         f"card's rc, stdout and stderr equal the CPU run's byte for byte, and so do the "
         f"files ({n_records} notes)")
 
-    # ivf_flat, ivf_pq, sharded_flat and sharded_ivf: reindex on the card (all at once),
-    # then serve --batch from the card's files on the card and on the CPU
-    # (all eight at once).
-    kinds = ("ivf_flat", "ivf_pq", "sharded_flat", "sharded_ivf")
+    # ivf_flat, ivf_pq, sharded_flat, sharded_ivf and sharded_ivf_pq: reindex on
+    # the card (all at once), then serve --batch from the card's files on the
+    # card and on the CPU (all ten at once).
+    kinds = ("ivf_flat", "ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq")
     dirs = {kind: (workdir / kind / "gpu", workdir / kind / "cpu") for kind in kinds}
     for kind in kinds:
         for d in dirs[kind]:
@@ -1670,8 +1698,9 @@ def phase_cli(n_records, seed, workdir, card):
         note_time(f"serve[{kind}]", "card", served[2 * i][3], len(jobs))
         note_time(f"serve[{kind}]", "cpu", served[2 * i + 1][3], len(jobs))
         assert out == batched, f"cli {kind}: serve --batch differs from the flat index's"
-        built_as = ("one rank" if kind == "sharded_flat" else
-                    f"nlist {auto_nlist(n_records)}" + (", one rank" if kind == "sharded_ivf" else ""))
+        built_as = ", ".join(
+            ([] if kind == "sharded_flat" else [f"nlist {auto_nlist(n_records)}"])
+            + (["one rank"] if kind.startswith("sharded_") else []))
         log(f"cli {kind}: reindex on the card ({built_as}); serve --batch 128 from its files "
             f"equals the CPU run's byte for byte and the flat index's output")
     pq_dir = dirs["ivf_pq"][0]
@@ -1786,10 +1815,12 @@ def run_sharded(mesh, x, q, mask, extra):
 
 
 def sharded_rank(args) -> int:
-    """One rank of phase sharded's (or, with --ivf-centroids, phase
-    sharded_ivf's) multi-rank run (a child process): regenerates the corpus
-    from the seed, runs run_sharded (run_sharded_ivf on those centroids) on
-    the world's data mesh, and writes this rank's results to --out."""
+    """One rank of phase sharded's (with --ivf-centroids, phase
+    sharded_ivf's; with --pq-quantizer, phase sharded_ivf_pq's) multi-rank
+    run (a child process): regenerates the corpus from the seed, runs
+    run_sharded (run_sharded_ivf on those centroids, run_sharded_pq on that
+    quantizer) on the world's data mesh, and writes this rank's results to
+    --out."""
     import datetime
     import pickle
 
@@ -1807,6 +1838,10 @@ def sharded_rank(args) -> int:
         if args.ivf_centroids:
             res = run_sharded_ivf(mesh, x, q, mask, extra, np.load(args.ivf_centroids),
                                   time_shard=True)
+        elif args.pq_quantizer:
+            with np.load(args.pq_quantizer) as z:
+                quant = {"ksub256": {"centroids": z["centroids"], "codebooks": z["codebooks"]}}
+            res = run_sharded_pq(mesh, x, q, mask, extra, quant, time_shard=True)
         else:
             res = run_sharded(mesh, x, q, mask, extra)
         with open(Path(args.out) / f"rank{args.sharded_rank}.pkl", "wb") as fh:
@@ -1816,11 +1851,12 @@ def sharded_rank(args) -> int:
     return 0
 
 
-def spawn_ranks(seed, label, centroids=None):
+def spawn_ranks(seed, label, centroids=None, pq_quantizer=None):
     """The multi-rank run of a sharded phase: SHARDED_WORLD processes of this
     script on cuda:0 (gloo), each regenerating the corpus from the seed
-    (the IVF run also reads `centroids` from a file). Returns every rank's
-    results; fails if a rank fails or outlives SHARDED_TIMEOUT_S."""
+    (the IVF run also reads `centroids` from a file, the IVF-PQ run the
+    "ksub256" quantizer of `pq_quantizer`). Returns every rank's results;
+    fails if a rank fails or outlives SHARDED_TIMEOUT_S."""
     import pickle
 
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_", dir=str(Path.cwd())))
@@ -1830,6 +1866,9 @@ def spawn_ranks(seed, label, centroids=None):
         if centroids is not None:
             np.save(workdir / "centroids.npy", centroids)
             extra = ["--ivf-centroids", str(workdir / "centroids.npy")]
+        if pq_quantizer is not None:
+            np.savez(workdir / "quantizer.npz", **pq_quantizer["ksub256"])
+            extra = ["--pq-quantizer", str(workdir / "quantizer.npz")]
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
              "--sharded-rank", str(r), "--world", str(SHARDED_WORLD),
@@ -2110,6 +2149,222 @@ def phase_sharded_ivf(device, seed, card, ivf_ref, corpus):
             {kernel: [row] for kernel, row in two["kernel_times"].items()})
 
 
+# -- phase sharded_ivf_pq: ShardedIVFPQIndex at 1M x 384, one rank and two -------------
+
+SHARDED_PQ_KS = (10, 20)      # shortlists of 200 and 400 rows a shard at refine_factor 20
+PQ_EXACT_TOL = 1e-5           # returned distances against the float64 ones of their ids
+
+
+def sharded_pq_operands(index, q, qpb):
+    """The dense ADC kernel's operands on this rank's block for queries q
+    (numpy), in adc_operands' form."""
+    cents, c_sq, books, canvas, const, li, _ = index._stage()
+    q_adc = index._rotate_device(torch.from_numpy(q).to(cents.device))
+    nprobe = min(index.nprobe, int(cents.shape[0]))
+    probes, pc, qd = adc_mod.adc_prologue(q_adc, cents, c_sq, books, nprobe)
+    return {"probes": probes, "pc": pc, "qd": qd, "codes": canvas, "const": const, "ids": li,
+            "packed": adc_mod.packed_layout(int(books.shape[1]), index.m),
+            "pad": index._params[1], "qpb": qpb, "hwm": index._hwm}
+
+
+def sharded_pq_step(index, q, k, label, rows_of, banned=None, **kw):
+    """One search on the card route: one dense ADC kernel launch (qpb 8 when
+    B divides by 8, else 1), the same route with the kernel on its plain
+    version bit for bit, every returned distance within PQ_EXACT_TOL
+    relative of the float64 distance of its id's row (rows_of(ids)), and
+    no id that `banned` (bool by id) marks. Returns ((dists, ids), host
+    seconds)."""
+    before = adc_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kd, ki = index.search(q, k, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = adc_counts()
+    launched = {name: after[name] - before[name] for name in after if after[name] != before[name]}
+    want = f"adc_scan_dense[qpb={8 if q.shape[0] % 8 == 0 else 1}]"
+    assert launched == {want: 1}, f"{label}: launches {launched}, expected one {want}"
+    with plain_adc():
+        pd, pi = index._search(q, k, kernel_route=True, **kw)
+    assert np.array_equal(kd, pd) and np.array_equal(ki, pi), f"{label}: not bit-equal"
+    assert (ki >= 0).all(), f"{label}: fewer than k results"
+    q64 = q.astype(np.float64)
+    true = ((q64[:, None, :] - rows_of(ki).astype(np.float64)) ** 2).sum(-1)
+    err = np.abs(kd - true) / np.maximum(true, 1e-30)
+    assert float(err.max()) <= PQ_EXACT_TOL, f"{label}: distance error {err.max()} (relative)"
+    if banned is not None:
+        assert not banned[ki].any(), f"{label}: a masked or removed id came back"
+    return (kd, ki), secs
+
+
+def run_sharded_pq(mesh, x, q, mask, extra, quant, time_shard=False):
+    """ShardedIVFPQIndex's path on `mesh`, device mode, on phase ivf_pq's
+    quantizer `quant` (nlist 4096, m 96, ksub 256): refine_factor 20,
+    nprobe 16, B = 128 at k 10 and 20 (shortlists 200 and 400), unfiltered
+    and with `mask`, and B = 100 at k 20; a tail add of `extra`, remove_ids
+    of every 997th id (which folds the tail) and a forced restage, at k 10
+    and 20. On a one-rank mesh, also a ksub-16 (nibble-packed) index on the
+    first 100,000 rows with quant's "ksub16" quantizer. Every search is
+    sharded_pq_step. Counts are reset before and read after the path; then
+    the kernel is held against its plain version on this rank's blocks.
+    time_shard (a multi-rank run): rank 0 then times the kernel on its
+    block while the other ranks wait. Returns {(k, step): (dists, ids)},
+    the ksub-16 index's {"ksub16": ...}, "search_ms", "pad_local",
+    "rows", "stage_s", "launches", "kernel_err"."""
+    device = mesh.device
+    n, d = x.shape
+    n_extra = extra.shape[0]
+    x_dev = torch.from_numpy(x).to(device)
+    ids_dev = torch.arange(n, dtype=torch.int32, device=device)
+    removed_ids = np.arange(0, n, 997)
+    banned = np.zeros(n + n_extra, bool)
+    banned[removed_ids] = True
+
+    def rows_of(ids):
+        return np.where((ids < n)[..., None], x[np.minimum(ids, n - 1)],
+                        extra[np.clip(ids - n, 0, n_extra - 1)])
+
+    def built(key, rows):
+        index = ShardedIVFPQIndex(dim=d, nlist=quant[key]["centroids"].shape[0], nprobe=16, m=96,
+                                  ksub=quant[key]["codebooks"].shape[1], refine_factor=20,
+                                  mesh=mesh)
+        index._centroids = torch.from_numpy(quant[key]["centroids"]).to(device)
+        index._codebooks = torch.from_numpy(quant[key]["codebooks"]).to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.add(x_dev[:rows], ids_dev[:rows])
+        index.search(q[:1], 10)                  # stage
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    out = {"search_ms": {}, "stage_s": {}}
+    checks = []
+    reset_counts()
+    index, out["stage_s"]["ksub256"] = built("ksub256", n)
+    out["pad_local"] = index._params[1]
+    out["rows"] = index.scan_rows_per_chip(q.shape[0])
+    assert out["rows"]["rows_per_chip"] * index._shards == out["rows"]["rows_all_chips"]
+
+    def step(key, qq, k, **kw):
+        label = f"sharded_ivf_pq W={index._shards} k={k} {key}"
+        out[(k, key)], secs = sharded_pq_step(index, qq, k, label, rows_of, **kw)
+        out["search_ms"][(k, key)] = secs * 1e3
+
+    for k in SHARDED_PQ_KS:
+        step("unfiltered", q, k)
+        step("10% id_mask", q, k, banned=~np.concatenate([mask, np.zeros(n_extra, bool)]),
+             id_mask=mask)
+    step("B=100", np.ascontiguousarray(q[:100]), 20)
+    checks.append(("B=128 qpb 8", sharded_pq_operands(index, q, 8)))
+    index.add(torch.from_numpy(extra).to(device),
+              torch.arange(n, n + n_extra, dtype=torch.int32, device=device))
+    assert index._tail is not None and index._tail.count == n_extra
+    for k in SHARDED_PQ_KS:
+        step("tail", q, k)
+    assert index.remove_ids(removed_ids) == removed_ids.size and index._tail is None
+    for k in SHARDED_PQ_KS:
+        step("after remove", q, k, banned=banned)
+    index._restage_needed = True
+    for k in SHARDED_PQ_KS:
+        step("restaged", q, k, banned=banned)
+    del index
+    torch.cuda.empty_cache()
+    if mesh.shape["data"] == 1:
+        index, out["stage_s"]["ksub16"] = built("ksub16", 100_000)
+        out["ksub16_pad"] = index._params[1]
+        for k in SHARDED_PQ_KS:
+            step("ksub16 100k rows", q, k)
+        checks.append(("ksub16 packed 100k rows qpb 8", sharded_pq_operands(index, q, 8)))
+        del index
+    out["launches"] = adc_counts()
+    out["kernel_err"] = max(check_adc_kernel(ops, "adc_scan_dense", None,
+                                             f"sharded_ivf_pq {label} block operands")
+                            for label, ops in checks)
+    if time_shard:
+        import torch.distributed as dist
+
+        dist.barrier()
+        if dist.get_rank() == 0:
+            out["kernel_times"] = [time_adc(
+                ops, "adc_scan_dense", None,
+                f"sharded_ivf_pq W={dist.get_world_size()} rank 0 {label}", card_line())
+                for label, ops in checks]
+        dist.barrier()
+    del checks, x_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_ivf_pq(device, seed, card, pq_ref, corpus):
+    """ShardedIVFPQIndex on phase 3's 1M x 384 corpus with phase ivf_pq's
+    quantizer at W = 1 (this process, no process group) and W = 2 (two
+    processes on cuda:0 under gloo, the quantizer through a file): every
+    search is sharded_pq_step on every rank, and every rank of W = 2 has the
+    same results; the dense ADC kernel launched at both W, and equal to its
+    plain version on every rank's block. Informative: W = 1's rows equal
+    to phase ivf_pq's IVFPQIndex dense route at k 20, rows equal across W,
+    recall@10, host-clock search ms. Returns (summary, W = 1 launches, W = 2
+    launches (rank 0), the kernel's max |diff|, W = 2 rank 0's time rows)."""
+    from c99_vectordb_tpu_torch.parallel import default_data_mesh
+
+    x, q, mask, gt_i, gtm_i = corpus
+    extra = clustered_corpus(10_000, x.shape[1], seed + 5)[0]
+    quant = {key: pq_ref[key] for key in ("ksub256", "ksub16")}
+    t0 = time.perf_counter()
+    one = run_sharded_pq(default_data_mesh(device), x, q, mask, extra, quant)
+    log(f"sharded_ivf_pq W=1: {time.perf_counter() - t0:.1f} s, pad_local {one['pad_local']} "
+        f"(ksub16 100k rows: {one['ksub16_pad']}), staged in {one['stage_s']} s, "
+        f"rows {one['rows']}, launches {one['launches']}")
+    ranks = spawn_ranks(seed, "sharded_ivf_pq", pq_quantizer=quant)
+    two = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        for key in (key for key in two if isinstance(key, tuple)):
+            assert np.array_equal(res[key][1], two[key][1]), (
+                f"sharded_ivf_pq {key}: rank {r} differs")
+    summary = {"pad_local": {1: one["pad_local"], SHARDED_WORLD: two["pad_local"]},
+               "rows": {1: one["rows"], SHARDED_WORLD: two["rows"]},
+               "stage_s": {1: one["stage_s"], SHARDED_WORLD: two["stage_s"]},
+               "search_ms": {}, "recall": {}, "rows_equal_across_w": {},
+               "rows_equal_ivf_pq": {}}
+    for step, ref in (("unfiltered", "B=128 k=20 (shortlist 400, dense qpb 8)"),
+                      ("10% id_mask", "B=128 k=20 10% id_mask")):
+        want = pq_ref[("m96_ksub256", ref)][1]
+        summary["rows_equal_ivf_pq"][step] = float((one[(20, step)][1] == want).all(1).mean())
+    for key in (key for key in one if isinstance(key, tuple)):
+        gi = one[key][1]
+        k, step = key
+        name = f"k{k} {step}"
+        if key in two:
+            summary["rows_equal_across_w"][name] = float((two[key][1] == gi).all(1).mean())
+        for w, res in ((1, one), (SHARDED_WORLD, two)):
+            if key in res:
+                summary["search_ms"][f"W={w} {name}"] = res["search_ms"][key]
+                if step in ("unfiltered", "10% id_mask"):
+                    truth = gt_i if step == "unfiltered" else gtm_i
+                    summary["recall"][f"W={w} {name}"] = recall_at(res[key][1], truth)
+    for w, res in [(1, one)] + [(SHARDED_WORLD, r) for r in ranks]:
+        assert res["launches"]["adc_scan_dense[qpb=8]"] > 0 and (
+            res["launches"]["adc_scan_dense[qpb=1]"] > 0), (
+            f"sharded_ivf_pq W={w}: the dense ADC kernel was not launched: {res['launches']}")
+    err = max([one["kernel_err"]] + [r["kernel_err"] for r in ranks])
+    ms = {key: round(v, 2) for key, v in summary["search_ms"].items()}
+    log(f"sharded_ivf_pq: W=1 and W={SHARDED_WORLD} (every rank): every search launched one "
+        f"dense ADC kernel, equals its plain route bit for bit, returns exact distances "
+        f"(<= {PQ_EXACT_TOL} relative of float64) and no masked or removed id, unfiltered and "
+        f"with the 10% id_mask at k {SHARDED_PQ_KS}, B=100, after a {extra.shape[0]}-row tail "
+        f"add, remove_ids of {len(range(0, x.shape[0], 997))} rows and a restage; the kernel "
+        f"agrees with its plain version on every rank's block (max |diff| {err}); W=1 rows "
+        f"equal to IVFPQIndex's dense route at k 20: {summary['rows_equal_ivf_pq']}; rows equal "
+        f"across W: {summary['rows_equal_across_w']}; recall@10 {summary['recall']}; search ms "
+        f"(host clock) {ms} [{card}]")
+    for row in two["kernel_times"]:
+        log(f"times adc_scan_dense {row['label']} (pad_local {row['pad']}, nprobe "
+            f"{row['nprobe']}): kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+            f"yardstick {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) [{card}]")
+    return summary, one["launches"], two["launches"], err, two["kernel_times"]
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -2191,7 +2446,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1234)
     # One rank of phase sharded's multi-rank run (the phase spawns these).
     for flag, kind in (("--sharded-rank", int), ("--world", int), ("--store", str),
-                       ("--out", str), ("--ivf-centroids", str)):
+                       ("--out", str), ("--ivf-centroids", str), ("--pq-quantizer", str)):
         ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -2259,7 +2514,7 @@ def main() -> int:
     # 6. IVFPQIndex at 1M x 384 (counts reset before, read after)
     t0 = time.perf_counter()
     reset_counts()
-    pq_result, pq_ops = phase_ivf_pq(device, d, args.seed, card, corpus)
+    pq_result, pq_ops, pq_ref = phase_ivf_pq(device, d, args.seed, card, corpus)
     pq_launches = adc_counts()
     assert all(v > 0 for v in pq_launches.values()), f"ivf_pq path launches {pq_launches}"
     log(f"phase ivf_pq: {time.perf_counter() - t0:.1f} s, kernel launches {pq_launches}")
@@ -2280,10 +2535,19 @@ def main() -> int:
     t0 = time.perf_counter()
     sivf_out, sivf_launches, sivf_w2_launches, sivf_errs, sivf_times = phase_sharded_ivf(
         device, args.seed, card, ivf_ref, corpus)
-    del corpus, ivf_ref
+    del ivf_ref
     note_errs(ivf_errs, sivf_errs)
     log(f"phase sharded_ivf: {time.perf_counter() - t0:.1f} s, kernel launches W=1 "
         f"{sivf_launches}, W={SHARDED_WORLD} (rank 0) {sivf_w2_launches}")
+
+    # 13. ShardedIVFPQIndex at W = 1 and W = 2 on phase 6's quantizer (each
+    # run resets the counts before its path and reads them after)
+    t0 = time.perf_counter()
+    spq_out, spq_launches, spq_w2_launches, spq_err, spq_times = phase_sharded_ivf_pq(
+        device, args.seed, card, pq_ref, corpus)
+    del corpus, pq_ref
+    log(f"phase sharded_ivf_pq: {time.perf_counter() - t0:.1f} s, kernel launches W=1 "
+        f"{spq_launches}, W={SHARDED_WORLD} (rank 0) {spq_w2_launches}")
 
     # 7. MemoDB on IVFFlatIndex (counts reset before, read after)
     t0 = time.perf_counter()
@@ -2343,6 +2607,7 @@ def main() -> int:
     for label, kernel, k, ops in pq_ops:
         name = kernel if kernel == "adc_scan_select" else f"adc_scan_dense[qpb={ops['qpb']}]"
         adc_rows.setdefault(name, []).append(time_adc(ops, kernel, k, label, card))
+    adc_rows["adc_scan_dense[qpb=8]"] += spq_times
     qpb8_ms = next(r["ms"] for r in adc_rows["adc_scan_dense[qpb=8]"]
                    if r["label"] == "ivf_pq m96 ksub256")
     qpb1_ms = next(r["ms"] for r in adc_rows["adc_scan_dense[qpb=1]"]
@@ -2439,8 +2704,11 @@ def main() -> int:
             "replaces": adc_replaces[name],
             "launches": pq_launches[name],
             "launches_by_path": {"ivf_pq": pq_launches[name],
-                                 "memodb_ivf_pq": memo_pq_launches[name]},
-            "max_abs_err": adc_errs[name],
+                                 "memodb_ivf_pq": memo_pq_launches[name],
+                                 "sharded_ivf_pq": spq_launches[name],
+                                 f"sharded_ivf_pq_w{SHARDED_WORLD}": spq_w2_launches[name]},
+            "max_abs_err": max(adc_errs[name], spq_err) if name != "adc_scan_select"
+            else adc_errs[name],
             **{key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
             "shape": {key: v for key, v in head.items()
@@ -2452,6 +2720,7 @@ def main() -> int:
         })
     kernels[-3]["ivf_pq"] = pq_result
     kernels[-3]["memodb_ivf_pq"] = memo_pq
+    kernels[-2]["sharded_ivf_pq"] = spq_out
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

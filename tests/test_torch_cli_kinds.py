@@ -1,10 +1,10 @@
 """PyTorch port's memo CLI against the JAX package's across the index
-families it has (flat, ivf_flat, ivf_pq, sharded_flat and sharded_ivf at one
-rank, the bf16 and int8 scan stores, ksub 16, a pure-code IVF-PQ file), files cross-read
-between the two CLIs, and `serve --batch`'s sub-batches. Every comparison
-runs both CLIs on the
-same files (the runner of tests/test_torch_cli_golden.py: same argv, stdin
-and starting files; equal (rc, stdout, stderr), YAML and index bytes);
+families it has (flat, ivf_flat, ivf_pq, sharded_flat, sharded_ivf and
+sharded_ivf_pq at one rank, the bf16 and int8 scan stores, ksub 16, a
+pure-code IVF-PQ file), files cross-read between the two CLIs, and `serve
+--batch`'s sub-batches. Every comparison runs both CLIs on the same files
+(the runner of tests/test_torch_cli_golden.py: same argv, stdin and
+starting files; equal (rc, stdout, stderr), YAML and index bytes);
 C99VDB_PLATFORM=cpu throughout."""
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from c99_vectordb_tpu_torch.models.ivf_pq import IVFPQIndex as TPQ
 from c99_vectordb_tpu_torch.ops import distances as tdist
 from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex as TSharded
 from c99_vectordb_tpu_torch.parallel import ShardedIVFIndex as TShardedIVF
+from c99_vectordb_tpu_torch.parallel import ShardedIVFPQIndex as TShardedPQ
 from c99_vectordb_tpu_torch.storage.index_io import read_index
 
 INPUT = """\
@@ -73,7 +74,7 @@ def engine(monkeypatch, kind, **env):
 
 
 @pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
-                                  "sharded_ivf"])
+                                  "sharded_ivf", "sharded_ivf_pq"])
 def test_save_recall_reindex_cycle(pair, monkeypatch, kind):
     engine(monkeypatch, kind)
     rc, out, _ = pair.run("-f", "db", "save", "in.yaml")
@@ -204,7 +205,7 @@ def test_pure_code_ivf_pq_file_serves_per_query(pair, monkeypatch):
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 @pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
-                                  "sharded_ivf"])
+                                  "sharded_ivf", "sharded_ivf_pq"])
 def test_cross_read(pair, monkeypatch, kind, writer):
     """A DB saved (and reindexed) by either CLI recalls and serves with the
     same bytes through both."""
@@ -219,7 +220,7 @@ def test_cross_read(pair, monkeypatch, kind, writer):
 
 
 @pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
-                                  "sharded_ivf"])
+                                  "sharded_ivf", "sharded_ivf_pq"])
 @pytest.mark.parametrize("per_batch", [1, 3])
 def test_serve_batch_sub_batches(pair, monkeypatch, kind, per_batch):
     """--batch 8 under a budget that holds `per_batch` queries' outputs
@@ -232,7 +233,7 @@ def test_serve_batch_sub_batches(pair, monkeypatch, kind, per_batch):
     budget = per_batch * rows * tdist.RANKED_BYTES_PER_ROW
     monkeypatch.setattr(tdist, "RANKED_MANY_BUDGET_BYTES", budget)
     cls = {"flat": TFlat, "ivf_flat": TIVF, "ivf_pq": TPQ, "sharded_flat": TSharded,
-           "sharded_ivf": TShardedIVF}[kind]
+           "sharded_ivf": TShardedIVF, "sharded_ivf_pq": TShardedPQ}[kind]
     seen = []
     real = cls.ranked_many_device
 
@@ -272,7 +273,7 @@ def test_serve_batch_keeps_the_block_on_the_device(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq", "sharded_flat",
-                                  "sharded_ivf"])
+                                  "sharded_ivf", "sharded_ivf_pq"])
 def test_ranked_device_accepts_tensors(monkeypatch, tmp_path, kind):
     """ranked_all_device / ranked_many_device take a tensor on the
     index's device as well as a numpy array, with the same bits."""

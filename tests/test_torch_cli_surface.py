@@ -93,25 +93,29 @@ def test_unsupported_platform_is_one_error_line(cwd, capsys, monkeypatch, platfo
 
 @pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_pq"])
 def test_sharded_kind_is_one_error_line(cwd, capsys, monkeypatch, kind):
-    """sharded_flat and sharded_ivf are ported: save works (one rank, no
-    process group). sharded_ivf_pq is not yet: one Error line, exit 1."""
+    """Every sharded kind is ported: save works (one rank, no process
+    group) and writes the index file of that kind. An unknown kind raises
+    the JAX CLI's ValueError."""
+    from c99_vectordb_tpu_torch.storage.index_io import read_index
+
     monkeypatch.setenv("C99VDB_PLATFORM", "cpu")
     monkeypatch.setenv("C99VDB_INDEX", kind)
     rc, out, err = run_torch(capsys, "-f", "db", "save", "in.yaml")
-    if kind in ("sharded_flat", "sharded_ivf"):
-        assert (rc, err) == (0, "")
-        assert out.startswith("Memorized: 'I prefer tea over coffee' (ID: 0)\n")
-        assert (cwd / "db.memo").exists()
-        return
-    assert (rc, out) == (1, "")
-    assert err == f"Error: index kind '{kind}' not yet ported\n"
+    assert (rc, err) == (0, "")
+    assert out.startswith("Memorized: 'I prefer tea over coffee' (ID: 0)\n")
+    assert read_index(cwd / "db.memo", device="cpu").kind == kind
+    from c99_vectordb_tpu.cli import main as jax_main
+
+    monkeypatch.setenv("C99VDB_INDEX", f"{kind}_bogus")
+    for main in (jax_main, torch_cli.main):
+        with pytest.raises(ValueError, match=f"unknown C99VDB_INDEX '{kind}_bogus'"):
+            main(["memo", "-f", "db2", "save", "in.yaml"])
 
 
 def test_sharded_file_from_jax_is_one_error_line(cwd, capsys, monkeypatch):
-    """A DB the JAX CLI saved with sharded_flat or sharded_ivf: the port's
-    recall reads it and prints the JAX CLI's bytes. One whose index file is
-    a JAX sharded_ivf_pq index: the port's recall refuses it with one Error
-    line (it does not pretend the index is empty)."""
+    """A DB the JAX CLI saved with sharded_flat or sharded_ivf, and one
+    whose index file is a JAX sharded_ivf_pq index: the port's recall reads
+    each and prints the JAX CLI's bytes."""
     from c99_vectordb_tpu.cli import main as jax_main
 
     monkeypatch.setenv("C99VDB_PLATFORM", "cpu")
@@ -140,8 +144,10 @@ def test_sharded_file_from_jax_is_one_error_line(cwd, capsys, monkeypatch):
     pq.train(rows)
     pq.add(rows[:1], np.arange(1))
     write_index(pq, cwd / "ivf.memo")
+    assert jax_main(["memo", "-f", "ivf", "recall", "tea"]) == 0
+    want = capsys.readouterr().out
     rc, out, err = run_torch(capsys, "-f", "ivf", "recall", "tea")
-    assert rc == 1 and err == "Error: index kind 'sharded_ivf_pq' not yet ported\n"
+    assert (rc, out, err) == (0, want, "") and "] Score: " in want
 
 
 @pytest.mark.parametrize("argv", [("analyze", "--filter", "{source: user}"),

@@ -172,20 +172,21 @@ def test_unported_kind_raises(tmp_path, monkeypatch):
     np.testing.assert_array_equal(loaded.search(pts[:4], 3)[1], pq.search(pts[:4], 3)[1])
     monkeypatch.setenv("C99VDB_INDEX", "ivf_pq")
     assert tcommands.make_index(device="cpu").kind == "ivf_pq"
-    # sharded_flat and sharded_ivf are ported (one rank without a process
-    # group); sharded_ivf_pq is not yet.
+    # Every kind of the JAX package is ported, the sharded ones at one rank
+    # without a process group; an unknown kind is a ValueError.
     from c99_vectordb_tpu_torch.models.registry import resolve
 
-    for kind in ("sharded_flat", "sharded_ivf"):
+    for kind in ("sharded_flat", "sharded_ivf", "sharded_ivf_pq"):
         monkeypatch.setenv("C99VDB_INDEX", kind)
         index = tcommands.make_index(device="cpu")
         assert index.kind == kind and index.mesh.shape == {"data": 1}
         assert type(index) is resolve(kind)
-    monkeypatch.setenv("C99VDB_INDEX", "sharded_ivf_pq")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcommands.make_index(device="cpu")
-    with pytest.raises(NotImplementedError, match="index kind 'sharded_ivf_pq' not yet ported"):
-        resolve("sharded_ivf_pq")
+    from c99_vectordb_tpu.models.registry import resolve as jresolve
+
+    for kind in ("flat", "ivf_flat", "ivf_pq", "sharded_flat", "sharded_ivf", "sharded_ivf_pq"):
+        assert resolve(kind).kind == jresolve(kind).kind == kind
+    with pytest.raises(ValueError, match="unknown index kind 'bogus'"):
+        resolve("bogus")
     monkeypatch.setenv("C99VDB_INDEX", "bogus")
     with pytest.raises(ValueError):
         tcommands.make_index(device="cpu")

@@ -1,8 +1,10 @@
 """PyTorch port on the card: the sharded flat index (parallel/sharded.py)
-over the flat kernel (csrc/fused_l2_topk.cu), and the sharded IVF index
-over the IVF kernels (csrc/ivf_scan.cu), at W = 1 in this process and at
-W = 1, 2 and 4 gloo ranks sharing cuda:0 (tests/torch_parallel_worker.py
-and tests/torch_parallel_ivf_worker.py, each spawned once for the module).
+over the flat kernel (csrc/fused_l2_topk.cu), the sharded IVF index over
+the IVF kernels (csrc/ivf_scan.cu) and the sharded IVF-PQ index over the
+dense ADC kernel (csrc/adc_scan.cu), at W = 1 in this process and at W =
+1, 2 and 4 gloo ranks sharing cuda:0 (tests/torch_parallel_worker.py,
+tests/torch_parallel_ivf_worker.py and tests/torch_parallel_pq_worker.py,
+each spawned once for the module).
 
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor the JAX package:
@@ -18,6 +20,10 @@ The sharded IVF index's f32 ids must equal IVFFlatIndex's on the card on
 the same centroids; on every rank each IVF kernel equals its plain version
 on that rank's block (select and dense within IVF_REL_TOL, int8 bit for
 bit), and the select, dense and int8 dense kernels must all have launched.
+The sharded IVF-PQ index returns exact distances with no masked or removed
+id; on every rank the dense ADC kernel equals its plain version on that
+rank's block bit for bit and was launched on the rank's path; at W = 1 it
+shortlists as IVFPQIndex's dense route on the same quantizer.
 """
 
 from __future__ import annotations
@@ -32,12 +38,14 @@ import pytest
 import torch
 
 import torch_parallel_ivf_worker as ivf_worker
+import torch_parallel_pq_worker as pq_worker
 import torch_parallel_worker as worker
 from c99_vectordb_tpu_torch.models.flat import FlatIndex
 from c99_vectordb_tpu_torch.models.ivf_flat import IVFFlatIndex
-from c99_vectordb_tpu_torch.ops import ivf_scan_cuda, topk_cuda
+from c99_vectordb_tpu_torch.models.ivf_pq import IVFPQIndex
+from c99_vectordb_tpu_torch.ops import adc_cuda, ivf_scan_cuda, topk_cuda
 from c99_vectordb_tpu_torch.ops.rerank import shortlist_depth
-from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
+from c99_vectordb_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, ShardedIVFPQIndex
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -88,9 +96,20 @@ def spawn_worlds(script, root, extra=()):
     return out
 
 
+def build_sources():
+    """Build every kernel source once, before ranks start: each worker's
+    dry run reaches the flat, IVF and ADC kernels, and a rank that builds
+    one while the others wait in a collective can outlast their timeout."""
+    from c99_vectordb_tpu_torch.ops import cuda_build
+
+    for name in ("fused_l2_topk", "ivf_scan", "adc_scan"):
+        cuda_build.build(name)
+
+
 @pytest.fixture(scope="module")
 def card_runs(cuda, tmp_path_factory):
     """{W: [rank results]} of the flat worker's cases with every rank on cuda:0."""
+    build_sources()
     return spawn_worlds(worker.__file__, tmp_path_factory.mktemp("card_ranks"))
 
 
@@ -98,15 +117,31 @@ def card_runs(cuda, tmp_path_factory):
 def ivf_card_runs(cuda, tmp_path_factory):
     """{W: [rank results]} of the IVF worker's cases with every rank on
     cuda:0, on a quantizer the port's k-means trains on the CPU."""
-    from c99_vectordb_tpu_torch.ops import cuda_build
     from c99_vectordb_tpu_torch.ops.kmeans import train_kmeans
 
-    cuda_build.build("ivf_scan")           # once, before the ranks start
+    build_sources()
     root = tmp_path_factory.mktemp("ivf_card_ranks")
     shared = root / "shared"
     shared.mkdir()
     np.save(shared / "centroids.npy", train_kmeans(X, ivf_worker.NLIST, iters=8, device="cpu"))
     return spawn_worlds(ivf_worker.__file__, root, ("--shared", str(shared)))
+
+
+@pytest.fixture(scope="module")
+def pq_card_runs(cuda, tmp_path_factory):
+    """{W: [rank results]} of the IVF-PQ worker's cases with every rank on
+    cuda:0, on quantizers the port trains on the CPU."""
+    build_sources()
+    root = tmp_path_factory.mktemp("pq_card_ranks")
+    shared = root / "shared"
+    shared.mkdir()
+    for name, (params, n) in pq_worker.QUANTIZERS.items():
+        index = ShardedIVFPQIndex(**params, device="cpu")
+        index.train(X[:n])
+        rot = index._rotation if index._rotation is not None else np.zeros((0, 64), np.float32)
+        np.savez(shared / f"q_{name}.npz", centroids=index._centroids,
+                 codebooks=index._codebooks, rotation=rot)
+    return spawn_worlds(pq_worker.__file__, root, ("--shared", str(shared)))
 
 
 def got(runs, w, case):
@@ -350,3 +385,123 @@ def test_ivf_one_rank_in_process_equals_ivf_flat(cuda, scan_dtype):
     errs = ivf_worker.kernel_check(index, q, 16, 10 if scan_dtype == "float32" else 20)
     assert set(errs) == ({"ivf_scan_dense", "ivf_scan_select"} if scan_dtype == "float32"
                          else {"ivf_scan_dense_int8"}), errs
+
+
+# -- the sharded IVF-PQ index ------------------------------------------------------------
+
+
+def assert_exact(d, i, db=X, q=Q):
+    """The per-shard refine is exact: each distance is its id's row's."""
+    live = i >= 0
+    true = ((q[:, None, :].astype(np.float64) - db[i.clip(0)]) ** 2).sum(-1)
+    assert_close(np.where(live, d, 0.0), np.where(live, true, 0.0))
+
+
+def overlap(i, want_i):
+    return sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(i, want_i)) / want_i.size
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_pq_ranks_on_the_card(pq_card_runs, w):
+    """The IVF-PQ worker's cases at W ranks on the card (search takes the
+    dense ADC kernel per shard): exact distances on both routes and every
+    quantizer, recall@5 >= 0.8 where the JAX tests claim it (8-bit codes),
+    no masked id, the tail, the removal, device mode and the restage; each
+    rank's kernel equals its plain version on its block; the kernel
+    launched on every rank; results replicated."""
+    got_ = lambda case: got(pq_card_runs, w, case)  # noqa: E731
+    want = oracle(X, IDS, Q, 5)[1]
+    for name in ("base", "refine8", "opq", "k16"):
+        for nprobe in (4, 16):
+            r = got_(f"routes_{name}_p{nprobe}")
+            for d, i in ((r["d"], r["i"]), (r["kd"], r["ki"])):
+                assert_exact(d, i)
+        r = got_(f"routes_{name}_p16")
+        if name == "k16":
+            # 16 codewords a subspace: the JAX tests claim exactness, not
+            # recall (TestShardedIVFPQRound4::test_ksub16_exact_distances).
+            assert (r["ki"] >= 0).all() and (r["i"] >= 0).all()
+        else:
+            assert overlap(r["ki"], want) >= 0.8 and overlap(r["i"], want) >= 0.8
+        m = got_(f"masked_{name}")
+        for i in (m["i"], m["ki"]):
+            assert ((i < 0) | MASK[i.clip(0)]).all()
+    for route in ("plain", "kernel"):
+        p = got_(f"program_{route}")
+        r = got_("routes_base_p4")
+        np.testing.assert_array_equal(p["i"], r["i" if route == "plain" else "ki"])
+    r5 = got_("round5_1d")
+    assert bool(r5["staged"]) and int(r5["tail"]) == 200 and int(r5["removed"]) == 10
+    assert not np.isin(r5["ri"], IDS[:10]).any() and overlap(r5["i"], want) >= 0.8
+    assert_exact(r5["d"], r5["i"])
+    for i in (r5["mi"], r5["kmi"]):
+        assert ((i < 0) | MASK[i.clip(0)]).all()
+    dv = got_("device")
+    assert str(dv["mode"]) == "device" and int(dv["ntotal"]) == 999
+    np.testing.assert_array_equal(dv["loaded"], dv["after"])
+    np.testing.assert_array_equal(dv["state_vecs"], X[dv["state_ids"]])
+    assert not (dv["after"] == 42).any()
+    for mode in ("host", "device"):
+        rs = got_(f"restage_{mode}")
+        assert bool(rs["tail_gone"])
+        assert_exact(rs["d_fold"], rs["i_fold"])
+    for rank in pq_card_runs[w]:
+        errs = {k: float(v) for k, v in rank.items() if k.startswith("kernels.")}
+        assert set(errs) == {"kernels.adc_scan_dense_base", "kernels.adc_scan_dense_k16"}, errs
+        assert all(v == 0.0 for v in errs.values())
+        assert int(rank["launches.adc_scan_dense"]) > 0, rank["launches.adc_scan_dense"]
+        assert int(rank["launches.adc_scan_select"]) == 0
+    for other in pq_card_runs[w][1:]:
+        for key, value in pq_card_runs[w][0].items():
+            if not key.startswith("kernels."):
+                np.testing.assert_array_equal(other[key], value, err_msg=key)
+    if w == 4:
+        t = got_("two_level")
+        for a, b in (("ai", "bi"), ("ad", "bd"), ("aki", "bki"), ("akd", "bkd")):
+            np.testing.assert_array_equal(t[a], t[b])
+
+
+@pytest.mark.parametrize("m,ksub", [(96, 256), (96, 16)])
+def test_pq_one_rank_in_process_equals_ivf_pq(cuda, m, ksub):
+    """W = 1 without a process group at 200k x 384, nlist 256, device mode,
+    on IVFPQIndex's own quantizer (m 96; ksub 256, or 16 nibble-packed):
+    the card route shortlists as IVFPQIndex's dense route (k 20,
+    refine_factor 20: k_adc 400) and the plain route as IVFPQIndex's CPU
+    route, on >= 99% of the rows, unfiltered and with a 10% filter; every
+    returned distance is exact; the dense ADC kernel launched once per
+    card-route search, and equals its plain version on the block."""
+    rng = np.random.default_rng(7)
+    n, d = 200_000, 384
+    centers = rng.standard_normal((256, d), dtype=np.float32)
+    x = centers[rng.integers(0, 256, n)] + 0.6 * rng.standard_normal((n, d), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, n, 64)] + 0.05 * rng.standard_normal((64, d), dtype=np.float32)
+    mask = rng.random(n) < 0.1
+    x_dev = torch.from_numpy(x).to(cuda)
+    ids_dev = torch.arange(n, dtype=torch.int32, device=cuda)
+    single = IVFPQIndex(dim=d, nlist=256, nprobe=16, m=m, ksub=ksub, refine_factor=20,
+                        device=cuda)
+    single.train(x_dev)
+    single.add(x_dev, ids_dev)
+    index = ShardedIVFPQIndex(dim=d, nlist=256, nprobe=16, m=m, ksub=ksub, refine_factor=20,
+                              device=cuda)
+    index._centroids, index._codebooks = single._centroids, single._codebooks
+    index.add(x_dev, ids_dev)
+    index.search(q[:1], 20)
+    assert index._params[1] == single._stage()[7]
+    before = adc_cuda.adc_scan_dense.launches
+    for kw in ({}, {"id_mask": mask}):
+        got_d, got_i = index._search(q, 20, kernel_route=True, **kw)
+        want_d, want_i = single._search(q, 20, card_route=True, **kw)
+        assert (got_i == want_i).all(axis=1).mean() >= 0.99
+        assert_exact(got_d, got_i, x, q)
+        pd, pi = index._search(q, 20, kernel_route=False, **kw)
+        cd, ci = single._search(q, 20, card_route=False, **kw)
+        assert (pi == ci).all(axis=1).mean() >= 0.99
+        assert_exact(pd, pi, x, q)
+        if kw:
+            for i in (got_i, pi):
+                assert ((i < 0) | mask[i.clip(0)]).all()
+    # the two indexes' card routes, each unfiltered and filtered
+    assert adc_cuda.adc_scan_dense.launches - before == 4
+    assert pq_worker.kernel_check(index, q, 16, 400, 8) == 0.0
