@@ -14,13 +14,14 @@ Layers:
     unfilled slots. Modes: f32, bf16 and int8 stores with queries of the
     same type, and int8 codes with bf16 queries (the codes decode to bf16,
     exactly). Every mode runs on the tensor cores (mma.sync: 3xTF32
-    m16n8k8 for f32, m16n8k16 bf16 -> f32 for the bf16 store and for int8
-    codes with bf16 queries, m16n8k32 s8 -> s32 for int8 x int8; store
-    chunks through a cp.async ring). The source note says what bounds
+    m16n8k8 for f32, on 64-query x 128-row tiles; m16n8k16 bf16 -> f32
+    for the bf16 store and for int8 codes with bf16 queries, m16n8k32 s8
+    -> s32 for int8 x int8; store chunks through a cp.async ring). The source note says what bounds
     each. A CUDA tensor launches the kernel (or raises); a CPU
     tensor takes the plain version `select_plain`.
     `fused_l2_topk.launches` counts kernel launches,
-    `fused_l2_topk.launches_by_mode` by mode.
+    `fused_l2_topk.launches_by_mode` by mode. `launch_plan` sizes the
+    grid and the scratch (on the CPU too, where the tests hold it).
   - `fused_topk(db, ids, sq_norms, queries, k, q_int8=None)`: the JAX
     package's `fused_topk` contract: query staging, the selection above,
     and the epilogue (+ ||q||^2, clamp at 0, positions -> ids).
@@ -48,17 +49,47 @@ _MODES = {
 }
 
 
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+ABI_VERSION = 6
+SIGNATURES = {
+    "fused_l2_topk": ([_CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
+                       _VP], _CI),
+    "fused_l2_topk_shape": ([_CI, _CI, _CI, ctypes.POINTER(ctypes.c_int)], _CI),
+}
+
+
 def _load() -> ctypes.CDLL:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", 5, {
-        "fused_l2_topk": ([ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp], ci),
-        "fused_l2_topk_splits": ([ci, ci, ci, ci, ci, ci], ci),
-    })
+    return cuda_build.load("fused_l2_topk", "fused_l2_topk_abi_version", ABI_VERSION, SIGNATURES)
 
 
 @functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.cache
+def _kernel_shape(device_index: int, mode: int, d: int, k: int) -> tuple[int, int, int, int]:
+    """Pass 1's (blocks per SM, queries a block, store rows a tile, most
+    splits) in mode `mode` at (D, k), from the kernel (the occupancy query
+    for its shared memory, pass 2's cap), once per device and shape."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        _load().fused_l2_topk_shape(mode, d, k, out)
+    return out[0], out[1], out[2], out[3]
+
+
+def launch_plan(b: int, n: int, k: int, sms: int, per_sm: int, q_tile: int, row_tile: int,
+                max_splits: int) -> dict:
+    """How fused_l2_topk launches B queries over N rows at depth k on a card
+    of `sms` multiprocessors, each holding `per_sm` pass-1 blocks of
+    `q_tile` queries that take the store in tiles of `row_tile` rows:
+    (query tiles x splits) fills the card in one wave with no tail, with at
+    least one row tile per split and at most `max_splits` (all four from
+    the kernel's fused_l2_topk_shape). Returns the query tiles, the splits
+    and the shape of the partial lists (splits, B, k)."""
+    q_tiles = -(-b // q_tile)
+    splits = max(1, min(per_sm * sms // q_tiles, -(-n // row_tile), max_splits))
+    return {"q_tiles": q_tiles, "splits": splits, "part": (splits, b, k)}
 
 
 # -- the kernel wrapper and its plain version ---------------------------------
@@ -126,17 +157,20 @@ def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
     if k < 1 or n < 1:
         raise ValueError(f"fused_l2_topk: need k >= 1 and a non-empty store (k={k}, N={n})")
     lib = _load()
-    splits = lib.fused_l2_topk_splits(mode[0], b, n, d, k, _sm_count(db.device.index))
-    part_k = torch.empty((splits, b, k), dtype=torch.float32, device=db.device)
-    part_p = torch.empty((splits, b, k), dtype=torch.int32, device=db.device)
+    dev = db.device.index
+    plan = launch_plan(b, n, k, _sm_count(dev), *_kernel_shape(dev, mode[0], d, k))
+    # One scratch buffer: the partial keys, then their positions.
+    part = plan["splits"] * b * k
+    scratch = torch.empty(2 * part, dtype=torch.int32, device=db.device)
+    base = scratch.data_ptr()
     out_k = torch.empty((b, k), dtype=torch.float32, device=db.device)
     out_p = torch.empty((b, k), dtype=torch.int32, device=db.device)
     with torch.cuda.device(db.device):
         stream = torch.cuda.current_stream(db.device).cuda_stream
         err = lib.fused_l2_topk(
             mode[0], q_staged.data_ptr(), db.data_ptr(), norms.data_ptr(),
-            rs.data_ptr() if is_int8 else None, b, n, d, k, splits,
-            part_k.data_ptr(), part_p.data_ptr(), out_k.data_ptr(), out_p.data_ptr(),
+            rs.data_ptr() if is_int8 else None, b, n, d, k, plan["splits"],
+            base, base + part * scratch.element_size(), out_k.data_ptr(), out_p.data_ptr(),
             stream,
         )
     if err != 0:

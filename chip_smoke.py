@@ -8,8 +8,9 @@ Phases (any failure raises and exits non-zero; none is caught):
                  csrc/adc_scan.cu (both with csrc/select_merge.cuh), in
                  parallel, into c99_vectordb_tpu_torch/_build/. fused_l2_topk
                  runs every mode on the tensor cores (mma.sync): its f32
-                 product (3xTF32), its two bf16 products (bf16 store; int8
-                 codes with bf16 queries) and its int8 x int8 mode
+                 product (3xTF32 on 64-query x 128-row tiles,
+                 scan_topk_f32_kernel), its two bf16 products (bf16 store;
+                 int8 codes with bf16 queries) and its int8 x int8 mode
                  (scan_topk_mma_kernel<2>, s8 -> s32). The IVF and ADC select
                  kernels split each query's probes over blocks, stop each list
                  at its high-water mark and merge exactly; the three dense
@@ -579,9 +580,10 @@ def library_call(q_st, db, norms, k, rs, dt):
 
 
 # How pass 1 of fused_l2_topk forms each mode's products (csrc/fused_l2_topk.cu):
-# every mode is scan_topk_mma_kernel<mode> on the tensor cores.
+# every mode runs on the tensor cores, the f32 store in a kernel of its own.
 PRODUCT_ROUTE = {
-    "float32": "scan_topk_mma_kernel<0>: tensor cores, mma.sync m16n8k8 tf32, 3xTF32",
+    "float32": "scan_topk_f32_kernel: tensor cores, mma.sync m16n8k8 tf32, 3xTF32, "
+               "64-query x 128-row tiles",
     "bfloat16": "scan_topk_mma_kernel<1>: tensor cores, mma.sync m16n8k16 bf16",
     "int8_bf16q": "scan_topk_mma_kernel<3>: tensor cores, mma.sync m16n8k16 bf16",
     "int8": "scan_topk_mma_kernel<2>: tensor cores, mma.sync m16n8k32 s8 -> s32",
@@ -2637,7 +2639,7 @@ def main() -> int:
         "shape": {k: main_row[k] for k in ("dtype", "B", "N", "D", "k")},
         "variants": rows,
         "pass1_by_mode": PRODUCT_ROUTE,
-        **({"ptxas": ptxas_resources("fused_l2_topk", "_topk_mma_kernel")}
+        **({"ptxas": ptxas_resources("fused_l2_topk", "scan_topk_")}
            if "fused_l2_topk" in compiled else {}),
         "check": "pass",
         "recall_many_qps": qps,

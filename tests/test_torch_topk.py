@@ -128,6 +128,46 @@ def test_fused_topk_contract_matches_jax_kernel(case, dtype):
     np.testing.assert_array_equal(wr.numpy(), tr)
 
 
+PLAN_BS = [1, 63, 64, 65, 127, 128, 129, 200, 1024]
+PLAN_SHAPES = [(37, 20), (8192 + 37, 129), (131_072, 20), (1 << 20, 200)]
+
+
+# (blocks per SM, queries a block, store rows a tile, most splits), as
+# fused_l2_topk_shape reports them: the f32 kernel's (one block per SM), the
+# bf16 / int8 kernel's (two per SM), and the latter with a lower cap on the
+# splits, which the plan must take from the shape.
+KERNEL_SHAPES = {"f32_64x128": (1, 64, 128, 128), "mma_64x64": (2, 64, 64, 128),
+                 "mma_64x64_cap32": (2, 64, 64, 32)}
+
+
+@pytest.mark.parametrize("shape", list(KERNEL_SHAPES))
+@pytest.mark.parametrize("b", PLAN_BS)
+def test_launch_plan_fills_one_wave(shape, b):
+    """fused_l2_topk's launch plan (the grid the wrapper asks the kernel
+    for, and the partial lists it allocates): the splits are the most that
+    keep (query tiles x splits) within one wave of resident blocks, at least
+    one, and at most one per row tile and the kernel's cap (pass 2 merges 4
+    a lane)."""
+    sms = 132
+    per_sm, q_tile, row_tile, cap = KERNEL_SHAPES[shape]
+    for n, k in PLAN_SHAPES:
+        plan = topk_cuda.launch_plan(b, n, k, sms, per_sm, q_tile, row_tile, cap)
+        q_tiles, s = plan["q_tiles"], plan["splits"]
+        assert q_tiles == -(-b // q_tile)
+        assert s == max(1, min(per_sm * sms // q_tiles, -(-n // row_tile), cap))
+        assert 1 <= s <= min(cap, -(-n // row_tile))
+        assert q_tiles * s <= max(per_sm * sms, q_tiles)
+        assert plan["part"] == (s, b, k)
+    if b == 128:   # MemoDB's shape (131,072 rows, k 20)
+        plan = topk_cuda.launch_plan(b, 131_072, 20, sms, per_sm, q_tile, row_tile, cap)
+        want = {"f32_64x128": (2, 66), "mma_64x64": (2, 128), "mma_64x64_cap32": (2, 32)}[shape]
+        assert (plan["q_tiles"], plan["splits"]) == want
+    if b == 1024:   # 1M rows at B = 1024
+        plan = topk_cuda.launch_plan(b, 1 << 20, 20, sms, per_sm, q_tile, row_tile, cap)
+        want = {"f32_64x128": (16, 8), "mma_64x64": (16, 16), "mma_64x64_cap32": (16, 16)}[shape]
+        assert (plan["q_tiles"], plan["splits"]) == want
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_stable_topk_matches_lexsort_oracle(seed):
     rng = np.random.default_rng(seed)
