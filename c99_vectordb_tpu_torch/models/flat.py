@@ -29,6 +29,7 @@ from ..ops.rerank import build_id_lookup, exact_rerank_rows, exact_rerank_staged
 from ..ops.topk import topk_program
 from ..ops.topk_cuda import fused_topk
 from ..utils.runtime import resolve_device
+from ..utils.timing import span
 from .base import next_pow2
 from .devbuild import MaskCache, mask_norms, mask_rows, mask_shortlist_ids
 from .registry import register
@@ -93,17 +94,19 @@ class FlatIndex:
         """Append (n, dim) vectors (numpy or a tensor on any device) with
         external ids (n,). The host copy is the index's state; the device
         stagings rebuild on the next search."""
-        vectors = np.ascontiguousarray(self._host(vectors), dtype=np.float32).reshape(-1, self.dim)
-        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
-        if vectors.shape[0] != ids.shape[0]:
-            raise ValueError("vectors and ids must have matching leading dimension")
-        self._vectors, self._ids = self._coerce_sorted(
-            np.concatenate([self._vectors, vectors], axis=0),
-            np.concatenate([self._ids, ids]),
-            self.dim,
-        )
-        self._device = None
-        self._mask_cache.clear()
+        with span("flat.add"):
+            vectors = np.ascontiguousarray(self._host(vectors), dtype=np.float32)
+            vectors = vectors.reshape(-1, self.dim)
+            ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+            if vectors.shape[0] != ids.shape[0]:
+                raise ValueError("vectors and ids must have matching leading dimension")
+            self._vectors, self._ids = self._coerce_sorted(
+                np.concatenate([self._vectors, vectors], axis=0),
+                np.concatenate([self._ids, ids]),
+                self.dim,
+            )
+            self._device = None
+            self._mask_cache.clear()
 
     def reconstruct(self, doc_id: int) -> np.ndarray:
         """Return the stored vector for an external id. Raises KeyError if
@@ -139,46 +142,47 @@ class FlatIndex:
         exactly as the JAX package computes them, so both stage the same
         bytes."""
         if self._device is None:
-            dev = self.device
-            cap = next_pow2(max(self.ntotal, 1))
-            vecs = np.zeros((cap, self.dim), dtype=np.float32)
-            vecs[: self.ntotal] = self._vectors
-            ids = np.full((cap,), -1, dtype=np.int32)
-            ids[: self.ntotal] = self._ids.astype(np.int32)
-            valid = np.zeros((cap,), dtype=bool)
-            valid[: self.ntotal] = True
-            sq_norms = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
-            sq_norms[self.ntotal :] = np.inf  # the kernel's padding mask
-            vecs_dev = torch.from_numpy(vecs).to(dev)
-            scan_norms = scan_scale = None
-            if self.scan_dtype == "bfloat16":
-                scan_dev = vecs_dev.to(torch.bfloat16)
-            elif self.scan_dtype == "int8":
-                # Symmetric per-dimension SQ8: codes = round(x / a),
-                # a_d = maxabs_d / 127. The scan scores DECODED space
-                # (norms of x_hat; queries pre-scaled by a in search).
-                maxabs = np.abs(vecs[: self.ntotal]).max(axis=0, initial=1e-30)
-                scale = (maxabs / 127.0).astype(np.float32)  # (D,)
-                codes = np.clip(np.rint(vecs / scale), -127, 127)
-                scan_dev = torch.from_numpy(codes.astype(np.int8)).to(dev)
-                decoded = codes * scale
-                dec_norms = np.einsum("nd,nd->n", decoded, decoded).astype(np.float32)
-                dec_norms[self.ntotal :] = np.inf
-                scan_norms = torch.from_numpy(dec_norms).to(dev)
-                scan_scale = torch.from_numpy(scale).to(dev)
-            else:
-                scan_dev = vecs_dev
-            self._device = (
-                vecs_dev,
-                torch.from_numpy(ids).to(dev),
-                torch.from_numpy(valid).to(dev),
-                torch.from_numpy(sq_norms).to(dev),
-                # Rerank id->row lookup (row == id-sorted position here).
-                build_id_lookup(self._ids, dev),
-                scan_dev,
-                scan_norms,
-                scan_scale,
-            )
+            with span("flat.stage"):
+                dev = self.device
+                cap = next_pow2(max(self.ntotal, 1))
+                vecs = np.zeros((cap, self.dim), dtype=np.float32)
+                vecs[: self.ntotal] = self._vectors
+                ids = np.full((cap,), -1, dtype=np.int32)
+                ids[: self.ntotal] = self._ids.astype(np.int32)
+                valid = np.zeros((cap,), dtype=bool)
+                valid[: self.ntotal] = True
+                sq_norms = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+                sq_norms[self.ntotal :] = np.inf  # the kernel's padding mask
+                vecs_dev = torch.from_numpy(vecs).to(dev)
+                scan_norms = scan_scale = None
+                if self.scan_dtype == "bfloat16":
+                    scan_dev = vecs_dev.to(torch.bfloat16)
+                elif self.scan_dtype == "int8":
+                    # Symmetric per-dimension SQ8: codes = round(x / a),
+                    # a_d = maxabs_d / 127. The scan scores DECODED space
+                    # (norms of x_hat; queries pre-scaled by a in search).
+                    maxabs = np.abs(vecs[: self.ntotal]).max(axis=0, initial=1e-30)
+                    scale = (maxabs / 127.0).astype(np.float32)  # (D,)
+                    codes = np.clip(np.rint(vecs / scale), -127, 127)
+                    scan_dev = torch.from_numpy(codes.astype(np.int8)).to(dev)
+                    decoded = codes * scale
+                    dec_norms = np.einsum("nd,nd->n", decoded, decoded).astype(np.float32)
+                    dec_norms[self.ntotal :] = np.inf
+                    scan_norms = torch.from_numpy(dec_norms).to(dev)
+                    scan_scale = torch.from_numpy(scale).to(dev)
+                else:
+                    scan_dev = vecs_dev
+                self._device = (
+                    vecs_dev,
+                    torch.from_numpy(ids).to(dev),
+                    torch.from_numpy(valid).to(dev),
+                    torch.from_numpy(sq_norms).to(dev),
+                    # Rerank id->row lookup (row == id-sorted position here).
+                    build_id_lookup(self._ids, dev),
+                    scan_dev,
+                    scan_norms,
+                    scan_scale,
+                )
         return self._device
 
     # -- search -------------------------------------------------------------
@@ -198,57 +202,63 @@ class FlatIndex:
         card's shortlist -> kernel -> rerank route (on CPU tensors the
         kernel wrapper takes its plain version), False the single exact
         topk_program pass."""
-        queries = np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim)
-        if self.ntotal == 0:
-            shape = (queries.shape[0], k)
-            return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
-        (vecs, ids, valid, sq_norms, id_lookup, scan_vecs, scan_norms,
-         scan_scale) = self._staged()
-        if id_mask is not None:
+        with span("flat.search"):
+            with span("flat.upload"):
+                queries = np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim)
+                q_dev = torch.from_numpy(queries).to(self.device) if self.ntotal else None
+            if q_dev is None:
+                shape = (queries.shape[0], k)
+                return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
+            with span("flat.scan"):
+                (vecs, ids, valid, sq_norms, id_lookup, scan_vecs, scan_norms,
+                 scan_scale) = self._staged()
+                if id_mask is not None:
 
-            def _build():
-                return (
-                    mask_norms(sq_norms, ids, id_mask),
-                    None if scan_norms is None else mask_norms(scan_norms, ids, id_mask),
-                    valid & mask_rows(ids, id_mask),
-                )
+                    def _build():
+                        return (
+                            mask_norms(sq_norms, ids, id_mask),
+                            None if scan_norms is None else mask_norms(scan_norms, ids, id_mask),
+                            valid & mask_rows(ids, id_mask),
+                        )
 
-            sq_norms_eff, scan_norms_eff, valid_eff = self._mask_cache.get(id_mask, _build)
-        else:
-            sq_norms_eff, scan_norms_eff, valid_eff = sq_norms, scan_norms, valid
-        cap = vecs.shape[0]
-        k_eff = min(k, cap)
-        q_dev = torch.from_numpy(queries).to(self.device)
-        k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
-        # The kernel keeps k_scan-deep lists; deeper shortlists and small
-        # stores take topk_program + the staged rerank.
-        fused_ok = cap >= 1024 and k_scan <= 1024
-        if rerank_route and fused_ok:
-            q_scan = q_dev if scan_scale is None else q_dev * scan_scale
-            dists, out_ids, scan_rows = fused_topk(
-                scan_vecs, ids,
-                sq_norms_eff if scan_norms_eff is None else scan_norms_eff,
-                q_scan, k_scan, return_rows=True,
-            )
-            if id_mask is not None:
-                out_ids = mask_shortlist_ids(out_ids, id_mask)
-        else:
-            dists, out_ids = topk_program(vecs, ids, valid_eff, sq_norms_eff, q_dev, k_scan)
-            scan_rows = None
-        if rerank_route:
-            if scan_rows is not None:
-                # The scan store shares row order with the f32 store, so the
-                # kernel's winner rows index the rerank store directly.
-                dists, out_ids = exact_rerank_rows(vecs, scan_rows, out_ids, q_dev, k_eff)
-            else:
-                dists, out_ids = exact_rerank_staged(vecs, id_lookup, out_ids, q_dev, k_eff)
-        dists = dists.cpu().numpy()
-        out_ids = out_ids.cpu().numpy().astype(np.int64)
-        if k_eff < k:
-            pad = ((0, 0), (0, k - k_eff))
-            dists = np.pad(dists, pad, constant_values=np.inf)
-            out_ids = np.pad(out_ids, pad, constant_values=-1)
-        return dists, out_ids
+                    sq_norms_eff, scan_norms_eff, valid_eff = self._mask_cache.get(id_mask, _build)
+                else:
+                    sq_norms_eff, scan_norms_eff, valid_eff = sq_norms, scan_norms, valid
+                cap = vecs.shape[0]
+                k_eff = min(k, cap)
+                k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
+                # The kernel keeps k_scan-deep lists; deeper shortlists and
+                # small stores take topk_program + the staged rerank.
+                fused_ok = cap >= 1024 and k_scan <= 1024
+                if rerank_route and fused_ok:
+                    q_scan = q_dev if scan_scale is None else q_dev * scan_scale
+                    dists, out_ids, scan_rows = fused_topk(
+                        scan_vecs, ids,
+                        sq_norms_eff if scan_norms_eff is None else scan_norms_eff,
+                        q_scan, k_scan, return_rows=True,
+                    )
+                    if id_mask is not None:
+                        out_ids = mask_shortlist_ids(out_ids, id_mask)
+                else:
+                    dists, out_ids = topk_program(vecs, ids, valid_eff, sq_norms_eff, q_dev, k_scan)
+                    scan_rows = None
+            if rerank_route:
+                with span("flat.rerank"):
+                    if scan_rows is not None:
+                        # The scan store shares row order with the f32 store,
+                        # so the kernel's winner rows index the rerank store
+                        # directly.
+                        dists, out_ids = exact_rerank_rows(vecs, scan_rows, out_ids, q_dev, k_eff)
+                    else:
+                        dists, out_ids = exact_rerank_staged(vecs, id_lookup, out_ids, q_dev, k_eff)
+            with span("flat.fetch"):
+                dists = dists.cpu().numpy()
+                out_ids = out_ids.cpu().numpy().astype(np.int64)
+                if k_eff < k:
+                    pad = ((0, 0), (0, k - k_eff))
+                    dists = np.pad(dists, pad, constant_values=np.inf)
+                    out_ids = np.pad(out_ids, pad, constant_values=-1)
+            return dists, out_ids
 
     def ranked_rows(self) -> int:
         """Rows of the full ranking: the staged store's padded capacity."""
