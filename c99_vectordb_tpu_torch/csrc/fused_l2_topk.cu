@@ -36,16 +36,16 @@
 // (ops/topk_cuda.launch_plan) from fused_l2_topk_shape: blocks per SM,
 // queries a block, rows a tile.
 //
-// Pass 1 forms the keys on the tensor cores in every mode, with mma.sync
-// fed by ldmatrix from a ring of 16-byte cp.async.cg copies, so the next
-// chunks load while the current one multiplies. Rows that are not 16-byte
-// aligned (D % 4 != 0 for f32, D % 8 != 0 for bf16, D % 16 != 0 for int8,
-// or an unaligned base) take a plain zero-filling loader into the same
-// layout. A is the row-major queries, B the store rows, which a row-major
-// (N, D) store already lays out as the "col" operand (nothing is
-// transposed). Chunk rows are padded by 16 bytes to 16 mod 128 bytes, which
-// keeps every ldmatrix phase on distinct banks.
-//   - scan_topk_mma_kernel<MODE>, 64 queries x 64 rows a tile, two blocks of
+// Pass 1 forms the keys on the tensor cores in every mode.
+//   - scan_topk_mma_kernel<MODE> (modes 1-3): mma.sync fed by ldmatrix from
+//     a ring of 16-byte cp.async.cg copies, so the next chunks load while
+//     the current one multiplies. Rows that are not 16-byte aligned (D % 8
+//     != 0 for bf16, D % 16 != 0 for int8, or an unaligned base) take a
+//     plain zero-filling loader into the same layout. A is the row-major
+//     queries, B the store rows, which a row-major (N, D) store already lays
+//     out as the "col" operand (nothing is transposed). Chunk rows are
+//     padded by 16 bytes to 16 mod 128 bytes, which keeps every ldmatrix
+//     phase on distinct banks. 64 queries x 64 rows a tile, two blocks of
 //     8 warps per SM, each warp a 16-query x 32-row piece: bf16 x bf16 ->
 //     f32 (mode 1, bf16 store; mode 3, int8 codes with bf16 queries) and
 //     int8 x int8 -> int32 (mode 2, int8 store and queries, the JAX
@@ -64,85 +64,111 @@
 //     of an 8 x 16-byte matrix), so mode 2 shares the bf16 addressing
 //     (tests/test_torch_s8_fragments.py emulates it). The exact int32 dot
 //     becomes the key as float(dot) * rs (rounded), + norm (rounded).
-//   - scan_topk_f32_kernel for f32 x f32 (mode 0, MemoDB's default
-//     store): 3xTF32 on mma.sync.m16n8k8 tf32 -> f32. Each element x splits
-//     into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with
-//     ties away from zero (cvt.rna's rounding, done with an integer add and
-//     a mask), and each fragment pair adds lo.hi, hi.lo, then hi.hi, always
-//     in that order (deterministic; lo.lo, below f32's rounding, is
-//     dropped). One TF32 pass keeps 11 significant bits and errs past the
-//     1e-4 tolerance of the keys; three keep f32's accuracy
-//     (tests/test_torch_tf32_split.py emulates both). The three products of
-//     each 8-column k step go into a fresh accumulator, and one f32 add
-//     (round to nearest) takes its sum into the key's: mma.sync does not
-//     round its adds into an accumulator to nearest, and a chain over all of
-//     D drifted the keys of rows that mix magnitudes of 1e-3 to 1e3 past the
-//     tolerance on the card (the mixed_magnitudes case of
-//     tests/test_torch_cuda.py). A block holds 64 queries and takes the
-//     store in tiles of 128 rows; one block of 8 warps per SM, each warp a
-//     32-query x 32-row piece: two m16 tiles by four n8 pieces, eight
-//     independent accumulator chains, each B fragment serving two m16
-//     tiles. Store and
-//     query chunks of 64 columns (68 floats a row) come through a 3-stage
-//     ring as they are; every warp splits the fragments it loads in
-//     registers (ldmatrix.b16's 32-bit pairs are exactly the tf32 m16n8k8
-//     fragments: A (g, t), (g+8, t), (g, t+4), (g+8, t+4); B (k t, n g),
-//     (k t+4, n g); g = lane / 4, t = lane % 4), so nothing is split in
-//     shared memory and no barrier waits on a split. The k steps of a whole
-//     chunk run unguarded, four unrolled at a time. The selection takes a
-//     warp's queries four at a time: their ballots together, then their
-//     lists (k <= 32) in registers, one entry a lane, one candidate of each
-//     of the four a round with no branch, so four chains of dependent
-//     shuffles overlap, and every 4 rounds the candidates left are held
-//     against the lists' last keys again (a list's first tile admits all
-//     128 keys); deeper lists take warp_insert. tests/test_torch_f32_tiles.py
-//     emulates the fragments, the keys tile and the selection.
+//   - scan_topk_f32_wgmma_kernel<NQ> for f32 x f32 (mode 0: MemoDB's default
+//     store, FlatIndex's f32 scan): 3xTF32 on wgmma.mma_async m64nNk8 tf32
+//     -> f32, with the store rows on M and the queries on N: a tile is 128
+//     store rows (64 per consumer warpgroup, wgmma's A, from registers) by
+//     the block's NQ queries (wgmma's B, from shared memory). The wrapper
+//     picks NQ from B: the smallest multiple of 8 that holds the batch's
+//     share of ceil(B / 128) query tiles (B = 1: 8, so no padded products;
+//     B <= 128: one tile, so every store row is read from L2 once a call).
+//     Every multiple of 8 is built: above N = 16 pass 1's time grows with N
+//     nearly in step, so padding to the next power of two costs 17-34% at
+//     B = 40, 72, 100 and 200 (1M x 768 and 131,072 x 384; PERF.md).
+//     Each element x splits into hi = tf32(x) and lo = tf32(x - hi), both
+//     rounded to nearest with ties away from zero (cvt.rna's rounding, done
+//     with an integer add and a mask), and each 8-column k step adds
+//     x_hi.q_lo, x_lo.q_hi, then x_hi.q_hi, always in that order
+//     (deterministic; lo.lo, below f32's rounding, is dropped). One TF32
+//     pass keeps 11 significant bits and errs past the 1e-4 tolerance of the
+//     keys; three keep f32's accuracy (tests/test_torch_tf32_split.py
+//     emulates both, and this kernel's arithmetic). The queries split once a
+//     call (stage_f32_queries_kernel, before pass 1) into hi and lo parts
+//     laid out as K-major B operands: 8-query x 16-byte core matrices, no
+//     swizzle, 128 bytes apart along the queries and 16 NQ bytes along K. The
+//     store is never copied or pre-split. Warp specialisation: one producer
+//     warp keeps TMA boxes of the store (128 rows x 16 columns, 64-byte rows,
+//     two a stage; zeros past N and D) and one bulk copy of the stage's
+//     staged queries in flight through an mbarrier ring (full and empty
+//     barriers; the producer warpgroup's other three warps leave at once,
+//     and setmaxnreg moves its registers to the consumers: without it
+//     ptxas holds every warp to the 168 that 384 threads leave, NQ 112 and
+//     128 spill, and pass 1 runs 13-24% slower at B = 128, PERF.md).
+//     Each consumer lane reads one float4 of each of its two
+//     rows a box (a quarter-warp covers 128 contiguous bytes: no bank
+//     conflict) and splits it in registers into two k steps' A fragments
+//     (wgmma's tf32 register layout: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3
+//     (g+8, t+4); g = lane / 4, t = lane % 4; the queries are staged in the
+//     matching column order, fw_perm), so each store element is split once
+//     per query tile. The three products of each k step go into a fresh
+//     accumulator (scale-d 0 on the first), and one f32 add (round to
+//     nearest) folds it into the key's sum: the tensor cores do not round
+//     their adds into an accumulator to nearest, and on the card a fresh
+//     accumulator over two k steps (16 columns) already drifted keys of
+//     rows that mix magnitudes of 1e-3 to 1e3 past the tolerance (the
+//     mixed_magnitudes case at B = 1024 of tests/test_torch_cuda.py), where
+//     one per k step holds, as PR 17's mma.sync kernel found. Two fresh
+//     accumulators alternate (NQ <= 64: one per k step; above, queries 0-63
+//     and the rest, two groups a k step), so that a fold waits only for an
+//     older group (wgmma.wait_group 1) while a newer one runs, and the
+//     tensor cores hold work through the folds. The keys (norm + sum, +inf
+//     past the split) of a tile go to a keys tile in shared memory (stride
+//     132: conflict-free writes from the accumulators), and each consumer
+//     warp selects its queries' keys of that tile while the next tile's
+//     first groups run. The selection takes a warp's queries four at a
+//     time: their ballots together, then their lists (k <= 32) in
+//     registers, one entry a lane, one candidate of each of the four a round
+//     with no branch, so four chains of dependent shuffles overlap, and
+//     every 4 rounds the candidates left are held against the lists' last
+//     keys again (a list's first tile admits all 128 keys); deeper lists
+//     take warp_insert. A store whose rows are not 16-byte aligned (D % 4 !=
+//     0 or an unaligned base) takes a plain copy by the producer warp
+//     instead of TMA. tests/test_torch_f32_tiles.py emulates the fragments,
+//     the descriptors, the keys tile and the selection.
 //
 // Bound on the NVIDIA H100 80GB HBM3 (the SXM part; published at 700 W:
 // 3.35 TB/s; tensor cores 495 TFLOP/s TF32, 989 TFLOP/s bf16, 1,979 TOP/s
-// int8) at N = 1,048,576 rows of D = 384. The f32 scan only builds the
-// shortlist that the exact f32 rerank corrects, so TF32 tensor cores are
-// admissible for it and its bound takes the TF32 rate; 3xTF32 runs three
-// TF32 products, so its own floor is three times that operation bound.
-// Bytes: the store once plus its norms (f32 1.61 GB -> 0.48 ms,
-// bf16 0.81 GB -> 0.24 ms, int8 0.41 GB -> 0.12 ms). Operations: 2*B*N*D
-// (B = 128: 0.103 TFLOP -> f32 0.21 ms, bf16 0.10 ms, int8 0.05 ms;
-// B = 1024: 0.82 TFLOP -> f32 1.67 ms (3xTF32: 5.0 ms), bf16 0.83 ms, int8
-// 0.42 ms). So every store is bound by bytes at B = 128 and by operations
-// at B = 1024. The mma.sync path moves the products off the CUDA cores and
-// overlaps loads with products, which is what B = 128 needs; at B = 1024
-// the full tensor-core rate needs wgmma fed by TMA, a later step. What
-// holds the mma.sync path back (PERF.md, measured with
-// tools/flat_mma_breakdown.py, whose profile build counts the f32 warps'
-// cycles by phase, on an NVIDIA H100 80GB HBM3 at 700.00 W): at B = 128 the warp selection, which runs between the
-// tiles' products, takes about half of the bf16 modes' time and 60% of
-// mode 2's; at B = 1024 every one of the 16 query tiles reads the store
-// again from L2. The f32 mode at MemoDB's 131,072 rows, B = 128, spends
-// about a third of its warps' cycles in the selection, 43% in the products
-// and a fifth issuing the ring's copies, which L2 holds back: every row
-// tile reads the block's queries again (the pre-split queries of an earlier
-// build, hi and lo, doubled those bytes and were slower). At 1M rows the
-// products take 60-65%. A 128-query tile (one store read per call at B <=
-// 128) measured slower at every shape: it halves the splits' lengths, and
-// with them the selection's work grows (B x splits x about k (1 + ln(rows
-// a split / k)) insertions). Selecting a tile over the next tile's ring
-// steps, and merging many candidates at once by rank, measured slower too.
-// Modes 1-3: two blocks of 8 warps share an SM at small k (about 105 KB of
-// shared memory each for bf16, 78 KB for int8, at k = 20), and the split
-// count keeps the grid to one wave. Mode 2 reads half of bf16's bytes and
-// has no decode pass, so at B = 128 the warp selection is the larger part
-// of its time. Its chunks are 128 columns: at 64 (64 bytes a row) a row
-// tile took six ring steps and barriers for half of bf16's bytes, 20-25%
-// slower. chip_smoke.py computes the bound for each run's shapes and times
-// every mode beside it.
+// int8). The f32 scan only builds the shortlist that the exact f32 rerank
+// corrects, so TF32 tensor cores are admissible for it and its bound takes
+// the TF32 rate; 3xTF32 runs three TF32 products, so its own floor is three
+// times that operation bound. At N = 1,048,576 rows of D = 384: bytes, the
+// store once plus its norms (f32 1.61 GB -> 0.48 ms, bf16 0.81 GB -> 0.24
+// ms, int8 0.41 GB -> 0.12 ms); operations 2*B*N*D (B = 128: 0.103 TFLOP
+// -> f32 0.21 ms (3xTF32: 0.62 ms), bf16 0.10 ms, int8 0.05 ms; B = 1024:
+// 0.82 TFLOP -> f32 1.67 ms (3xTF32: 5.0 ms), bf16 0.83 ms, int8 0.42 ms).
+// At the benchmark's 1,000,000 x 768 f32: 3.07 GB -> 0.92 ms; B = 128:
+// 0.197 TFLOP -> 0.40 ms, 3xTF32 1.19 ms, so the f32 scan's own floor there
+// is its products, 1.3x its bytes; B = 1: the bytes alone. So every store
+// is bound by bytes at B = 128 and by operations at B = 1024 (the f32
+// mode's 3xTF32 floor by operations at B = 128 and D = 768 too). What holds
+// the kernels back is in PERF.md, measured with tools/flat_mma_breakdown.py
+// (its profile build counts the f32 kernel's producer and consumer cycles
+// by phase). The f32 kernel's L2 traffic is the store once plus, for every
+// 128-row tile, the block's staged queries (hi and lo: 2 x NQ x D x 4
+// bytes), 9.2 GB a call at the benchmark's B = 128. Modes 1-3: at B = 128
+// the warp selection, which runs between the tiles' products, takes about
+// half of the bf16 modes' time and 60% of mode 2's; at B = 1024 every one of
+// the 16 query tiles reads the store again from L2. Two blocks of 8 warps
+// share an SM at small k (about 105 KB of shared memory each for bf16, 78 KB
+// for int8, at k = 20), and the split count keeps the grid to one wave.
+// Mode 2 reads half of bf16's bytes and has no decode pass, so at B = 128
+// the warp selection is the larger part of its time. Its chunks are 128
+// columns: at 64 (64 bytes a row) a row tile took six ring steps and
+// barriers for half of bf16's bytes, 20-25% slower. chip_smoke.py computes
+// the bound for each run's shapes and times every mode beside it.
 // Registers (ptxas -v of the shipped build, printed by chip_smoke.py):
-// scan_topk_f32_kernel 253 (one block per SM), scan_topk_mma_kernel<1>,
-// <2> and <3> 127 each (the launch bounds cap them at 128 for two blocks
-// per SM), merge_splits_kernel 26; nothing spills.
+// scan_topk_f32_wgmma_kernel<NQ> 168 at launch for every NQ (384 threads,
+// one block per SM; the consumers take 232 after setmaxnreg; NQ 8, 64, 112
+// and 128 spill nothing), scan_topk_mma_kernel<1>, <2> and <3> 127 each
+// (the launch bounds cap them at 128 for two blocks per SM),
+// merge_splits_kernel 26, stage_f32_queries_kernel 32.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 #include <type_traits>
 
 // Build-time switches of the tensor-core path, for tools/flat_mma_breakdown.py
@@ -185,7 +211,7 @@ constexpr size_t SMEM_MAX = 232448;          // dynamic shared memory a block ma
 // chunk row, DKC + V elements (16 mod 128 bytes).
 template <int MODE>
 struct Op {
-    static_assert(MODE >= 1 && MODE <= 3, "mode 0 has its own kernel, scan_topk_f32_kernel");
+    static_assert(MODE >= 1 && MODE <= 3, "mode 0 has its own kernel, scan_topk_f32_wgmma_kernel");
     using T = typename std::conditional<MODE == 2, int8_t, uint16_t>::type;
     using Acc = typename std::conditional<MODE == 2, int, float>::type;
     static constexpr int DKC = MODE == 2 ? 2 * FL2_DK : FL2_DK;
@@ -236,9 +262,11 @@ struct Lists {
     __device__ int* p(int qi) const { return smem ? sp + qi * K : pp + part0 + (int64_t)qi * K; }
 };
 
-__device__ __forceinline__ void lists_init(const Lists& L, int B, int q0) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int qi = warp; qi < QT; qi += NT / 32) {
+// The lists of the block's nq queries, warp `warp` of `warps` taking
+// queries warp, warp + warps, ...: every entry (inf, INT32_MAX).
+__device__ __forceinline__ void lists_init(const Lists& L, int B, int q0, int nq, int warp, int warps) {
+    const int lane = threadIdx.x & 31;
+    for (int qi = warp; qi < nq; qi += warps) {
         if (q0 + qi >= B) continue;
         float* lk = L.k(qi);
         int* lp = L.p(qi);
@@ -274,11 +302,12 @@ __device__ __forceinline__ void select_tile(const Lists& L, const float* keys_s,
     }
 }
 
-// Copy lists kept in shared memory out to the partial-output buffer.
-__device__ __forceinline__ void lists_flush(const Lists& L, int B, int q0) {
+// Copy lists kept in shared memory out to the partial-output buffer (the
+// queries as lists_init splits them).
+__device__ __forceinline__ void lists_flush(const Lists& L, int B, int q0, int nq, int warp, int warps) {
     if (!L.smem) return;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int qi = warp; qi < QT; qi += NT / 32) {
+    const int lane = threadIdx.x & 31;
+    for (int qi = warp; qi < nq; qi += warps) {
         if (q0 + qi >= B) continue;
         const int64_t o = L.part0 + (int64_t)qi * L.K;
         for (int j = lane; j < L.K; j += 32) {
@@ -325,14 +354,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
     asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
                  "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
                  : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x8 tf32, row) . b (8x8 tf32, col), f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-    asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -497,7 +518,7 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
 
     const Lists lists{list_base_k, reinterpret_cast<int*>(list_base_k + QT * K), part_k, part_p,
                       ((int64_t)split * B + q0) * K, K, smem_lists != 0};
-    lists_init(lists, B, q0);
+    lists_init(lists, B, q0, QT, warp, NT / 32);
     if (q_res) {
         const int dqp = L.dqs - O::V;
         for (int idx = tid; idx < QT * dqp; idx += NT) {
@@ -631,25 +652,34 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
         }
     }
     cp_async_wait<0>();
-    lists_flush(lists, B, q0);
+    lists_flush(lists, B, q0, QT, warp, NT / 32);
 }
 
 // -- the f32 pass (mode 0) ------------------------------------------------------------
 
-// FL2_PROFILE 1: the warps of scan_topk_f32_kernel count their clock cycles
-// by phase into fl2_prof (fused_l2_topk_profile reads and clears them): the
-// wait and barrier at the top of a ring step, issuing the next copies, the
-// products, the keys tile and its barrier, the selection.
+// FL2_PROFILE 1: scan_topk_f32_wgmma_kernel counts its warps' clock cycles
+// by role and phase into fl2_prof (fused_l2_topk_profile reads and clears
+// them): the producer's waits for a free stage and its issue of the copies;
+// each consumer warp's waits for a full stage, its loads and splits of the
+// store, its wgmma issue, its waits on the products, its folds and stage
+// releases, the keys tile with its two barriers, and the selection.
 #ifndef FL2_PROFILE
 #define FL2_PROFILE 0
 #endif
 #if FL2_PROFILE
-__device__ unsigned long long fl2_prof[5];
-#define FL2_MARK(i)                                    \
-    do {                                               \
-        const unsigned long long now_ = clock64();     \
-        prof_[i] += now_ - prof_t_;                    \
-        prof_t_ = now_;                                \
+constexpr int FL2_PHASES = 9;
+__device__ unsigned long long fl2_prof[FL2_PHASES];
+// Lane 0 of each warp adds the cycles since its last mark to its warp's
+// counter of phase i, in shared memory. The marks still cost registers: at
+// query tiles near 128 this build spills and ptxas serializes its wgmmas,
+// so there its shares locate the time and its times run slow.
+#define FL2_MARK(i)                                                   \
+    do {                                                              \
+        if (lane == 0) {                                              \
+            const unsigned now_ = (unsigned)clock();                  \
+            prof_s_[warp * FL2_PHASES + (i)] += now_ - prof_t_;       \
+            prof_t_ = now_;                                           \
+        }                                                             \
     } while (0)
 #else
 #define FL2_MARK(i) \
@@ -657,120 +687,251 @@ __device__ unsigned long long fl2_prof[5];
     } while (0)
 #endif
 
-// scan_topk_f32_kernel's shapes: F_Q queries x F_R store rows a tile, 8
-// warps of 32 queries x 32 rows; ring chunks of FDK f32 columns of the store
-// and of the queries, their rows padded to FSK floats (16 mod 128 bytes),
-// F_STAGES deep.
-constexpr int F_Q = QT;                      // queries a block (the lists' query tile)
-constexpr int F_R = 128;                     // store rows a tile
-constexpr int F_WR = F_R / 32;               // warps along the rows
-constexpr int F_COLS = F_R / 32;             // keys a lane per query in the selection
-constexpr int FDK = 64;
-constexpr int FSK = FDK + 4;
-constexpr int F_STAGES = 3;
-constexpr int F_STAGE = (F_R + F_Q) * FSK * (int)sizeof(float);   // bytes of a ring stage
-constexpr int F_KEYS = F_Q * (F_R + 1);      // floats of the keys tile
-constexpr int F_KUNROLL = 4;   // k steps unrolled together: all 8 of a chunk spill registers
-constexpr int F_PRUNE = 4;     // selection rounds between two prunings of the candidates left
-static_assert(FDK % 8 == 0 && (FSK * 4) % 128 == 16, "whole k steps; conflict-free ldmatrix rows");
-static_assert((F_Q / 32) * F_WR == NT / 32, "8 warps of 32 x 32");
+// scan_topk_f32_wgmma_kernel's shapes: a tile of FW_R store rows (64 a
+// consumer warpgroup, wgmma's M) by the block's NQ queries (wgmma's N, a
+// multiple of 8 up to FW_QMAX); ring stages of FW_SC f32 columns: FW_BOXES
+// store boxes [FW_R][FW_DK] as TMA lands them (64-byte rows), then for each
+// box the queries' hi and lo parts as wgmma's K-major B operands; the keys
+// tile [NQ][FW_KS] for the selection.
+constexpr int FW_R = 128;
+constexpr int FW_DK = 16;                        // f32 columns a box: two k steps
+constexpr int FW_BOXES = 2;                      // boxes a stage
+constexpr int FW_SC = FW_DK * FW_BOXES;          // f32 columns a stage
+constexpr int FW_QMAX = 128;
+constexpr int FW_KS = FW_R + 4;                  // conflict-free writes from the accumulators
+constexpr int FW_THREADS = 384;                  // producer warpgroup + two consumer warpgroups
+constexpr int FW_CONSUMER_WARPS = 8;
+constexpr int FW_MAX_STAGES = 8;
+constexpr int FW_MIN_STAGES = 4;                 // the lists leave shared memory before the ring shrinks below
+constexpr int FW_BOX_BYTES = FW_R * FW_DK * 4;   // a store box
+constexpr int FW_X_BYTES = FW_BOXES * FW_BOX_BYTES;   // the store chunk of a stage
+static_assert(FW_R == 2 * 64 && FW_DK == 16, "two m64 warpgroups; a float4 a lane gives two k steps");
 
-// Shared memory of scan_topk_f32_kernel at depth K: the ring, the keys
-// tile, and the lists when they are kept there.
-__host__ __device__ constexpr size_t f32_smem(int K, bool smem_lists) {
-    return (size_t)F_STAGES * F_STAGE + sizeof(float) * F_KEYS +
-           (smem_lists ? (size_t)F_Q * K * (sizeof(float) + sizeof(int)) : 0);
+// The staged queries of a stage: for each box, the hi then the lo part.
+__host__ __device__ constexpr int fw_q_bytes(int nq) { return FW_BOXES * 2 * nq * FW_DK * 4; }
+__host__ __device__ constexpr int fw_stage_bytes(int nq) { return FW_X_BYTES + fw_q_bytes(nq); }
+
+// Logical column kappa (0-15) of a box's B operand: the query column it
+// holds. A lane's float4 of a store row holds columns 4t .. 4t + 3, which
+// are its A fragment's (k t, k t + 4) of k step 0, then of k step 1
+// (wgmma m64nNk8 tf32: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4)); the queries are staged in that order.
+__host__ __device__ constexpr int fw_perm(int kappa) {
+    return 4 * (kappa & 3) + 2 * (kappa >> 3) + ((kappa >> 2) & 1);
 }
 
-bool f32_smem_lists(int K) { return K <= SMEM_LIST_MAX && f32_smem(K, true) <= SMEM_MAX; }
+// Shared memory of scan_topk_f32_wgmma_kernel<NQ>: the ring, the keys tile,
+// the lists when they are kept there, the ring's barriers.
+struct FwLayout {
+    int stages;
+    bool smem_lists;
+    size_t keys, lists, bars, total;
+};
 
-// Split four fragment registers of f32 values into their hi and lo parts.
-__device__ __forceinline__ void split_frag(const unsigned (&x)[4], unsigned (&hi)[4],
-                                           unsigned (&lo)[4]) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        float h, l;
-        split_tf32(__uint_as_float(x[j]), h, l);
-        hi[j] = __float_as_uint(h);
-        lo[j] = __float_as_uint(l);
+__host__ __device__ inline FwLayout fw_layout(int nq, int K, int stages, bool smem_lists) {
+    FwLayout L;
+    L.stages = stages;
+    L.smem_lists = smem_lists;
+    size_t o = (size_t)stages * fw_stage_bytes(nq);
+    L.keys = o; o += sizeof(float) * nq * FW_KS;
+    L.lists = o; o += smem_lists ? (size_t)nq * K * (sizeof(float) + sizeof(int)) : 0;
+    o = (o + 7) / 8 * 8;
+    L.bars = o; o += 2 * FW_MAX_STAGES * sizeof(uint64_t);
+    L.total = o;
+    return L;
+}
+
+// The deepest ring (at most FW_MAX_STAGES) that fits; the lists stay in
+// shared memory when they fit beside a ring of FW_MIN_STAGES or more.
+inline FwLayout fw_plan(int nq, int K) {
+    constexpr size_t budget = SMEM_MAX - (FL2_PROFILE ? 1024 : 0);   // the profile's counters
+    auto deepest = [&](bool sl) {
+        int s = FW_MAX_STAGES;
+        while (s > 2 && fw_layout(nq, K, s, sl).total > budget) --s;
+        return s;
+    };
+    const bool sl = K <= SMEM_LIST_MAX && deepest(true) >= FW_MIN_STAGES &&
+                    fw_layout(nq, K, deepest(true), true).total <= budget;
+    return fw_layout(nq, K, deepest(sl), sl);
+}
+
+// -- mbarriers, TMA and wgmma ----------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const unsigned a = smem_addr(bar);
+    for (;;) {
+        unsigned ok;
+        asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(ok) : "r"(a), "r"(parity) : "memory");
+        if (ok) return;
     }
 }
-
-// One 8-column k step of a warp's 32 x 32 piece in 3xTF32. The A fragments
-// (two m16 tiles of queries) and the B fragments (four n8 pieces of store
-// rows) arrive as they are and split here into hi and lo parts (split_tf32;
-// the split costs registers, not shared memory or its bandwidth, which the
-// ring is short of). Each of the eight (m16, n8) products adds lo.hi,
-// hi.lo, then hi.hi into a fresh accumulator, whose sum one f32 add (round
-// to nearest) folds into acc: the tensor cores do not round their adds into
-// an accumulator to nearest, so a chain of mma.sync over all of D drifts
-// with the running sum's magnitude. The eight chains are independent of
-// each other.
-__device__ __forceinline__ void f32_k_step(float (&acc)[2][4][4], const float* qs, const float* xs) {
-    unsigned ax[2][4], ah[2][4], al[2][4], bx[2][4], bh[2][4], bl[2][4];
-    ldmatrix_x4(ax[0], qs);
-    ldmatrix_x4(ax[1], qs + 16 * FSK);
-    split_frag(ax[0], ah[0], al[0]);
-    split_frag(ax[1], ah[1], al[1]);
-    ldmatrix_x4(bx[0], xs);
-    ldmatrix_x4(bx[1], xs + 16 * FSK);
-    split_frag(bx[0], bh[0], bl[0]);
-    split_frag(bx[1], bh[1], bl[1]);
-    // n8 piece p: registers (2p, 2p + 1) of the pair (bh[p / 2], its halves).
-    float step[2][4][4] = {};
+// A 2-D TMA box (columns c0.., rows r0..; zeros past the tensor) into dst.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int r0,
+                                            uint64_t* bar) {
+    asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1, {%3, %4}], [%2];\n"
+                 :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+                    "r"(c0), "r"(r0) : "memory");
+}
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into dst.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// Wait until at most N committed groups of this warpgroup are still running.
+template <int N>
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory"); }
+// Keep the compiler from moving or reusing registers that wgmma reads or
+// writes asynchronously, across the points where they are fenced.
+template <int R>
+__device__ __forceinline__ void keep(float (&r)[R]) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+__device__ __forceinline__ void keep(unsigned (&r)[4]) {
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
-            mma_tf32(step[m][p], al[m], bh[p >> 1][2 * (p & 1)], bh[p >> 1][2 * (p & 1) + 1]);
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+template <int F>
+__device__ __forceinline__ void keep(unsigned (&r)[F][4]) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int j = 0; j < F; ++j)
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
-            mma_tf32(step[m][p], ah[m], bl[p >> 1][2 * (p & 1)], bl[p >> 1][2 * (p & 1) + 1]);
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-            mma_tf32(step[m][p], ah[m], bh[p >> 1][2 * (p & 1)], bh[p >> 1][2 * (p & 1) + 1]);
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[m][p][e] = __fadd_rn(acc[m][p][e], step[m][p][e]);
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[j][i]) :: "memory");
 }
 
-// Selection of a Q x R keys tile (stride R + 1) whose first row is r0: warp
-// w owns queries w, w + 8, ...; lane l holds columns l + 32 j (j < COLS),
-// and candidates (key < the list's last) go in by ascending column (=
-// position), each after every entry of key <= its own (select_tile's
-// order). The selection runs on the 8 warps of one block per SM, where a
-// chain of dependent shuffles per candidate would leave the SM waiting, so
-// a warp takes its queries G at a time: their keys, thresholds and ballots
-// together, then, for lists of k <= 32 held in registers (lane j: entry j),
-// one candidate of each of the G queries a round, branch-free, so the G
-// insertion chains overlap. A candidate is in when fewer than k entries
-// have key' <= key; every F_PRUNE rounds the candidates left are held
-// against the lists' last keys again. Deeper lists take warp_insert, one at a time.
+// A K-major B operand in shared memory, no swizzle: 8-query x 16-byte core
+// matrices, `lbo` bytes apart along K, 128 bytes apart along the queries.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo) {
+    return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)(128 >> 4) << 32);
+}
+
+// d (+)= a (64 x 8 tf32, registers) . b (8 x N tf32, K-major in shared
+// memory): wgmma.mma_async m64nNk8, f32 accumulators; acc = 0 drops d's
+// earlier value (a fresh accumulator). d[4 j + 2 h + e] is row g + 8 h of
+// the warp's 16, query 8 j + 2 t + e. One macro writes it for every N:
+// d's asm registers (FL2_DS_N: %0 .. %(N / 2 - 1)) and constraints
+// (FL2_OP_N) grow four at a time; a[0..3], b and acc follow them.
+#define FL2_S(a, b, c, d) "%" #a ", %" #b ", %" #c ", %" #d
+#define FL2_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FL2_DS_8 FL2_S(0, 1, 2, 3)
+#define FL2_OP_8 FL2_D4(0)
+#define FL2_DS_16 FL2_DS_8 ", " FL2_S(4, 5, 6, 7)
+#define FL2_OP_16 FL2_OP_8, FL2_D4(4)
+#define FL2_DS_24 FL2_DS_16 ", " FL2_S(8, 9, 10, 11)
+#define FL2_OP_24 FL2_OP_16, FL2_D4(8)
+#define FL2_DS_32 FL2_DS_24 ", " FL2_S(12, 13, 14, 15)
+#define FL2_OP_32 FL2_OP_24, FL2_D4(12)
+#define FL2_DS_40 FL2_DS_32 ", " FL2_S(16, 17, 18, 19)
+#define FL2_OP_40 FL2_OP_32, FL2_D4(16)
+#define FL2_DS_48 FL2_DS_40 ", " FL2_S(20, 21, 22, 23)
+#define FL2_OP_48 FL2_OP_40, FL2_D4(20)
+#define FL2_DS_56 FL2_DS_48 ", " FL2_S(24, 25, 26, 27)
+#define FL2_OP_56 FL2_OP_48, FL2_D4(24)
+#define FL2_DS_64 FL2_DS_56 ", " FL2_S(28, 29, 30, 31)
+#define FL2_OP_64 FL2_OP_56, FL2_D4(28)
+#define FL2_DS_72 FL2_DS_64 ", " FL2_S(32, 33, 34, 35)
+#define FL2_OP_72 FL2_OP_64, FL2_D4(32)
+#define FL2_DS_80 FL2_DS_72 ", " FL2_S(36, 37, 38, 39)
+#define FL2_OP_80 FL2_OP_72, FL2_D4(36)
+#define FL2_DS_88 FL2_DS_80 ", " FL2_S(40, 41, 42, 43)
+#define FL2_OP_88 FL2_OP_80, FL2_D4(40)
+#define FL2_DS_96 FL2_DS_88 ", " FL2_S(44, 45, 46, 47)
+#define FL2_OP_96 FL2_OP_88, FL2_D4(44)
+#define FL2_DS_104 FL2_DS_96 ", " FL2_S(48, 49, 50, 51)
+#define FL2_OP_104 FL2_OP_96, FL2_D4(48)
+#define FL2_DS_112 FL2_DS_104 ", " FL2_S(52, 53, 54, 55)
+#define FL2_OP_112 FL2_OP_104, FL2_D4(52)
+#define FL2_DS_120 FL2_DS_112 ", " FL2_S(56, 57, 58, 59)
+#define FL2_OP_120 FL2_OP_112, FL2_D4(56)
+#define FL2_DS_128 FL2_DS_120 ", " FL2_S(60, 61, 62, 63)
+#define FL2_OP_128 FL2_OP_120, FL2_D4(60)
+#define FL2_WGMMA(N, A0, A1, A2, A3, B, P)                                                  \
+    template <>                                                                             \
+    __device__ __forceinline__ void wgmma_tf32<N>(float (&d)[N / 2], const unsigned (&a)[4], \
+                                                  uint64_t b, int acc) {                  \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                          \
+                     "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" FL2_DS_##N   \
+                     "}, {" FL2_S(A0, A1, A2, A3) "}, %" #B ", p, 1, 1;\n}\n"                  \
+                     : FL2_OP_##N                                                         \
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));    \
+    }
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const unsigned (&a)[4], uint64_t b, int acc);
+FL2_WGMMA(8, 4, 5, 6, 7, 8, 9)
+FL2_WGMMA(16, 8, 9, 10, 11, 12, 13)
+FL2_WGMMA(24, 12, 13, 14, 15, 16, 17)
+FL2_WGMMA(32, 16, 17, 18, 19, 20, 21)
+FL2_WGMMA(40, 20, 21, 22, 23, 24, 25)
+FL2_WGMMA(48, 24, 25, 26, 27, 28, 29)
+FL2_WGMMA(56, 28, 29, 30, 31, 32, 33)
+FL2_WGMMA(64, 32, 33, 34, 35, 36, 37)
+FL2_WGMMA(72, 36, 37, 38, 39, 40, 41)
+FL2_WGMMA(80, 40, 41, 42, 43, 44, 45)
+FL2_WGMMA(88, 44, 45, 46, 47, 48, 49)
+FL2_WGMMA(96, 48, 49, 50, 51, 52, 53)
+FL2_WGMMA(104, 52, 53, 54, 55, 56, 57)
+FL2_WGMMA(112, 56, 57, 58, 59, 60, 61)
+FL2_WGMMA(120, 60, 61, 62, 63, 64, 65)
+FL2_WGMMA(128, 64, 65, 66, 67, 68, 69)
+#undef FL2_WGMMA
+#undef FL2_D4
+#undef FL2_S
+
+// -- the keys' selection --------------------------------------------------------------
+
+// Selection of an NQ x FW_R keys tile (stride FW_KS) whose first row is r0:
+// consumer warp w owns queries w, w + 8, ...; lane l holds columns l + 32 j
+// (j < C), and candidates (key < the list's last) go in by ascending column
+// (= position), each after every entry of key <= its own (select_tile's
+// order). A warp takes its queries G at a time, so that G chains of
+// dependent shuffles overlap: their keys, thresholds and ballots together,
+// then, for lists of k <= 32 held in registers (lane j: entry j), one
+// candidate of each of the G queries a round, branch-free. A candidate is in
+// when fewer than k entries have key' <= key; every F_PRUNE rounds the
+// candidates left are held against the lists' last keys again (a list's
+// first tile admits every key, and most fall behind). Deeper lists take
+// warp_insert, one at a time.
+constexpr int F_PRUNE = 4;
 __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* keys_s, int r0, int B,
-                                                int q0) {
-    constexpr int C = F_COLS;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                                                int q0, int nq, int warp) {
+    constexpr int C = FW_R / 32;
+    constexpr int W = FW_CONSUMER_WARPS;
+    constexpr int G = 4;   // queries a group: w + W (G g + u), u < G
+    const int lane = threadIdx.x & 31;
     const int K = L.K;
     const float INF = __int_as_float(0x7f800000);
-    constexpr int G = 4;   // queries a group: w + 8 (G g + u), u < G
-    for (int base = warp; base < F_Q && q0 + base < B; base += G * (NT / 32)) {
+    for (int base = warp; base < nq && q0 + base < B; base += G * W) {
         float kc[G][C];
         unsigned mc[G][C];
         unsigned any = 0;
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-            const int qi = base + u * (NT / 32);
-            // A query past B has no list: nothing is admitted.
-            const float thr = q0 + qi < B ? L.k(qi)[K - 1] : -INF;
+            const int qi = base + u * W;
+            // A query past B or past the tile has no list: nothing is admitted.
+            const bool live = qi < nq && q0 + qi < B;
+            const float thr = live ? L.k(qi)[K - 1] : -INF;
 #pragma unroll
-            for (int j = 0; j < C; ++j) kc[u][j] = keys_s[qi * (F_R + 1) + 32 * j + lane];
+            for (int j = 0; j < C; ++j) kc[u][j] = live ? keys_s[qi * FW_KS + 32 * j + lane] : INF;
 #pragma unroll
             for (int j = 0; j < C; ++j) {
                 mc[u][j] = __ballot_sync(FULL, kc[u][j] < thr);
@@ -781,7 +942,7 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
         if (K > 32) {
 #pragma unroll
             for (int u = 0; u < G; ++u) {
-                const int qi = base + u * (NT / 32);
+                const int qi = base + u * W;
 #pragma unroll
                 for (int j = 0; j < C; ++j)
                     for (unsigned m = mc[u][j]; m; m &= m - 1) {
@@ -797,7 +958,7 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
         bool has[G];   // query u admitted a candidate: its list is read and rewritten
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-            const int qi = base + u * (NT / 32);
+            const int qi = base + u * W;
             unsigned m = 0;
 #pragma unroll
             for (int j = 0; j < C; ++j) m |= mc[u][j];
@@ -807,8 +968,7 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
         }
         for (int round = 1; any; ++round) {
             if (round % F_PRUNE == 0) {
-                // Drop the candidates that the lists have since passed (a
-                // list's first tile admits every key, and most fall behind).
+                // Drop the candidates that the lists have since passed.
                 any = 0;
 #pragma unroll
                 for (int u = 0; u < G; ++u) {
@@ -855,7 +1015,7 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
         }
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-            const int qi = base + u * (NT / 32);
+            const int qi = base + u * W;
             if (has[u] && lane < K) {
                 L.k(qi)[lane] = vk[u];
                 L.p(qi)[lane] = vp[u];
@@ -865,132 +1025,365 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
     }
 }
 
-// Mode 0's pass 1: f32 store and queries in 3xTF32 on mma.sync.m16n8k8, on
-// tiles of F_Q queries x F_R rows. rows_per_split is a multiple of F_R;
-// smem_lists: the lists are in shared memory; x_async / q_async:
-// the store's / the queries' rows are 16-byte aligned and load with
-// cp.async.
-__global__ void __launch_bounds__(NT, 1)
-scan_topk_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                     const float* __restrict__ norms, int B, int N, int D, int K,
-                     int rows_per_split, int smem_lists, int x_async, int q_async,
-                     float* __restrict__ part_k, int* __restrict__ part_p) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* keys_s = reinterpret_cast<float*>(smem + (size_t)F_STAGES * F_STAGE);
-    float* list_k = keys_s + F_KEYS;
+// -- the queries' staging -------------------------------------------------------------
+
+// The queries of every query tile, split once: out holds, for query tile qt
+// and box c (columns 16 c ..; whole stages), the hi then the lo part of its
+// NQ queries as wgmma's B operand (see wg_desc): [qt][c][part][k unit 4]
+// [query group NQ/8][query 8][4 floats], logical column 4 (k unit) + float
+// of the box holding query column 16 c + fw_perm(.); zero past B and D.
+// ops/topk_cuda.stage_f32_plain is its plain version.
+__global__ void stage_f32_queries_kernel(const float* __restrict__ q, int B, int D, int nq,
+                                         int n_chunks, int64_t total, float* __restrict__ out) {
+    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+         i += (int64_t)gridDim.x * blockDim.x) {
+        int64_t rem = i;
+        const int kk = (int)(rem & 3); rem >>= 2;
+        const int r = (int)(rem & 7); rem >>= 3;
+        const int ng = (int)(rem % (nq / 8)); rem /= nq / 8;
+        const int ku = (int)(rem & 3); rem >>= 2;
+        const int part = (int)(rem & 1); rem >>= 1;
+        const int c = (int)(rem % n_chunks);
+        const int qt = (int)(rem / n_chunks);
+        const int n = qt * nq + ng * 8 + r;
+        const int col = c * FW_DK + fw_perm(ku * 4 + kk);
+        const float v = n < B && col < D ? q[(int64_t)n * D + col] : 0.f;
+        float hi, lo;
+        split_tf32(v, hi, lo);
+        out[i] = part ? lo : hi;
+    }
+}
+
+// -- pass 1 of mode 0 -----------------------------------------------------------------
+
+// Keys of a finished tile (norm + sum, +inf past the split) into the keys
+// tile: kacc[4 j + 2 h + e] is query 8 j + 2 t4 + e, tile row row_a + 8 h.
+// The first barrier waits for every consumer warp's selection of the tile
+// before (the keys tile is free), the second for every warp's writes.
+template <int NQ>
+__device__ __forceinline__ void write_keys(float* keys_s, const float (&kacc)[NQ / 2],
+                                           const float (&nrm)[2], int r0, int row_end, int row_a,
+                                           int t4) {
     const float INF = __int_as_float(0x7f800000);
+    bar_sync(1, 32 * FW_CONSUMER_WARPS);
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int row = row_a + 8 * h;
+                keys_s[(8 * j + 2 * t4 + e) * FW_KS + row] =
+                    r0 + row < row_end ? __fadd_rn(nrm[h], kacc[4 * j + 2 * h + e]) : INF;
+            }
+    bar_sync(2, 32 * FW_CONSUMER_WARPS);
+}
+
+// kacc[o + i] = first ? f[i] : kacc[o + i] + f[i] (round to nearest): the fold
+// of a fresh accumulator into the key's sum.
+template <int NR, int W>
+__device__ __forceinline__ void fold(float (&kacc)[NR], const float (&f)[W], int o, bool first) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) kacc[o + i] = first ? f[i] : __fadd_rn(kacc[o + i], f[i]);
+}
+
+// One group: the three products of a k step into the fresh accumulator
+// acc (W queries of the B operands that the descriptors dh, dl address: the
+// queries' hi and lo parts), then its commit.
+template <int W>
+__device__ __forceinline__ void issue_group(float (&acc)[W / 2], const unsigned (&xh)[4],
+                                            const unsigned (&xl)[4], uint64_t dh, uint64_t dl) {
+    keep(acc);
+    wg_fence();
+    wgmma_tf32<W>(acc, xh, dl, 0);   // x_hi . q_lo, into a fresh accumulator
+    wgmma_tf32<W>(acc, xl, dh, 1);   // x_lo . q_hi
+    wgmma_tf32<W>(acc, xh, dh, 1);   // x_hi . q_hi
+    wg_commit();
+}
+
+// A lane's k step e (0, 1) of a box from its float4s of rows row_a and
+// row_a + 8, split once into wgmma's hi and lo A fragments (fw_perm).
+__device__ __forceinline__ void split_step(const float4& x0, const float4& x1, int e,
+                                           unsigned (&xh)[4], unsigned (&xl)[4]) {
+    const float a[4] = {e ? x0.z : x0.x, e ? x1.z : x1.x, e ? x0.w : x0.y, e ? x1.w : x1.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float hi, lo;
+        split_tf32(a[i], hi, lo);
+        xh[i] = __float_as_uint(hi);
+        xl[i] = __float_as_uint(lo);
+    }
+}
+
+// Mode 0's pass 1: the f32 store against NQ queries in 3xTF32 on wgmma, a
+// block per (query tile, split of the rows). Warpgroup 0 is the producer:
+// one warp keeps the ring full, FW_BOXES TMA boxes of the store a stage (or,
+// for a store whose rows are not 16-byte aligned, x_tma = 0, a plain copy)
+// and one bulk copy of the stage's staged queries, each stage completed on
+// its `full` barrier. Warpgroups 1 and 2 are the consumers, rows 0-63 and
+// 64-127 of each tile: every k step, a lane's float4 of a store row splits
+// in registers into wgmma's A fragments (hi and lo), and a group of three
+// wgmmas adds x_hi . q_lo, x_lo . q_hi, then x_hi . q_hi into a fresh
+// accumulator (scale-d 0 on the first), which one round-to-nearest add
+// folds into the key's sum. Two fresh accumulators alternate (NQ <= 64:
+// one per k step, odd and even; above: queries 0-63 and the rest, two
+// groups a k step), so that a fold waits only for the group before the one
+// just issued (wgmma.wait_group 1) and the tensor cores always hold work. A
+// stage goes back to the producer (its `empty` barrier, one arrive a
+// consumer warp) once every group that read it is done. The keys of a tile
+// go to the keys tile and are selected while the next tile's first group
+// runs. rows_per_split is a multiple of FW_R; qst: stage_f32_queries_kernel's
+// output; smem_lists: the lists are in shared memory.
+template <int NQ>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
+                           const float* __restrict__ qst, const float* __restrict__ norms, int B,
+                           int N, int D, int K, int rows_per_split, int stages, int smem_lists,
+                           int x_tma, float* __restrict__ part_k, int* __restrict__ part_p) {
+    static_assert(NQ % 8 == 0 && NQ >= 8 && NQ <= FW_QMAX, "wgmma N");
+    // TMA boxes land 128-byte aligned; 1024 keeps that past the profile
+    // build's static counters.
+    extern __shared__ __align__(1024) unsigned char fw_smem[];
+    unsigned char* smem = fw_smem;
+    const FwLayout L = fw_layout(NQ, K, stages, smem_lists != 0);
+    float* keys_s = reinterpret_cast<float*>(smem + L.keys);
+    float* list_k = reinterpret_cast<float*>(smem + L.lists);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+    uint64_t* empty = full + FW_MAX_STAGES;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int q0 = blockIdx.x * F_Q;
+    const int q0 = blockIdx.x * NQ;
     const int split = blockIdx.y;
     const int row_begin = split * rows_per_split;
     const int row_end = min(N, row_begin + rows_per_split);
-    const int n_chunks = (D + FDK - 1) / FDK;
-    const int n_tiles = row_end > row_begin ? (row_end - row_begin + F_R - 1) / F_R : 0;
-    const int total = n_tiles * n_chunks;   // ring steps: (tile, chunk) in order
-
-    const Lists lists{list_k, reinterpret_cast<int*>(list_k + F_Q * K), part_k, part_p,
+    const int spt = (D + FW_SC - 1) / FW_SC;   // stages a tile
+    const int n_tiles = row_end > row_begin ? (row_end - row_begin + FW_R - 1) / FW_R : 0;
+    const int total = n_tiles * spt;           // ring steps: (tile, stage) in order
+    const Lists lists{list_k, reinterpret_cast<int*>(list_k + NQ * K), part_k, part_p,
                       ((int64_t)split * B + q0) * K, K, smem_lists != 0};
-    lists_init(lists, B, q0);
-
-    // A stage: the store chunk [R][FSK], then the queries' [Q][FSK].
-    auto issue = [&](int step) {
-        float* st = reinterpret_cast<float*>(smem + (size_t)(step % F_STAGES) * F_STAGE);
-        const int r0 = row_begin + (step / n_chunks) * F_R;
-        const int c0 = (step % n_chunks) * FDK;
-        load_chunk<float, FDK, FSK, F_R>(x, r0, row_end, D, c0, st, x_async);
-        load_chunk<float, FDK, FSK, F_Q>(q, q0, B, D, c0, st + F_R * FSK, q_async);
-    };
-
-    // Warp (wq, wr) owns queries wq*32 .. +31 and tile rows wr*32 .. +31:
-    // two m16 tiles by four n8 pieces. The first warps, on different
-    // sub-partitions of the SM, share the first queries, so a small B still
-    // spreads over them; warps whose queries all lie past B skip the
-    // products.
-    const int wq = warp / F_WR, wr = warp % F_WR;
-    const bool active = q0 + wq * 32 < B;
-    const int g = lane >> 2, t4 = lane & 3;
-    // ldmatrix row addresses, 16 bytes each: A's four pieces are (rows 0-7 |
-    // 8-15) x (k 0-3 | 4-7); B's are (n 0-7, k 0-3), (n 0-7, k 4-7), then n
-    // 8-15 alike (8x4 f32 matrices read as 8x8 b16).
-    const int a_off = (F_R + wq * 32 + (lane & 15)) * FSK + (lane >> 4) * 4;
-    const int b_off = (wr * 32 + (lane >> 4) * 8 + (lane & 7)) * FSK + ((lane >> 3) & 1) * 4;
 #if FL2_PROFILE
-    unsigned long long prof_[5] = {}, prof_t_ = clock64();
+    __shared__ unsigned prof_s_[FW_THREADS / 32 * FL2_PHASES];   // 32 bits: one call's cycles
+    for (int i = tid; i < FW_THREADS / 32 * FL2_PHASES; i += FW_THREADS) prof_s_[i] = 0;
+    unsigned prof_t_ = (unsigned)clock();
 #endif
 
-#pragma unroll
-    for (int i = 0; i < F_STAGES - 1; ++i) {
-        if (i < total) issue(i);
-        cp_async_commit();
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], FW_CONSUMER_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    // Tiles, then their chunks (ring step s = tile * n_chunks + chunk): the
-    // accumulators live within a tile, not across its selection.
-    for (int tile = 0, s = 0; tile < n_tiles; ++tile) {
-        const int r0 = row_begin + tile * F_R;
-        float acc[2][4][4] = {};
-        float nrm[4][2];
+    if (warp >= 4) lists_init(lists, B, q0, NQ, warp - 4, FW_CONSUMER_WARPS);
+    __syncthreads();
+
+    if (warp < 4) {
+        // The producer warpgroup: warp 0 runs the ring, the others leave;
+        // its registers go to the consumers.
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (warp != 0) return;
+        const float* qbase = qst + (size_t)blockIdx.x * spt * fw_q_bytes(NQ) / sizeof(float);
+        for (int s = 0, st = 0, round = 0; s < total; ++s) {
+            if (s >= stages) mbar_wait(&empty[st], (round - 1) & 1);
+            FL2_MARK(0);
+            unsigned char* buf = smem + (size_t)st * fw_stage_bytes(NQ);
+            const int tile = s / spt, c = s - tile * spt;
+            const int r0 = row_begin + tile * FW_R, c0 = c * FW_SC;
+            const float* qsrc = qbase + (size_t)c * fw_q_bytes(NQ) / sizeof(float);
+            if (x_tma) {
+                if (lane == 0) {
+                    mbar_arrive_tx(&full[st], FW_X_BYTES + fw_q_bytes(NQ));
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
+                    for (int b = 0; b < FW_BOXES; ++b)
+                        tma_load_2d(buf + b * FW_BOX_BYTES, &xmap, c0 + b * FW_DK, r0, &full[st]);
+                    bulk_load(buf + FW_X_BYTES, qsrc, fw_q_bytes(NQ), &full[st]);
+                }
+            } else {
+                float* xs = reinterpret_cast<float*>(buf);
+                for (int i = lane; i < FW_R * FW_SC; i += 32) {
+                    const int b = i / (FW_R * FW_DK), r = i / FW_DK % FW_R, cc = c0 + b * FW_DK + i % FW_DK;
+                    xs[i] = r0 + r < N && cc < D ? x[(int64_t)(r0 + r) * D + cc] : 0.f;
+                }
+                __threadfence_block();
+                __syncwarp();
+                if (lane == 0) {
+                    mbar_arrive_tx(&full[st], fw_q_bytes(NQ));
+                    bulk_load(buf + FW_X_BYTES, qsrc, fw_q_bytes(NQ), &full[st]);
+                }
+            }
+            if (++st == stages) { st = 0; ++round; }
+            FL2_MARK(1);
+        }
+        // Leave once the consumers have released every stage (no copy in flight).
+        for (int s = max(0, total - stages); s < total; ++s) mbar_wait(&empty[s % stages], (s / stages) & 1);
+        FL2_MARK(0);
+#if FL2_PROFILE
+        if (lane == 0)
+            for (int i = 0; i < 2; ++i) atomicAdd(&fl2_prof[i], (unsigned long long)prof_s_[warp * FL2_PHASES + i]);
+#endif
+        return;
+    }
+
+    // The consumers: warpgroup cw holds tile rows 64 cw .. + 63, warp wq of
+    // it rows 16 wq .. + 15 (wgmma's layout): this lane's rows are row_a and
+    // row_a + 8; g = lane / 4, t4 = lane % 4.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = (warp >> 2) - 1, v = warp - 4, wq = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row_a = 64 * cw + 16 * wq + g;
+    constexpr int NR = NQ / 2;
+    constexpr bool TWO = NQ > 64;              // two groups a k step (queries 0-63, 64 - NQ)
+    constexpr int WA = TWO ? 64 : NQ;          // queries of accumulator fa
+    constexpr int WB = TWO ? NQ - 64 : NQ;     // queries of accumulator fb
+    constexpr int OB = TWO ? WA / 2 : 0;       // fb's first register of kacc
+    float kacc[NR], fa[WA / 2], fb[WB / 2];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) kacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < WA / 2; ++i) fa[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < WB / 2; ++i) fb[i] = 0.f;
+    unsigned xh[2][4], xl[2][4];               // A fragments of the last two k steps
+    float nrm[2] = {0.f, 0.f};                 // the last tile's norms
+    int prev_r0 = -1;                          // and its first row (-1: no tile yet)
+    int st = 0, round = 0, held = -1;          // ring position; the stage to hand back next
+#if FL2_PROFILE
+    prof_t_ = (unsigned)clock();
+#endif
+
+    // One stage of a tile: FW_BOXES boxes of two k steps each. Two groups
+    // stay in flight: NQ <= 64, the groups of k steps ks - 1 and ks (fa on
+    // even steps, fb on odd ones), each folded when step ks + 2 needs its
+    // accumulator; NQ > 64, a k step's groups A (fa) and B (fb), each folded
+    // before the next step reissues it. FIRST: the tile's first stage, whose
+    // first k step has no group before it, folds into kacc by assignment,
+    // and runs the last tile's keys and selection once its groups are issued.
+    auto stage = [&](auto first_stage) {
+        constexpr bool FIRST = decltype(first_stage)::value;
+        mbar_wait(&full[st], round & 1);
+        FL2_MARK(2);
+        const unsigned char* buf = smem + (size_t)st * fw_stage_bytes(NQ);
+        const uint64_t q_desc = wg_desc(buf + FW_X_BYTES, 16 * NQ);
+#pragma unroll
+        for (int b = 0; b < FW_BOXES; ++b) {
+            const float* xs = reinterpret_cast<const float*>(buf + b * FW_BOX_BYTES);
+            const float4 x0 = *reinterpret_cast<const float4*>(xs + row_a * FW_DK + 4 * t4);
+            const float4 x1 = *reinterpret_cast<const float4*>(xs + (row_a + 8) * FW_DK + 4 * t4);
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-                const int row = r0 + wr * 32 + p * 8 + 2 * t4 + e;
-                nrm[p][e] = row < row_end ? norms[row] : 0.f;
-            }
-        for (int chunk = 0; chunk < n_chunks; ++chunk, ++s) {
-            cp_async_wait<F_STAGES - 2>();   // this thread's copies of step s landed
-            __syncthreads();                 // everyone's; and step s-1's stage is free
-            FL2_MARK(0);
-            if (s + F_STAGES - 1 < total) issue(s + F_STAGES - 1);
-            cp_async_commit();
-            FL2_MARK(1);
-
-            const float* st =
-                reinterpret_cast<const float*>(smem + (size_t)(s % F_STAGES) * F_STAGE);
-            const int kw = min(FDK, D - chunk * FDK);
-            if (FL2_NO_MMA || !active) {
-            } else if (kw == FDK) {
-                // A whole chunk, with no guard between its k steps, so that
-                // they overlap (F_KUNROLL at a time: more spill registers).
-#pragma unroll (F_KUNROLL)
-                for (int kk = 0; kk < FDK; kk += 8)
-                    f32_k_step(acc, st + a_off + kk, st + b_off + kk);
-            } else {
-#pragma unroll
-                for (int kk = 0; kk < FDK; kk += 8)
-                    if (kk < kw) f32_k_step(acc, st + a_off + kk, st + b_off + kk);
-            }
-            FL2_MARK(2);
-        }
-
-        // Keys of this tile: accumulator (h, e) of (m, p) is query
-        // wq*32 + m*16 + g + 8h, tile row wr*32 + p*8 + 2t + e.
-        if (active) {
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-#pragma unroll
-                for (int p = 0; p < 4; ++p)
-#pragma unroll
-                    for (int h = 0; h < 2; ++h)
-#pragma unroll
-                        for (int e = 0; e < 2; ++e) {
-                            const int col = wr * 32 + p * 8 + 2 * t4 + e;
-                            keys_s[(wq * 32 + m * 16 + g + 8 * h) * (F_R + 1) + col] =
-                                r0 + col < row_end ? __fadd_rn(nrm[p][e], acc[m][p][2 * h + e])
-                                                   : INF;
+                const bool first = FIRST && b == 0 && e == 0;       // the tile's k step 0
+                const bool second = FIRST && b == 0 && e == 1;      // its k step 1
+                // Box b's hi part, k units 2e and 2e + 1 (16 NQ bytes each);
+                // its lo part NQ * 64 bytes on (descriptor units of 16 bytes).
+                const uint64_t dh = q_desc + (uint64_t)((b * fw_q_bytes(NQ) / FW_BOXES + e * 32 * NQ) >> 4);
+                const uint64_t dl = dh + (uint64_t)((NQ * FW_DK * 4) >> 4);
+                if constexpr (TWO) {
+                    split_step(x0, x1, e, xh[e], xl[e]);
+                    FL2_MARK(3);
+                    if (!first) {
+                        if (!FL2_NO_MMA) {
+                            wg_wait<1>();   // group A of step ks - 1
+                            keep(fa);
                         }
+                        FL2_MARK(5);
+                        fold(kacc, fa, 0, second);
+                        FL2_MARK(6);
+                    }
+                    if (!FL2_NO_MMA) issue_group<WA>(fa, xh[e], xl[e], dh, dl);
+                    FL2_MARK(4);
+                    if (!first) {
+                        if (!FL2_NO_MMA) {
+                            wg_wait<1>();   // group B of step ks - 1
+                            keep(fb);
+                            keep(xh[1 - e]);
+                            keep(xl[1 - e]);
+                        }
+                        FL2_MARK(5);
+                        fold(kacc, fb, OB, second);
+                        FL2_MARK(6);
+                    }
+                    // Group B: queries 64 .. NQ - 1, from the ninth core matrix on.
+                    if (!FL2_NO_MMA) issue_group<WB>(fb, xh[e], xl[e], dh + (1024 >> 4), dl + (1024 >> 4));
+                    FL2_MARK(4);
+                } else {
+                    // Step ks takes accumulator e: fold its group of step ks - 2
+                    // (into kacc by assignment when ks - 2 is the tile's step 0).
+                    float (&acc)[WA / 2] = e ? fb : fa;
+                    const bool refold = !(FIRST && b == 0);   // step ks - 2 exists
+                    const bool assign = FIRST && b == 1 && e == 0;   // step ks - 2 is the tile's step 0
+                    if (refold && !FL2_NO_MMA) {
+                        wg_wait<1>();
+                        keep(acc);
+                        keep(xh[e]);
+                        keep(xl[e]);
+                    }
+                    FL2_MARK(5);
+                    if (refold) fold(kacc, acc, 0, assign);
+                    FL2_MARK(6);
+                    split_step(x0, x1, e, xh[e], xl[e]);
+                    FL2_MARK(3);
+                    if (!FL2_NO_MMA) issue_group<WA>(acc, xh[e], xl[e], dh, dl);
+                    FL2_MARK(4);
+                }
+                if (first && prev_r0 >= 0) {
+                    // The last tile's keys and selection, while this step's groups run.
+                    write_keys<NQ>(keys_s, kacc, nrm, prev_r0, row_end, row_a, t4);
+                    FL2_MARK(7);
+                    if (!FL2_NO_SELECT) select_tile_f32(lists, keys_s, prev_r0, B, q0, NQ, v);
+                    FL2_MARK(8);
+                }
+            }
         }
-        __syncthreads();
-        FL2_MARK(3);
-        // The next write of keys_s comes after the next tile's first barrier.
-        if (!FL2_NO_SELECT) select_tile_f32(lists, keys_s, r0, B, q0);
-        FL2_MARK(4);
+        // Every group of the stage before is done: hand it back.
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = st;
+        if (++st == stages) { st = 0; ++round; }
+    };
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int r0 = row_begin + tile * FW_R;
+        float next_nrm[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = r0 + row_a + 8 * h;
+            next_nrm[h] = row < row_end ? norms[row] : 0.f;
+        }
+        held = -1;
+        stage(std::true_type{});
+        for (int c = 1; c < spt; ++c) stage(std::false_type{});
+        // Drain: the groups still running (NQ <= 64: the last two steps'; else
+        // the last step's A and B), folded in order; hand back the last stage.
+        if (!FL2_NO_MMA) {
+            wg_wait<0>();
+            keep(fa);
+            keep(fb);
+            keep(xh);
+            keep(xl);
+        }
+        FL2_MARK(5);
+        if constexpr (TWO) {
+            fold(kacc, fa, 0, false);
+            fold(kacc, fb, OB, false);
+        } else {
+            fold(kacc, fa, 0, false);   // step n_ks - 2 (even)
+            fold(kacc, fb, 0, false);   // step n_ks - 1
+        }
+        if (lane == 0) mbar_arrive(&empty[held]);
+        nrm[0] = next_nrm[0];
+        nrm[1] = next_nrm[1];
+        prev_r0 = r0;
+        FL2_MARK(6);
     }
-    cp_async_wait<0>();
-    lists_flush(lists, B, q0);
+    if (prev_r0 >= 0) {
+        write_keys<NQ>(keys_s, kacc, nrm, prev_r0, row_end, row_a, t4);
+        FL2_MARK(7);
+        if (!FL2_NO_SELECT) select_tile_f32(lists, keys_s, prev_r0, B, q0, NQ, v);
+        FL2_MARK(8);
+    }
+    lists_flush(lists, B, q0, NQ, v, FW_CONSUMER_WARPS);
 #if FL2_PROFILE
     if (lane == 0)
-        for (int i = 0; i < 5; ++i) atomicAdd(&fl2_prof[i], prof_[i]);
+        for (int i = 2; i < FL2_PHASES; ++i) atomicAdd(&fl2_prof[i], (unsigned long long)prof_s_[warp * FL2_PHASES + i]);
 #endif
 }
 
@@ -1045,18 +1438,20 @@ merge_splits_kernel(const float* __restrict__ part_k, const int* __restrict__ pa
 // Rows of a split: ceil(N / S) rounded up to whole tiles of `rt` rows.
 int rows_per_split(int N, int S, int rt) { return ((N + S - 1) / S + rt - 1) / rt * rt; }
 
-// Let a pass-1 kernel (slot: 0 for mode 0's, MODE for scan_topk_mma_kernel<MODE>)
-// take the most dynamic shared memory a block may use: once per kernel and
-// device, not on every launch.
+// Let a pass-1 kernel (slot: MODE for scan_topk_mma_kernel<MODE>, 3 + NQ / 8
+// for scan_topk_f32_wgmma_kernel<NQ>) take the most dynamic shared memory a
+// block may use: once per kernel and device, not on every launch.
 constexpr int MAX_DEVICES = 64;
+constexpr int SMEM_SLOTS = 4 + FW_QMAX / 8;
 
 cudaError_t allow_smem(const void* kernel, int slot) {
-    static bool done[4][MAX_DEVICES] = {};
+    static bool done[SMEM_SLOTS][MAX_DEVICES] = {};
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES && done[slot][dev]) return cudaSuccess;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_MAX - (FL2_PROFILE ? 1024 : 0));
     if (err == cudaSuccess && dev < MAX_DEVICES) done[slot][dev] = true;
     return err;
 }
@@ -1079,19 +1474,83 @@ cudaError_t launch_scan_mma(const void* q, const void* x, const float* norms, co
     return cudaGetLastError();
 }
 
-cudaError_t launch_scan_f32(const float* q, const float* x, const float* norms, int B, int N, int D,
-                            int K, int S, float* part_k, int* part_p, cudaStream_t stream) {
-    const bool smem_lists = f32_smem_lists(K);
-    const size_t smem = f32_smem(K, smem_lists);
-    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-    cudaError_t err = allow_smem(reinterpret_cast<const void*>(&scan_topk_f32_kernel), 0);
-    if (err != cudaSuccess) return err;
-    const bool x_async = reinterpret_cast<uintptr_t>(x) % 16 == 0 && D % 4 == 0;
-    const bool q_async = reinterpret_cast<uintptr_t>(q) % 16 == 0 && D % 4 == 0;
-    scan_topk_f32_kernel<<<dim3((B + F_Q - 1) / F_Q, S), NT, smem, stream>>>(
-        q, x, norms, B, N, D, K, rows_per_split(N, S, F_R), smem_lists, x_async, q_async, part_k,
-        part_p);
+// cuTensorMapEncodeTiled from the driver that the process has loaded (no
+// link against libcuda); null when there is none.
+typedef CUresult (*TensorMapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TensorMapEncode tensor_map_encode() {
+    static const TensorMapEncode fn = [] {
+        void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+        if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+        return h ? reinterpret_cast<TensorMapEncode>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
+    }();
+    return fn;
+}
+
+// 16-column boxes of the staged queries of width D: whole stages.
+int f32_boxes(int D) { return (D + FW_SC - 1) / FW_SC * FW_BOXES; }
+
+// Floats of stage_f32_queries_kernel's output for B queries of width D in
+// tiles of nq.
+int64_t f32_stage_floats(int B, int D, int nq) {
+    return (int64_t)((B + nq - 1) / nq) * f32_boxes(D) * 2 * nq * FW_DK;
+}
+
+cudaError_t stage_f32(const float* q, int B, int D, int nq, float* qst, cudaStream_t stream) {
+    const int64_t total = f32_stage_floats(B, D, nq);
+    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+    stage_f32_queries_kernel<<<blocks, 256, 0, stream>>>(q, B, D, nq, f32_boxes(D), total, qst);
     return cudaGetLastError();
+}
+
+// Mode 0: the queries' staging, then pass 1 on (B / NQ query tiles, S splits).
+template <int NQ>
+cudaError_t launch_scan_f32(const float* q, const float* x, const float* norms, int B, int N, int D,
+                            int K, int S, float* qst, float* part_k, int* part_p, cudaStream_t stream) {
+    const FwLayout L = fw_plan(NQ, K);
+    if (L.total > SMEM_MAX - (FL2_PROFILE ? 1024 : 0)) return cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(&scan_topk_f32_wgmma_kernel<NQ>), 3 + NQ / 8);
+    if (err != cudaSuccess) return err;
+    err = stage_f32(q, B, D, NQ, qst, stream);
+    if (err != cudaSuccess) return err;
+    // The store through TMA when its rows are 16-byte aligned (the tensor
+    // map's strides must be), else through the producer's plain copy.
+    CUtensorMap map;
+    memset(&map, 0, sizeof map);
+    const bool x_tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && D % 4 == 0;
+    if (x_tma) {
+        const TensorMapEncode encode = tensor_map_encode();
+        if (encode == nullptr) return cudaErrorNotSupported;
+        const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)N};
+        const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
+        const cuuint32_t box[2] = {FW_DK, FW_R};
+        const cuuint32_t step[2] = {1, 1};
+        if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims, strides, box,
+                   step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+            return cudaErrorInvalidValue;
+    }
+    scan_topk_f32_wgmma_kernel<NQ><<<dim3((B + NQ - 1) / NQ, S), FW_THREADS, L.total, stream>>>(
+        map, x, qst, norms, B, N, D, K, rows_per_split(N, S, FW_R), L.stages, L.smem_lists, x_tma,
+        part_k, part_p);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_scan_f32_n(int nq, const float* q, const float* x, const float* norms, int B, int N,
+                              int D, int K, int S, float* qst, float* part_k, int* part_p,
+                              cudaStream_t stream) {
+    switch (nq) {
+#define FL2_CASE(n) \
+    case n: return launch_scan_f32<n>(q, x, norms, B, N, D, K, S, qst, part_k, part_p, stream);
+        FL2_CASE(8) FL2_CASE(16) FL2_CASE(24) FL2_CASE(32) FL2_CASE(40) FL2_CASE(48) FL2_CASE(56)
+        FL2_CASE(64) FL2_CASE(72) FL2_CASE(80) FL2_CASE(88) FL2_CASE(96) FL2_CASE(104) FL2_CASE(112)
+        FL2_CASE(120) FL2_CASE(128)
+#undef FL2_CASE
+    }
+    return cudaErrorInvalidValue;
 }
 
 // Blocks of `kernel` (allow_smem slot `slot`) that fit on one SM with `smem`
@@ -1109,24 +1568,24 @@ int occupancy(const void* kernel, int slot, size_t smem) {
 
 extern "C" {
 
-int fused_l2_topk_abi_version() { return 6; }
+int fused_l2_topk_abi_version() { return 7; }
 
 // Pass 1's shape in mode `dtype` at (D, K), into out: [0] the blocks that
-// fit on one SM (modes 1 and 3 count two, the bf16 layout at small k; modes
-// 0 and 2 as many as the CUDA occupancy query reports for their shared
-// memory: mode 0 one, mode 2 two at k = 20 and one where lists in shared
-// memory leave no room for a second), [1] the queries a block, [2] the
-// store rows a tile (a split's rows are a whole number of them), [3] the
-// most splits pass 2 merges (MAX_SPLITS; fused_l2_topk refuses more). The
-// wrapper asks once per (device, mode, D, K) and sizes the grid from it
-// (ops/topk_cuda.launch_plan). Returns 0.
+// fit on one SM (modes 1 and 3 count two, the bf16 layout at small k; mode
+// 2 as many as the CUDA occupancy query reports for its shared memory: two
+// at k = 20, one where lists in shared memory leave no room for a second;
+// mode 0 one, its 384 threads taking the SM's registers), [1] the most
+// queries a block takes (mode 0: its query tile is the wrapper's choice, a
+// multiple of 8 up to this), [2] the store rows a tile (a split's rows are
+// a whole number of them), [3] the most splits pass 2 merges (MAX_SPLITS;
+// fused_l2_topk refuses more). The wrapper asks once per (device, mode, D,
+// K) and sizes the grid from it (ops/topk_cuda.launch_plan). Returns 0.
 int fused_l2_topk_shape(int dtype, int D, int K, int* out) {
-    out[1] = QT;
+    out[1] = dtype == 0 ? FW_QMAX : QT;
     out[3] = MAX_SPLITS;
-    out[2] = dtype == 0 ? F_R : RT;
+    out[2] = dtype == 0 ? FW_R : RT;
     if (dtype == 0)
-        out[0] = occupancy(reinterpret_cast<const void*>(&scan_topk_f32_kernel), 0,
-                           f32_smem(K, f32_smem_lists(K)));
+        out[0] = 1;
     else if (dtype == 2)
         out[0] = occupancy(reinterpret_cast<const void*>(&scan_topk_mma_kernel<2>), 2,
                            mma_plan<2>(D, K).smem);
@@ -1136,28 +1595,42 @@ int fused_l2_topk_shape(int dtype, int D, int K, int* out) {
 }
 
 #if FL2_PROFILE
-// Diagnostic builds: the phase cycles of scan_topk_f32_kernel's warps summed
-// since the last call (see FL2_PROFILE) into out[5], then cleared.
+// Diagnostic builds: the phase cycles of scan_topk_f32_wgmma_kernel's warps
+// summed since the last call (see FL2_PROFILE) into out[FL2_PHASES], then
+// cleared.
 int fused_l2_topk_profile(unsigned long long* out) {
     cudaError_t err = cudaMemcpyFromSymbol(out, fl2_prof, sizeof(fl2_prof));
     if (err != cudaSuccess) return (int)err;
-    const unsigned long long zero[5] = {};
+    const unsigned long long zero[FL2_PHASES] = {};
     return (int)cudaMemcpyToSymbol(fl2_prof, zero, sizeof(zero));
 }
 #endif
+
+// Mode 0's queries as pass 1 reads them (stage_f32_queries_kernel): q (B, D)
+// f32 into qst (f32_stage_floats(B, D, nq) floats). For the tests; the
+// launch stages them itself. Returns the CUDA error code.
+int fused_l2_topk_stage_f32(const void* q, int B, int D, int nq, void* qst, void* stream) {
+    if (B <= 0 || D <= 0 || nq < 8 || nq > FW_QMAX || nq % 8 != 0) return (int)cudaErrorInvalidValue;
+    return (int)stage_f32(static_cast<const float*>(q), B, D, nq, static_cast<float*>(qst),
+                          static_cast<cudaStream_t>(stream));
+}
 
 // dtype: 0 = f32, 1 = bf16, 2 = int8 (queries int8 with per-row scales rs),
 // 3 = int8 store with bf16 queries (rs unused).
 // q (B, D) and x (N, D) row-major in the store dtype; norms (N,) f32;
 // part_k/part_p (S, B, K) scratch, S at most MAX_SPLITS (the wrapper's
-// launch plan); out_k/out_p (B, K). Returns the CUDA error code of the
-// launches (0 on success).
+// launch plan); out_k/out_p (B, K). Mode 0 also takes its query tile nq (a
+// multiple of 8 up to FW_QMAX) and qst, 16-byte aligned scratch of
+// f32_stage_floats(B, D, nq) floats for the staged queries; the other modes
+// ignore both. Returns the CUDA error code of the launches (0 on success).
 int fused_l2_topk(int dtype, const void* q, const void* x, const void* norms, const void* rs,
-                  int B, int N, int D, int K, int S, void* part_k, void* part_p,
+                  int B, int N, int D, int K, int S, int nq, void* qst, void* part_k, void* part_p,
                   void* out_k, void* out_p, void* stream) {
     if (B <= 0 || N <= 0 || D <= 0 || K <= 0 || S <= 0 || S > MAX_SPLITS)
         return (int)cudaErrorInvalidValue;
     if (dtype == 2 && D % 4 != 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0 && (qst == nullptr || reinterpret_cast<uintptr_t>(qst) % 16 != 0))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* nr = static_cast<const float*>(norms);
     float* pk = static_cast<float*>(part_k);
@@ -1165,8 +1638,8 @@ int fused_l2_topk(int dtype, const void* q, const void* x, const void* norms, co
     cudaError_t err;
     const float* r = static_cast<const float*>(rs);
     if (dtype == 0)
-        err = launch_scan_f32(static_cast<const float*>(q), static_cast<const float*>(x), nr, B, N,
-                              D, K, S, pk, pp, st);
+        err = launch_scan_f32_n(nq, static_cast<const float*>(q), static_cast<const float*>(x), nr, B,
+                                N, D, K, S, static_cast<float*>(qst), pk, pp, st);
     else if (dtype == 1)
         err = launch_scan_mma<1>(q, x, nr, r, B, N, D, K, S, pk, pp, st);
     else if (dtype == 2)

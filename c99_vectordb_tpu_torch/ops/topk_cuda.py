@@ -13,15 +13,20 @@ Layers:
     (keys (B, k) f32, positions (B, k) int32) with (inf, INT32_MAX) in
     unfilled slots. Modes: f32, bf16 and int8 stores with queries of the
     same type, and int8 codes with bf16 queries (the codes decode to bf16,
-    exactly). Every mode runs on the tensor cores (mma.sync: 3xTF32
-    m16n8k8 for f32, on 64-query x 128-row tiles; m16n8k16 bf16 -> f32
-    for the bf16 store and for int8 codes with bf16 queries, m16n8k32 s8
-    -> s32 for int8 x int8; store chunks through a cp.async ring). The source note says what bounds
-    each. A CUDA tensor launches the kernel (or raises); a CPU
+    exactly). Every mode runs on the tensor cores: f32 in 3xTF32 on
+    wgmma m64nNk8 (store rows on M, 128 a tile; the batch's queries on N,
+    a multiple of 8 up to 128, split into hi and lo once a call by a
+    staging kernel, `stage_f32_plain` its plain version; the store through
+    a TMA ring); mma.sync m16n8k16 bf16 -> f32 for the bf16 store and for
+    int8 codes with bf16 queries, m16n8k32 s8 -> s32 for int8 x int8
+    (store chunks through a cp.async ring). The source note says what
+    bounds each. A CUDA tensor launches the kernel (or raises); a CPU
     tensor takes the plain version `select_plain`.
     `fused_l2_topk.launches` counts kernel launches,
-    `fused_l2_topk.launches_by_mode` by mode. `launch_plan` sizes the
-    grid and the scratch (on the CPU too, where the tests hold it).
+    `fused_l2_topk.launches_by_mode` by mode and
+    `fused_l2_topk.launches_by_qtile` the f32 launches by their query
+    tile N. `launch_plan` sizes the grid and the scratch (on the CPU too,
+    where the tests hold it).
   - `fused_topk(db, ids, sq_norms, queries, k, q_int8=None)`: the JAX
     package's `fused_topk` contract: query staging, the selection above,
     and the epilogue (+ ||q||^2, clamp at 0, positions -> ids).
@@ -50,12 +55,20 @@ _MODES = {
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-ABI_VERSION = 6
+ABI_VERSION = 7
 SIGNATURES = {
-    "fused_l2_topk": ([_CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
-                       _VP], _CI),
+    "fused_l2_topk": ([_CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
+                       _VP, _VP], _CI),
     "fused_l2_topk_shape": ([_CI, _CI, _CI, ctypes.POINTER(ctypes.c_int)], _CI),
+    "fused_l2_topk_stage_f32": ([_VP, _CI, _CI, _CI, _VP, _VP], _CI),
 }
+# The f32 mode's query tiles are multiples of F32_Q_STEP (wgmma's N); its
+# queries are staged in boxes of F32_BOX_COLS columns, whole ring stages of
+# F32_STAGE_COLS (the source's FW_DK and FW_SC, which the staging kernel and
+# pass 1 lay out; tests/test_torch_topk.py holds the two to the same values).
+F32_Q_STEP = 8
+F32_BOX_COLS = 16
+F32_STAGE_COLS = 32
 
 
 def _load() -> ctypes.CDLL:
@@ -68,31 +81,80 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.cache
-def _kernel_shape(device_index: int, mode: int, d: int, k: int) -> tuple[int, int, int, int]:
+def _kernel_shape(device_index: int, mode: int, d: int, k: int) -> tuple[int, ...]:
     """Pass 1's (blocks per SM, queries a block, store rows a tile, most
     splits) in mode `mode` at (D, k), from the kernel (the occupancy query
     for its shared memory, pass 2's cap), once per device and shape."""
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         _load().fused_l2_topk_shape(mode, d, k, out)
-    return out[0], out[1], out[2], out[3]
+    return tuple(out)
 
 
 def launch_plan(b: int, n: int, k: int, sms: int, per_sm: int, q_tile: int, row_tile: int,
-                max_splits: int) -> dict:
+                max_splits: int, q_step: int | None = None) -> dict:
     """How fused_l2_topk launches B queries over N rows at depth k on a card
     of `sms` multiprocessors, each holding `per_sm` pass-1 blocks of
     `q_tile` queries that take the store in tiles of `row_tile` rows:
     (query tiles x splits) fills the card in one wave with no tail, with at
     least one row tile per split and at most `max_splits` (all four from
-    the kernel's fused_l2_topk_shape). Returns the query tiles, the splits
-    and the shape of the partial lists (splits, B, k)."""
+    the kernel's fused_l2_topk_shape). With `q_step` (the f32 mode, whose
+    blocks take up to `q_tile` queries) the query tile shrinks to the
+    smallest multiple of q_step that holds the batch's share of a tile:
+    B = 1 runs 8 queries, B = 128 one tile of 128, B = 200 two of 104.
+    Returns the query tiles, the query tile, the splits and the shape of
+    the partial lists (splits, B, k)."""
     q_tiles = -(-b // q_tile)
+    if q_step:
+        q_tile = -(-(-(-b // q_tiles)) // q_step) * q_step
     splits = max(1, min(per_sm * sms // q_tiles, -(-n // row_tile), max_splits))
-    return {"q_tiles": q_tiles, "splits": splits, "part": (splits, b, k)}
+    return {"q_tiles": q_tiles, "q_tile": q_tile, "splits": splits, "part": (splits, b, k)}
 
 
-# -- the kernel wrapper and its plain version ---------------------------------
+def f32_stage_floats(b: int, d: int, q_tile: int) -> int:
+    """Floats of the f32 mode's staged queries (stage_f32_plain's output)."""
+    return -(-b // q_tile) * -(-d // F32_STAGE_COLS) * F32_STAGE_COLS * 2 * q_tile
+
+
+# -- the kernel wrapper and its plain versions --------------------------------
+
+
+def tf32_rna(x):
+    """x (f32) rounded to TF32 as the kernel rounds it: the 13 low mantissa
+    bits cleared, to nearest, ties away from zero (cvt.rna's rounding)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def f32_stage_perm():
+    """Column kappa (0-15) of an f32 box's B operand -> the query column (of
+    the box's 16) it holds: a lane's float4 of a store row is its A
+    fragment's (k t, k t + 4) of the box's first k step, then of its second
+    (the source's fw_perm)."""
+    kappa = torch.arange(F32_BOX_COLS)
+    return 4 * (kappa & 3) + 2 * (kappa >> 3) + ((kappa >> 2) & 1)
+
+
+def stage_f32_plain(q_staged, q_tile: int):
+    """Plain version of the f32 mode's query staging (the source's
+    stage_f32_queries_kernel): the (B, D) f32 staged queries split once
+    into hi = tf32(q) and lo = tf32(q - hi), zero-padded to whole query
+    tiles and ring stages of F32_STAGE_COLS columns, laid out as pass 1's
+    wgmma B operands: [query tile][box][hi, lo][k unit 4][query group
+    q_tile / 8][query 8][4 floats], box column 4 (k unit) + float holding
+    query column 16 box + f32_stage_perm(); flat, f32."""
+    b, d = q_staged.shape
+    q_tiles = -(-b // q_tile)
+    boxes = -(-d // F32_STAGE_COLS) * F32_STAGE_COLS // F32_BOX_COLS
+    qp = torch.zeros(q_tiles * q_tile, boxes * F32_BOX_COLS, dtype=torch.float32,
+                     device=q_staged.device)
+    qp[:b, :d] = q_staged
+    hi = tf32_rna(qp)
+    lo = tf32_rna(qp - hi)
+    parts = torch.stack([hi, lo]).view(2, q_tiles, q_tile, boxes, F32_BOX_COLS)
+    parts = parts[..., f32_stage_perm().to(qp.device)]
+    parts = parts.view(2, q_tiles, q_tile // 8, 8, boxes, 4, 4)   # part, qt, group, query, box, unit, float
+    return parts.permute(1, 4, 0, 5, 2, 3, 6).contiguous().view(-1)
 
 
 def select_plain(q_staged, db, norms, k: int, rs=None):
@@ -158,30 +220,64 @@ def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
         raise ValueError(f"fused_l2_topk: need k >= 1 and a non-empty store (k={k}, N={n})")
     lib = _load()
     dev = db.device.index
-    plan = launch_plan(b, n, k, _sm_count(dev), *_kernel_shape(dev, mode[0], d, k))
-    # One scratch buffer: the partial keys, then their positions.
+    shape = _kernel_shape(dev, mode[0], d, k)
+    plan = launch_plan(b, n, k, _sm_count(dev), *shape,
+                       q_step=F32_Q_STEP if mode[0] == 0 else None)
+    # One scratch buffer: the f32 mode's staged queries (at its start, which
+    # the allocator aligns past the 16 bytes the bulk copies need), the
+    # partial keys, then their positions.
+    staged = f32_stage_floats(b, d, plan["q_tile"]) if mode[0] == 0 else 0
     part = plan["splits"] * b * k
-    scratch = torch.empty(2 * part, dtype=torch.int32, device=db.device)
+    scratch = torch.empty(staged + 2 * part, dtype=torch.int32, device=db.device)
     base = scratch.data_ptr()
+    part_k = base + staged * scratch.element_size()
     out_k = torch.empty((b, k), dtype=torch.float32, device=db.device)
     out_p = torch.empty((b, k), dtype=torch.int32, device=db.device)
     with torch.cuda.device(db.device):
         stream = torch.cuda.current_stream(db.device).cuda_stream
         err = lib.fused_l2_topk(
             mode[0], q_staged.data_ptr(), db.data_ptr(), norms.data_ptr(),
-            rs.data_ptr() if is_int8 else None, b, n, d, k, plan["splits"],
-            base, base + part * scratch.element_size(), out_k.data_ptr(), out_p.data_ptr(),
-            stream,
+            rs.data_ptr() if is_int8 else None, b, n, d, k, plan["splits"], plan["q_tile"],
+            base if staged else None, part_k, part_k + part * scratch.element_size(),
+            out_k.data_ptr(), out_p.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_l2_topk launch failed: CUDA error {err}")
-    fused_l2_topk.launches += 1
-    fused_l2_topk.launches_by_mode[mode[1]] += 1
+    _count_launch(mode[1], plan["q_tile"])
     return out_k, out_p
+
+
+def _count_launch(mode_name: str, q_tile: int) -> None:
+    """One launch of fused_l2_topk in mode `mode_name`: f32 launches are
+    also counted by their query tile."""
+    fused_l2_topk.launches += 1
+    fused_l2_topk.launches_by_mode[mode_name] += 1
+    if mode_name == "float32":
+        fused_l2_topk.launches_by_qtile[q_tile] += 1
 
 
 fused_l2_topk.launches = 0
 fused_l2_topk.launches_by_mode = dict.fromkeys((name for _, name in _MODES.values()), 0)
+fused_l2_topk.launches_by_qtile = dict.fromkeys(range(F32_Q_STEP, 129, F32_Q_STEP), 0)
+
+
+def stage_f32(q_staged, q_tile: int):
+    """The f32 mode's query staging on the card (the kernel's own, as pass 1
+    launches it); stage_f32_plain on CPU tensors."""
+    if q_staged.device.type == "cpu":
+        return stage_f32_plain(q_staged, q_tile)
+    b, d = q_staged.shape
+    if q_staged.dtype != torch.float32 or not q_staged.is_contiguous():
+        raise ValueError("stage_f32: queries must be contiguous float32")
+    out = torch.empty(f32_stage_floats(b, d, q_tile), dtype=torch.float32,
+                      device=q_staged.device)
+    with torch.cuda.device(q_staged.device):
+        err = _load().fused_l2_topk_stage_f32(
+            q_staged.data_ptr(), b, d, q_tile, out.data_ptr(),
+            torch.cuda.current_stream(q_staged.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_l2_topk_stage_f32 failed: CUDA error {err}")
+    return out
 
 
 # -- the fused_topk contract --------------------------------------------------

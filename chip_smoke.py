@@ -7,11 +7,12 @@ Phases (any failure raises and exits non-zero; none is caught):
   1. build       nvcc builds csrc/fused_l2_topk.cu, csrc/ivf_scan.cu and
                  csrc/adc_scan.cu (both with csrc/select_merge.cuh), in
                  parallel, into c99_vectordb_tpu_torch/_build/. fused_l2_topk
-                 runs every mode on the tensor cores (mma.sync): its f32
-                 product (3xTF32 on 64-query x 128-row tiles,
-                 scan_topk_f32_kernel), its two bf16 products (bf16 store;
-                 int8 codes with bf16 queries) and its int8 x int8 mode
-                 (scan_topk_mma_kernel<2>, s8 -> s32). The IVF and ADC select
+                 runs every mode on the tensor cores: its f32 product
+                 (3xTF32 on wgmma, 128-row x N-query tiles with N from B,
+                 fed by TMA: scan_topk_f32_wgmma_kernel), its two bf16
+                 products (bf16 store; int8 codes with bf16 queries) and its
+                 int8 x int8 mode (scan_topk_mma_kernel<2>, s8 -> s32), these
+                 three on mma.sync. The IVF and ADC select
                  kernels split each query's probes over blocks, stop each list
                  at its high-water mark and merge exactly; the three dense
                  kernels (IVF f32/bf16, IVF int8, ADC) run the same (query,
@@ -20,9 +21,13 @@ Phases (any failure raises and exits non-zero; none is caught):
   2. kernel      fused_l2_topk against its plain torch version on the card,
                  for the f32, bf16 and int8 stores (and int8 codes with bf16
                  queries, q_int8=False) at N=1,048,576 x D=384, B in {128,
-                 1024, 100}, k=20, plus fixtures for every mode (duplicate
-                 rows, +inf padding and masked norms, k above the live rows,
-                 deep k).
+                 1024, 100, 1, 64}, k=20; the f32 store also at the
+                 benchmark's 1,000,000 x 768 at B in {1, 128} (query tiles of
+                 8 and 128, read from launches_by_qtile), and the f32 mode's
+                 query staging kernel bit for bit against stage_f32_plain at
+                 D in {100, 384, 768} and every query tile those runs take;
+                 plus fixtures for every mode (duplicate rows, +inf padding
+                 and masked norms, k above the live rows, deep k).
   3. flat        FlatIndex on 1,000,000 seeded clustered unit vectors (D=384),
                  each scan dtype, B=128, k=10: strict recall@10 = 1.0 against a
                  float64 (distance, id) ground truth, unfiltered and with a 10%
@@ -274,6 +279,38 @@ def phase_kernel(device, n, d, batches, k, seed, errs):
                 log(f"kernel int8 codes, bf16 queries (q_int8=False) N={n} D={d} B={b:5d} "
                     f"k={k}: agrees with plain (max |key diff| {err:.3e})")
         del db, norms, made
+
+
+def phase_f32_tiles(device, seed, errs):
+    """The f32 mode at the benchmark's 1,000,000 x 768 at B = 1 and 128
+    against the plain version, each through the query tile its cell runs
+    (8 and 128, as launches_by_qtile counts them); then the queries'
+    staging kernel bit for bit against stage_f32_plain at every query tile
+    of the kernel phase's batches."""
+    n, d, k = 1_000_000, 768, 20
+    made = make_store(n, d, "float32", device, seed + 3)
+    g = torch.Generator(device=device).manual_seed(seed + 4)
+    by_tile = topk_cuda.fused_l2_topk.launches_by_qtile
+    for b, tile in ((1, 8), (128, 128)):
+        q_st, _ = topk_cuda.stage_queries(torch.randn((b, d), generator=g, device=device),
+                                          torch.float32)
+        before = dict(by_tile)
+        err = check_selection(q_st, made[0], made[1], k, None, exact=False,
+                              label=f"float32 N={n} D={d} B={b}")
+        ran = {t for t in by_tile if by_tile[t] != before[t]}
+        assert ran == {tile}, f"float32 B={b}: query tiles {ran}, expected {tile}"
+        note_err(errs, "float32", err)
+        log(f"kernel float32  N={n} D={d} B={b:5d} k={k} (query tile {tile}): agrees "
+            f"with plain (max |key diff| {err:.3e})")
+    del made
+    for d in (100, 384, 768):
+        for b, tile in ((1, 8), (64, 64), (100, 104), (128, 128), (1024, 128)):
+            q_st = torch.randn((b, d), generator=g, device=device) * -2.0
+            got = topk_cuda.stage_f32(q_st, tile)
+            want = topk_cuda.stage_f32_plain(q_st, tile)
+            assert torch.equal(got, want), f"stage_f32 D={d} B={b} tile {tile}: differs from plain"
+    log("staging float32: stage_f32 equals stage_f32_plain bit for bit at D in {100, 384, 768}, "
+        "B in {1, 64, 100, 128, 1024}")
 
 
 def phase_fixtures(device, d, seed, errs):
@@ -582,8 +619,8 @@ def library_call(q_st, db, norms, k, rs, dt):
 # How pass 1 of fused_l2_topk forms each mode's products (csrc/fused_l2_topk.cu):
 # every mode runs on the tensor cores, the f32 store in a kernel of its own.
 PRODUCT_ROUTE = {
-    "float32": "scan_topk_f32_kernel: tensor cores, mma.sync m16n8k8 tf32, 3xTF32, "
-               "64-query x 128-row tiles",
+    "float32": "scan_topk_f32_wgmma_kernel: tensor cores, wgmma m64nNk8 tf32, 3xTF32, "
+               "128-row x N-query tiles (N from B), TMA ring",
     "bfloat16": "scan_topk_mma_kernel<1>: tensor cores, mma.sync m16n8k16 bf16",
     "int8_bf16q": "scan_topk_mma_kernel<3>: tensor cores, mma.sync m16n8k16 bf16",
     "int8": "scan_topk_mma_kernel<2>: tensor cores, mma.sync m16n8k32 s8 -> s32",
@@ -653,6 +690,8 @@ def reset_counts() -> None:
     topk_cuda.fused_l2_topk.launches = 0
     for mode in topk_cuda.fused_l2_topk.launches_by_mode:
         topk_cuda.fused_l2_topk.launches_by_mode[mode] = 0
+    for q_tile in topk_cuda.fused_l2_topk.launches_by_qtile:
+        topk_cuda.fused_l2_topk.launches_by_qtile[q_tile] = 0
     for name in IVF_KERNELS:
         getattr(ivf_scan_cuda, name).launches = 0
     adc_cuda.adc_scan_select.launches = 0
@@ -2460,7 +2499,7 @@ def main() -> int:
         return sharded_rank(args)
 
     device = torch.device("cuda", 0)
-    n_kernel, d, batches = 1_048_576, 384, (128, 1024, 100)
+    n_kernel, d, batches = 1_048_576, 384, (128, 1024, 100, 1, 64)
     card = card_line()
     log(f"card: {card}")
     t_start = time.perf_counter()
@@ -2472,6 +2511,7 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = {}   # max |key diff| by mode
     phase_kernel(device, n_kernel, d, batches, 20, args.seed, errs)
+    phase_f32_tiles(device, args.seed, errs)
     phase_fixtures(device, d, args.seed, errs)
     log(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 

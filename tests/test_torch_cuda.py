@@ -182,9 +182,9 @@ def _tf32_hazard_operands(case, n, b, seed):
     about -1 to 1 and cross 0;
     mixed_magnitudes: elements of 1e-3 to 1e3 within every row and query,
     where keys come from large products that cancel;
-    wide_768: Gaussian at D = 768, twice the chunks of D = 384 per tile
-    (its 64 f32 queries, 197 KB, would not fit resident in shared memory
-    beside the ring; they stream through it, as at every width)."""
+    wide_768: Gaussian at D = 768, twice the ring stages of D = 384 per
+    tile (the staged queries stream through the ring beside the store, as
+    at every width)."""
     rng = np.random.default_rng(seed)
     d = 768 if case == "wide_768" else 384
     if case == "unit_norm":
@@ -252,10 +252,10 @@ def _check_f32(q_st, db, norms, k):
 @pytest.mark.parametrize("n", [37, 8192 + 37])
 @pytest.mark.parametrize("b", F32_BS)
 def test_f32_query_tiles_match_plain(cuda, b, n, k):
-    """The f32 mode's 64-query x 128-row tiles: B around and across the
-    query tile and its 32-query warps, N below one row tile and off every
-    tile multiple, k from 1 to past the register lists (32) and the
-    shared-memory lists;
+    """The f32 mode's 128-row x N-query tiles: B around and across 64 (where
+    one wgmma group a k step becomes two) and the 128-query tile, N below
+    one row tile and off every tile multiple, k from 1 to past the register
+    lists (32) and the shared-memory lists;
     a quarter of the rows masked (+inf norms) and a run of duplicate rows
     (exact ties, lowest positions first)."""
     rng = np.random.default_rng(b * 7 + n + k)
@@ -273,8 +273,8 @@ def test_f32_query_tiles_match_plain(cuda, b, n, k):
 @pytest.mark.parametrize("b", [128, 200, 1024])
 @pytest.mark.parametrize("case", ["unit_norm", "wide_768"])
 def test_f32_hazards_on_query_tiles(cuda, case, b):
-    """test_f32_tensor_core_keys_within_rel_tol's operands at two whole
-    64-query tiles, a ragged fourth one, and sixteen."""
+    """test_f32_tensor_core_keys_within_rel_tol's operands at one whole
+    128-query tile, two of 104, and eight of 128."""
     x, q = _tf32_hazard_operands(case, 8192 + 37, b, seed=len(case) + b)
     db = torch.from_numpy(x).to(cuda)
     q_st, _ = topk_cuda.stage_queries(torch.from_numpy(q).to(cuda), db.dtype)
@@ -284,7 +284,8 @@ def test_f32_hazards_on_query_tiles(cuda, case, b):
 @pytest.mark.parametrize("b", [1024])
 def test_f32_mixed_magnitudes_on_query_tiles(cuda, b):
     """Elements of 1e-3 to 1e3 (test_f32_tensor_core_keys_within_rel_tol's
-    mixed_magnitudes) on sixteen 64-query tiles."""
+    mixed_magnitudes) on eight 128-query tiles: a fresh accumulator over
+    two k steps (16 columns) failed it on the card; one per k step holds."""
     x, q = _tf32_hazard_operands("mixed_magnitudes", 8192 + 37, b, seed=16 + b)
     db = torch.from_numpy(x).to(cuda)
     q_st, _ = topk_cuda.stage_queries(torch.from_numpy(q).to(cuda), db.dtype)
@@ -302,9 +303,9 @@ def test_f32_mixed_magnitudes_known_deviation(cuda, b):
     key lies farther than REL_TOL from the float64 one (1.4e-3 and 6.4e-4,
     on the CPU and on the card alike), so the check against select_plain
     cannot hold there. tools/f32_mixed_magnitudes.py prints these misses
-    and PERF.md records them; on these operands the kernel's outputs equal
-    bit for bit those of the earlier mode-0 layout (16 x 32 warp pieces in
-    scan_topk_mma_kernel). The kernel is held against float64
+    and PERF.md records them; on these operands the wgmma kernel picks the
+    same positions as the earlier mma.sync one, its keys differing in the
+    last bits (another summation order). The kernel is held against float64
     instead: each key within REL_TOL * max(|key|, 1) + F32_TERMS_ULP *
     (norm + sum |q_i x_i|) of its row's exact key, and its rows' exact keys
     within that of the exact k best, slot by slot."""
@@ -340,6 +341,57 @@ def test_f32_unaligned_and_odd_width(cuda, d, offset):
     qs = torch.from_numpy(rng.standard_normal(b * d + offset).astype(np.float32)).to(cuda)
     q_st = qs[offset:].view(b, d)
     _check_f32(q_st, db, (db * db).sum(1), 20)
+
+
+# The f32 mode's wgmma pass at MemoDB's row count: D 100 (a partial last
+# 16-column stage), 384 and 768; B from one query (query tile 8) through
+# 7 (a padded tile), 128 (one tile) and 200 (two tiles of 104) to 1024
+# (eight of 128); k 20 (register lists in shared memory), 128 (the edge of
+# the shared-memory lists) and 200 (lists in the partial buffer).
+F32_WG_D = [100, 384, 768]
+F32_WG_B = [1, 7, 128, 200, 1024]
+F32_WG_K = [20, 128, 200]
+
+
+@pytest.mark.parametrize("k", F32_WG_K)
+@pytest.mark.parametrize("b", F32_WG_B)
+@pytest.mark.parametrize("d", F32_WG_D)
+def test_f32_wgmma_tiles_at_131072_rows(cuda, d, b, k):
+    """The f32 mode against select_plain at 131,072 rows, a quarter of them
+    masked (+inf norms), a run of duplicate rows (exact ties), and the
+    launch counted once under the query tile that launch_plan picks."""
+    n = 131_072
+    g = torch.Generator(device=cuda).manual_seed(d * 10_000 + b * 10 + k)
+    db = torch.randn((n, d), generator=g, device=cuda)
+    db[n // 2:n // 2 + 9] = db[3]
+    norms = (db * db).sum(1)
+    norms[torch.randperm(n, generator=g, device=cuda)[: n // 4]] = torch.inf
+    q = torch.randn((b, d), generator=g, device=cuda)
+    q[::3] = db[3]
+    q_st, _ = topk_cuda.stage_queries(q, db.dtype)
+    q_tile = topk_cuda.launch_plan(b, n, k, 132, 1, 128, 128, 128, q_step=8)["q_tile"]
+    before = dict(topk_cuda.fused_l2_topk.launches_by_qtile)
+    _check_f32(q_st, db, norms, k)
+    after = topk_cuda.fused_l2_topk.launches_by_qtile
+    assert {t: after[t] - before[t] for t in after if after[t] != before[t]} == {q_tile: 1}
+
+
+@pytest.mark.parametrize("d", [21, 100, 768])
+@pytest.mark.parametrize("b", [1, 7, 200])
+def test_f32_staging_equals_plain(cuda, b, d):
+    """The f32 mode's query staging kernel (hi and lo parts as wgmma's B
+    operands) bit for bit against stage_f32_plain, at the query tile that
+    launch_plan picks."""
+    g = torch.Generator(device=cuda).manual_seed(b * 100 + d)
+    q = torch.randn((b, d), generator=g, device=cuda) * 10.0 ** torch.empty(
+        (b, d), device=cuda).uniform_(-3, 3, generator=g)
+    q_st, _ = topk_cuda.stage_queries(q, torch.float32)
+    q_tile = topk_cuda.launch_plan(b, 1 << 20, 20, 132, 1, 128, 128, 128, q_step=8)["q_tile"]
+    got = topk_cuda.stage_f32(q_st, q_tile)
+    want = topk_cuda.stage_f32_plain(q_st, q_tile)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (topk_cuda.f32_stage_floats(b, d, q_tile),)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_f32_memodb_shape(cuda):

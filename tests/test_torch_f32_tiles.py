@@ -1,19 +1,29 @@
-"""How the flat kernel's f32 mode (csrc/fused_l2_topk.cu, scan_topk_f32_kernel)
+"""How the flat kernel's f32 mode (csrc/fused_l2_topk.cu, scan_topk_f32_wgmma_kernel)
 lays out its tiles and merges a keys tile into its lists, emulated in numpy.
 
-A block holds Q = 64 queries and a tile of R = 128 store rows; ring chunks
-of FDK = 64 f32 columns sit in shared memory at a row stride of FSK = 68
-floats. Warp w = WR wq + wr (WR = R / 32) owns queries wq*32 .. +31 and tile rows
-wr*32 .. +31, loads its fragments with ldmatrix.x4.b16 at the kernel's row
-addresses (a_off, b_off) and multiplies with mma.sync.m16n8k8 tf32. Here
-ldmatrix is emulated by its definition (lane l's register j: row l / 4,
-32-bit word l % 4 of matrix j, whose row r lane 8 j + r addresses) and the
-product by the PTX ISA's m16n8k8 .tf32 fragment tables (A: (g, t), (g + 8,
-t), (g, t + 4), (g + 8, t + 4); B: (k t, n g), (k t + 4, n g); C: (g, 2t),
-(g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); g = lane / 4, t = lane % 4). The
-emulated keys tile must equal q . x^T exactly on integer operands, every
-ldmatrix phase must read distinct 16-byte bank groups, and the keys must
-land once on every (query, row) cell.
+A block takes a tile of R = 128 store rows by its NQ queries (a multiple of
+8 up to 128): two consumer warpgroups, rows 0-63 and 64-127, each running
+wgmma m64nNk8 tf32 with the store rows on M (A, in registers) and the
+queries on N (B, in shared memory). A ring stage holds boxes of 16 f32
+columns: for each, the store chunk [128][16] as its TMA box lands it
+(64-byte rows), and the queries' hi and lo parts, staged once a call by
+stage_f32_queries_kernel
+(ops/topk_cuda.stage_f32_plain is its plain version) as K-major B
+operands: 8-query x 16-byte core matrices, 128 bytes apart along the
+queries and 16 NQ bytes (the descriptor's leading byte offset) apart along
+K. Lane (g = lane / 4, t = lane % 4) of warp wq in warpgroup cw reads one
+float4 of each of its rows 64 cw + 16 wq + g and + 8 (columns 4t .. 4t + 3)
+and splits it: k step e's A fragment is a0 (row g, k t) = x0[2e], a1 (g +
+8, t) = x1[2e], a2 (g, t + 4) = x0[2e + 1], a3 (g + 8, t + 4) = x1[2e + 1]
+(the PTX ISA's wgmma .tf32 A-register layout, the m16n8k8 one per warp of
+16 rows), so the staged queries hold, at logical column kappa of a stage,
+the query column f32_stage_perm()[kappa]. The accumulators are the PTX
+ISA's m64nN f32 layout: d[4 j + 2 h + e] is row g + 8 h of the warp's 16,
+query 8 j + 2 t + e. Here the fragments, the descriptor's addressing and
+the accumulators are emulated by those tables: the keys tile must equal
+q . x^T exactly on integer operands, with each (query, row) cell written
+once and each store element split by one lane once; the fragment loads and
+the keys tile's writes must fall on distinct banks.
 
 The selection (select_tile_f32) holds a list of k <= 32 in registers, one
 entry a lane, and takes a tile's admitted candidates one at a time, each
@@ -24,98 +34,162 @@ after every entry of key <= its own), ties and +inf keys included."""
 
 import numpy as np
 import pytest
+import torch
 
-FDK = 64
-FSK = FDK + 4
+from c99_vectordb_tpu_torch.ops import topk_cuda
+
+DK = topk_cuda.F32_BOX_COLS        # f32 columns a TMA box of the store
+KS = 128 + 4                       # the keys tile's row stride (FW_KS)
 INT32_MAX = 2**31 - 1
-NQ, NR = 64, 128   # queries, store rows a tile
+NR = 128                           # store rows a tile
 
 
-def ldmatrix_x4(smem_words, row_addr):
-    """ldmatrix.x4.b16 on a word-addressed array: row_addr[lane] is the word
-    address of row lane % 8 of matrix lane // 8; returns regs[lane][j]."""
-    regs = np.zeros((32, 4), smem_words.dtype)
-    for j in range(4):
-        for lane in range(32):
-            regs[lane, j] = smem_words[row_addr[8 * j + lane // 4] + lane % 4]
-    return regs
+def lane_rows(cw, wq):
+    """Per lane: (g, t, the lane's first tile row)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    return g, t, 64 * cw + 16 * wq + g
 
 
-def a_rows(wq, m, r=0):
-    """Word addresses of the A (queries) ldmatrix rows of m16 tile m; the
-    queries follow the stage's r store rows."""
-    return [(r + wq * 32 + m * 16 + (lane & 15)) * FSK + (lane >> 4) * 4 for lane in range(32)]
+def a_fragments(chunk, cw, wq):
+    """The (32, 2, 4) A fragments of warp wq of warpgroup cw for the stage's
+    two k steps, from the store chunk [128][16] as the kernel reads it: a
+    float4 of each of the lane's two rows."""
+    g, t, row = lane_rows(cw, wq)
+    cols = 4 * t[:, None] + np.arange(4)
+    x0, x1 = chunk[row[:, None], cols], chunk[row[:, None] + 8, cols]
+    return np.stack([np.stack([x0[:, 2 * e], x1[:, 2 * e], x0[:, 2 * e + 1], x1[:, 2 * e + 1]], 1)
+                     for e in range(2)], 1)
 
 
-def b_rows(wr, half):
-    """Word addresses of the B (store rows) ldmatrix rows of n8 pieces
-    2 half, 2 half + 1."""
-    return [(wr * 32 + half * 16 + (lane >> 4) * 8 + (lane & 7)) * FSK + ((lane >> 3) & 1) * 4
-            for lane in range(32)]
+def warpgroup_a(frags_by_warp, e):
+    """The 64 x 8 A matrix that wgmma reads from the warps' fragments of k
+    step e (PTX ISA: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+    of the warp's 16 rows)."""
+    a = np.full((64, 8), np.nan)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for wq, frags in enumerate(frags_by_warp):
+        r = 16 * wq + g
+        a[r, t], a[r + 8, t] = frags[:, e, 0], frags[:, e, 1]
+        a[r, t + 4], a[r + 8, t + 4] = frags[:, e, 2], frags[:, e, 3]
+    assert not np.isnan(a).any()
+    return a
 
 
-def mma_m16n8k8(a, b, c):
-    """d = a . b + c from per-lane fragments (the PTX tables above)."""
-    A = np.zeros((16, 8))
-    B = np.zeros((8, 8))
-    for lane in range(32):
-        g, t = lane // 4, lane % 4
-        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a[lane]
-        B[t, g], B[t + 4, g] = b[lane]
-    D = A @ B
-    out = c.copy()
-    for lane in range(32):
-        g, t = lane // 4, lane % 4
-        out[lane] += [D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]]
-    return out
+def descriptor_b(blob, start, nq):
+    """The 8 x NQ B matrix that a descriptor at float `start` addresses: K-major,
+    no swizzle, core matrices of 8 queries x 4 floats, 4 NQ floats (the
+    leading byte offset, 16 NQ bytes) apart along K and 32 floats (128
+    bytes) apart along the queries."""
+    k, n = np.meshgrid(np.arange(8), np.arange(nq), indexing="ij")
+    return blob[start + (k // 4) * 4 * nq + (n // 8) * 32 + (n % 8) * 4 + k % 4]
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_warp_tiles_multiply_to_the_keys_tile(seed):
-    nq, nr = NQ, NR
-    rng = np.random.default_rng(seed)
-    q = rng.integers(-8, 9, (nq, FDK)).astype(np.float64)
-    x = rng.integers(-8, 9, (nr, FDK)).astype(np.float64)
-    stage = np.zeros((nr + nq) * FSK)            # the store chunk, then the queries
-    for r in range(nr):
-        stage[r * FSK:r * FSK + FDK] = x[r]
-    for r in range(nq):
-        stage[(nr + r) * FSK:(nr + r) * FSK + FDK] = q[r]
-    keys = np.full((nq, nr), np.nan)
-    for warp in range(8):
-        wq, wr = warp // (nr // 32), warp % (nr // 32)
-        acc = np.zeros((2, 4, 32, 4))
-        for kk in range(0, FDK, 8):
-            ah = [ldmatrix_x4(stage, [w + kk for w in a_rows(wq, m, nr)]) for m in range(2)]
-            bx = [ldmatrix_x4(stage, [w + kk for w in b_rows(wr, h)]) for h in range(2)]
-            for m in range(2):
-                for p in range(4):
-                    b = bx[p >> 1][:, 2 * (p & 1):2 * (p & 1) + 2]
-                    acc[m, p] = mma_m16n8k8(ah[m], b, acc[m, p])
-        for lane in range(32):
-            g, t = lane // 4, lane % 4
-            for m in range(2):
-                for p in range(4):
+def emulate_keys_tile(x_tile, q_st, nq, products):
+    """The (NQ, 128) dot products of one tile as the kernel's two warpgroups
+    form them from stage_f32_plain's blob, written through the accumulator
+    layout (each cell once); `products` maps (x hi, x lo, q hi, q lo) of one
+    k step to its contribution."""
+    d = q_st.shape[1]
+    boxes = -(-d // DK)
+    blob = topk_cuda.stage_f32_plain(torch.from_numpy(q_st), nq).numpy().astype(np.float64)
+    acc = [np.zeros((64, nq)), np.zeros((64, nq))]
+    for c in range(boxes):
+        chunk = np.zeros((NR, DK))
+        w = min(DK, d - c * DK)
+        chunk[:, :w] = x_tile[:, c * DK:c * DK + w]
+        base = c * 2 * nq * DK             # this box's hi part; the lo part follows
+        for cw in range(2):
+            frags = [a_fragments(chunk, cw, wq) for wq in range(4)]
+            for e in range(2):
+                a = warpgroup_a(frags, e)
+                b_hi = descriptor_b(blob, base + e * 8 * nq, nq)
+                b_lo = descriptor_b(blob, base + nq * DK + e * 8 * nq, nq)
+                acc[cw] += products(a, b_hi, b_lo)
+    keys = np.full((nq, NR), np.nan)
+    smem = np.full(nq * KS, np.nan)
+    for cw in range(2):
+        for wq in range(4):
+            g, t, row = lane_rows(cw, wq)
+            for j in range(nq // 8):
+                for h in range(2):
+                    for e in range(2):
+                        q = 8 * j + 2 * t + e
+                        val = acc[cw][16 * wq + g + 8 * h, q]   # d[4 j + 2 h + e] of each lane
+                        assert np.isnan(keys[q, row + 8 * h]).all(), "a keys cell written twice"
+                        keys[q, row + 8 * h] = val
+                        smem[q * KS + row + 8 * h] = val
+    assert not np.isnan(keys).any()
+    return keys, smem
+
+
+@pytest.mark.parametrize("d", [100, 384, 768])
+@pytest.mark.parametrize("nq", [8, 16, 64, 128])
+def test_wgmma_fragments_multiply_to_the_keys_tile(nq, d):
+    """Integer operands (exact in every split and product): the emulated
+    fragments, descriptors and accumulators give q . x^T for every query
+    and row of the tile, each cell once, read back from the keys tile at
+    its stride."""
+    rng = np.random.default_rng(nq * 1000 + d)
+    x = rng.integers(-8, 9, (NR, d)).astype(np.float32)
+    q = rng.integers(-8, 9, (nq, d)).astype(np.float32)
+    keys, smem = emulate_keys_tile(
+        x, q, nq, lambda a, b_hi, b_lo: a @ b_hi)
+    want = q.astype(np.float64) @ x.astype(np.float64).T
+    np.testing.assert_array_equal(keys, want)
+    np.testing.assert_array_equal(smem.reshape(nq, KS)[:, :NR], want)
+
+
+def test_stage_perm_matches_the_a_fragments():
+    """Logical column kappa = 8 e + k of a stage (k step e, row k of the B
+    operand) holds the store column that lane t's A fragment holds at that
+    k: k < 4 its a0 (float 2e of its float4), k >= 4 its a2 (float 2e + 1)."""
+    perm = topk_cuda.f32_stage_perm().tolist()
+    assert sorted(perm) == list(range(DK))
+    for e in range(2):
+        for k in range(8):
+            t = k % 4
+            assert perm[8 * e + k] == 4 * t + 2 * e + k // 4
+
+
+@pytest.mark.parametrize("nq", [8, 128])
+def test_each_store_element_split_once(nq):
+    """Every element of a box of the store is loaded and split by one lane
+    of one consumer warp, once: a tile's store is split once per query
+    tile, whatever NQ."""
+    count = np.zeros((NR, DK), int)
+    for cw in range(2):
+        for wq in range(4):
+            g, t, row = lane_rows(cw, wq)
+            for h in range(2):
+                for f in range(4):
+                    np.add.at(count, (row + 8 * h, 4 * t + f), 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("which", ["fragments", "keys"])
+def test_smem_accesses_are_conflict_free(which):
+    """fragments: a warp's float4 loads of its rows (64-byte rows, no
+    swizzle) are served a quarter-warp at a time, and each quarter-warp's
+    eight 16-byte pieces fall on the eight distinct 16-byte bank groups;
+    keys: a warp's write of one accumulator register to the keys tile
+    (stride 132 floats) puts its 32 lanes on 32 distinct banks."""
+    for cw in range(2):
+        for wq in range(4):
+            g, t, row = lane_rows(cw, wq)
+            if which == "fragments":
+                for h in range(2):
+                    byte = (row + 8 * h) * DK * 4 + 16 * t
+                    for quarter in range(4):
+                        groups = {(int(b) // 16) % 8 for b in byte[8 * quarter:8 * quarter + 8]}
+                        assert len(groups) == 8
+            else:
+                for j in range(16):
                     for h in range(2):
                         for e in range(2):
-                            row, col = wq * 32 + m * 16 + g + 8 * h, wr * 32 + p * 8 + 2 * t + e
-                            assert np.isnan(keys[row, col]), "a keys cell written twice"
-                            keys[row, col] = acc[m, p, lane, 2 * h + e]
-    np.testing.assert_array_equal(keys, q @ x.T)
-
-
-@pytest.mark.parametrize("which", ["a", "b"])
-def test_ldmatrix_phases_are_conflict_free(which):
-    """Each 8-lane phase of an ldmatrix reads eight 16-byte rows; with the
-    row stride FSK * 4 = 272 bytes (16 mod 128) they fall on eight distinct
-    16-byte groups of the 32 banks, for every warp, tile and k step."""
-    for w in range(4):
-        for sub in range(2):
-            for kk in range(0, FDK, 8):
-                rows = a_rows(w, sub, NR) if which == "a" else b_rows(w, sub)
-                for phase in range(4):
-                    groups = {((rows[8 * phase + r] + kk) * 4 // 16) % 8 for r in range(8)}
-                    assert len(groups) == 8
+                            word = (8 * j + 2 * t + e) * KS + row + 8 * h
+                            assert len({int(w) % 32 for w in word}) == 32
 
 
 def insert_one_at_a_time(lk, lp, keys, r0, k):

@@ -168,6 +168,75 @@ def test_launch_plan_fills_one_wave(shape, b):
         assert (plan["q_tiles"], plan["splits"]) == want
 
 
+# The f32 mode's plan at 1M rows, k 20, on 132 SMs (one block per SM, at
+# most 128 queries a block, 128-row tiles, 128 splits): (query tiles, query
+# tile, splits).
+F32_PLANS = {1: (1, 8, 128), 7: (1, 8, 128), 8: (1, 8, 128), 9: (1, 16, 128),
+             64: (1, 64, 128), 128: (1, 128, 128), 129: (2, 72, 66), 1024: (8, 128, 16)}
+
+
+@pytest.mark.parametrize("b", list(F32_PLANS))
+def test_launch_plan_picks_the_f32_query_tile(b):
+    """The f32 mode's query tile (wgmma's N) follows B: the smallest multiple
+    of 8 that holds the batch's share of ceil(B / 128) tiles, so B = 1 runs
+    8 queries and B <= 128 one tile (one read of the store), with the splits
+    and the partial lists sized as for any mode, and the staged queries
+    sized for whole tiles and 32-column stages. Each launch is counted once,
+    under its query tile; the plain version (CPU tensors) launches nothing."""
+    n, k = 1 << 20, 20
+    plan = topk_cuda.launch_plan(b, n, k, 132, 1, 128, 128, 128, q_step=topk_cuda.F32_Q_STEP)
+    q_tiles, q_tile, splits = F32_PLANS[b]
+    assert (plan["q_tiles"], plan["q_tile"], plan["splits"]) == (q_tiles, q_tile, splits)
+    assert plan["part"] == (splits, b, k)
+    assert q_tile % 8 == 0 and q_tiles * q_tile >= b > q_tiles * (q_tile - 8)
+    assert topk_cuda.f32_stage_floats(b, 768, q_tile) == q_tiles * 48 * 2 * q_tile * 16
+    assert topk_cuda.f32_stage_floats(b, 100, q_tile) == q_tiles * 8 * 2 * q_tile * 16   # 4 stages
+    fn = topk_cuda.fused_l2_topk
+    saved = (fn.launches, dict(fn.launches_by_mode), dict(fn.launches_by_qtile))
+    try:
+        topk_cuda._count_launch("float32", q_tile)
+        assert fn.launches == saved[0] + 1
+        assert fn.launches_by_mode == dict(saved[1], float32=saved[1]["float32"] + 1)
+        assert {t: fn.launches_by_qtile[t] - saved[2][t] for t in saved[2]} == {
+            t: int(t == q_tile) for t in saved[2]}
+        topk_cuda._count_launch("bfloat16", 64)
+        assert fn.launches_by_qtile[q_tile] == saved[2][q_tile] + 1
+        rng = np.random.default_rng(b)
+        db = torch.from_numpy(rng.standard_normal((300, 16)).astype(np.float32))
+        q_st = torch.from_numpy(rng.standard_normal((b, 16)).astype(np.float32))
+        before = (fn.launches, dict(fn.launches_by_mode), dict(fn.launches_by_qtile))
+        got = fn(q_st, db, (db * db).sum(1), 5)
+        assert (fn.launches, fn.launches_by_mode, fn.launches_by_qtile) == before
+        want = topk_cuda.select_plain(q_st, db, (db * db).sum(1), 5)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        fn.launches, fn.launches_by_mode, fn.launches_by_qtile = saved
+
+
+@pytest.mark.parametrize("name, const", [("FW_DK", "F32_BOX_COLS"), ("FW_BOXES", None),
+                                         ("FW_QMAX", None)])
+def test_f32_staging_constants_match_the_source(name, const):
+    """The f32 mode's staging layout has one source of truth per side: the
+    kernel's FW_DK (columns a box) and FW_BOXES (boxes a ring stage) and the
+    wrapper's F32_BOX_COLS and F32_STAGE_COLS, which size the scratch and lay
+    out stage_f32_plain, must agree; the query tiles the wrapper counts run
+    to the kernel's FW_QMAX."""
+    import re
+    from pathlib import Path
+
+    src = (Path(topk_cuda.__file__).resolve().parent.parent / "csrc" / "fused_l2_topk.cu").read_text()
+    got = re.search(rf"^constexpr int {name} = (\d+);", src, re.M)
+    assert got, f"{name} not found in the source"
+    val = int(got.group(1))
+    if name == "FW_DK":
+        assert val == topk_cuda.F32_BOX_COLS
+    elif name == "FW_BOXES":
+        assert val * topk_cuda.F32_BOX_COLS == topk_cuda.F32_STAGE_COLS
+    else:
+        assert max(topk_cuda.fused_l2_topk.launches_by_qtile) == val
+        assert min(topk_cuda.fused_l2_topk.launches_by_qtile) == topk_cuda.F32_Q_STEP
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_stable_topk_matches_lexsort_oracle(seed):
     rng = np.random.default_rng(seed)

@@ -7,21 +7,25 @@
 
 Builds csrc/fused_l2_topk.cu as it ships and in diagnostic variants (the
 FL2_* preprocessor switches of its source note), then times the four
-tensor-core modes: the f32 store (3xTF32), the bf16 store, the int8 codes
-with bf16 queries, and int8 queries on the int8 codes (s8 products), on
-1,048,576 x 384 seeded Gaussian stores at
-B = 128 and 1024, and the f32 store at MemoDB's 131,072 rows at B = 128
-(CUDA-event means, k = 20; `--modes f32` keeps the f32 cases only):
+tensor-core modes: the f32 store (3xTF32 on wgmma), the bf16 store, the
+int8 codes with bf16 queries, and int8 queries on the int8 codes (s8
+products), on 1,048,576 x 384 seeded Gaussian stores at B = 128 and 1024,
+the f32 store also at MemoDB's 131,072 rows at B = 128 and at the
+benchmark's 1,000,000 x 768 at B = 128 and 1 (CUDA-event means, k = 20;
+`--modes f32` keeps the f32 cases only):
   - shipped:    the kernel as built by ops/cuda_build.py;
-  - no_select:  the products and keys, without the warp selection;
+  - no_select:  the products and keys, without the selection;
   - no_mma:     the ring and the selection, without the products;
-  - ring_only:  the cp.async ring alone (loads, splits, decode, keys tile);
+  - ring_only:  the ring alone (loads, splits, decode, keys tile);
   - stages4, dk128_stages2: other ring shapes of modes 1-3 (FL2_DK 128:
-    128 bf16 and 256 int8 columns a chunk; f32 keeps its own chunks);
+    128 bf16 and 256 int8 columns a chunk);
   - profile:    the shipped kernel whose f32 warps count their clock cycles
-    by phase (FL2_PROFILE): each f32 case prints each phase's share of the
-    warps' cycles (wait and barrier at a ring step, issuing copies, the
-    products, the keys tile and its barrier, the selection).
+    by role and phase (FL2_PROFILE, counters in shared memory): each f32
+    case prints the producer warp's split between waiting for a free stage
+    and issuing its copies, the consumer warps' split between waiting for a
+    full stage, loading and splitting the store, issuing wgmma groups,
+    waiting for groups, folding (and handing stages back), the keys tile
+    with its barriers, and the selection.
 The variants that compute the contract (all but the FL2_NO_* cuts) are
 first held against the plain version in every case (chip_smoke.check_selection;
 bit-equal for int8 queries). At MemoDB's shape (f32, 131,072 rows, B = 128)
@@ -63,8 +67,10 @@ VARIANTS = {
     "dk128_stages2": ("FL2_DK=128", "FL2_STAGES=2"),
     "profile": ("FL2_PROFILE=1",),
 }
-PHASES = ("wait", "issue", "products", "keys", "select")
-MEMODB_CASE = "f32 N=131072 B=128"
+# FL2_PROFILE's phases: the producer's two, then the consumers' seven.
+PRODUCER_PHASES = ("free_wait", "copy_issue")
+CONSUMER_PHASES = ("full_wait", "split", "wgmma_issue", "wgmma_wait", "fold", "keys", "select")
+MEMODB_CASE = "f32 N=131072 D=384 B=128"
 
 
 def device_ms(fn, iters):
@@ -128,23 +134,24 @@ def main() -> int:
             lambda defs: cuda_build.build("fused_l2_topk", defs)[0], variants.values())))
 
     device = torch.device("cuda", 0)
-    stores = [("float32", 131_072, (128,)), ("float32", 1 << 20, (128, 1024))]
+    stores = [("float32", 131_072, 384, (128,)), ("float32", 1 << 20, 384, (128, 1024)),
+              ("float32", 1_000_000, 768, (128, 1))]
     if args.modes == "all":
-        stores += [("bfloat16", 1 << 20, (128, 1024)), ("int8", 1 << 20, (128, 1024))]
+        stores += [("bfloat16", 1 << 20, 384, (128, 1024)), ("int8", 1 << 20, 384, (128, 1024))]
     cases = []
-    for dt, n, batches in stores:
-        made = cs.make_store(n, 384, dt, device, args.seed)
+    for dt, n, d, batches in stores:
+        made = cs.make_store(n, d, dt, device, args.seed)
         g = torch.Generator(device=device).manual_seed(args.seed + 1)
         for b in batches:
-            q = torch.randn((b, 384), generator=g, device=device)
+            q = torch.randn((b, d), generator=g, device=device)
             if dt == "int8":
                 q = q * made[2]
             q_st, _ = topk_cuda.stage_queries(q, made[0].dtype, q_int8=False)
             label = {"float32": "f32", "bfloat16": "bf16", "int8": "int8_bf16q"}[dt]
-            cases.append((f"{label} N={n} B={b}", q_st, made[0], made[1], None))
+            cases.append((f"{label} N={n} D={d} B={b}", q_st, made[0], made[1], None))
             if dt == "int8":
                 q8, rs = topk_cuda.stage_queries(q, made[0].dtype)
-                cases.append((f"int8 N={n} B={b}", q8, made[0], made[1], rs))
+                cases.append((f"int8 N={n} D={d} B={b}", q8, made[0], made[1], rs))
 
     shipped_build = cuda_build.build
     for name, defines in variants.items():
@@ -173,16 +180,20 @@ def main() -> int:
                 ms = cs.time_ms(call, 20 if q_st.shape[0] <= 128 else 5)
             parts.append(f"{label} {ms:.4f} ms")
             if "FL2_PROFILE=1" in defines and label.startswith("f32"):
-                cycles = (ctypes.c_uint64 * len(PHASES))()
+                phases = PRODUCER_PHASES + CONSUMER_PHASES
+                cycles = (ctypes.c_uint64 * len(phases))()
                 prof = ctypes.CDLL(str(paths[name])).fused_l2_topk_profile
                 torch.cuda.synchronize()
                 prof(cycles)                       # clear what earlier cases left
                 cs.time_ms(call, 5)
                 torch.cuda.synchronize()
                 assert prof(cycles) == 0
-                total = sum(cycles) or 1
-                parts.append("(" + " ".join(f"{ph} {100 * c / total:.1f}%"
-                                            for ph, c in zip(PHASES, cycles)) + ")")
+                np_ = len(PRODUCER_PHASES)
+                for role, names, got in (("producer", PRODUCER_PHASES, cycles[:np_]),
+                                         ("consumers", CONSUMER_PHASES, cycles[np_:])):
+                    total = sum(got) or 1
+                    parts.append(f"({role}: " + " ".join(
+                        f"{ph} {100 * c / total:.1f}%" for ph, c in zip(names, got)) + ")")
             if label == MEMODB_CASE:
                 dev = device_ms(call, 20)
                 if dev is None:
