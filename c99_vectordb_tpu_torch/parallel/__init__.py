@@ -1,4 +1,5 @@
 from .mesh import default_data_mesh, make_host_chip_mesh, make_mesh  # noqa: F401
+from .serve import ShardServer  # noqa: F401
 from .sharded import (  # noqa: F401
     ShardedFlatIndex,
     ShardedIVFIndex,

@@ -37,6 +37,19 @@ psum:
     only: the refine stays in the original space.
   - k-means (data parallel): `sharded_kmeans_step`, one Lloyd iteration
     whose per-list sums and counts are summed over `data`.
+  - per-rank ingest (ShardedFlatIndex.add_local): each rank streams only
+    its own rows into its shard, allocated once; the global count comes
+    from the ranks' counts. parallel/serve.py serves such an index from one
+    caller on rank 0.
+
+Spans (utils/timing.span, off by default): `sharded.scan` (the shard's
+scan), `sharded.rerank` (its exact rerank), `sharded.merge` (the
+cross-rank merge), `sharded.fetch` (the copy of the merged result to the
+host), `sharded.ingest` (all of add_local) and `sharded.stage` (each fill
+of a staged shard). COUNTERS, always on and process-wide (as
+ops/topk_cuda.fused_l2_topk.launches): `staged_live_rows`, the live rows
+each staging put on this rank, summed; `merge_candidates`, the (distance,
+id) candidates the merges gathered from every shard.
 
 A rank's results are replicated after the merge. On the CPU each kernel
 wrapper takes its plain version; the exact routes (matmul + top-k, the IVF
@@ -70,11 +83,14 @@ from ..ops.kmeans import assign_clusters, assign_clusters_multi, train_kmeans, \
 from ..ops.rerank import exact_rerank_rows, shortlist_depth
 from ..ops.topk import merge_topk, stable_topk
 from ..ops.topk_cuda import fused_topk
+from ..utils.timing import span
 from .mesh import Mesh, all_gather_axes, all_gather_axis, all_reduce_axes, \
     all_reduce_axis, default_data_mesh
 
 # The kernel keeps shortlists up to this deep (csrc/fused_l2_topk.cu).
 KERNEL_MAX_K = 1024
+
+COUNTERS = {"staged_live_rows": 0, "merge_candidates": 0}
 
 
 def corpus_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -146,8 +162,10 @@ def _merge_axes(local_d, local_i, k: int, mesh: Mesh, axes: tuple[str, ...]):
     """The merge over `axes`, innermost first: on a ("host", "chip") mesh
     only k candidates per host cross the outer axis."""
     d, i = local_d, local_i
-    for axis in reversed(axes):
-        d, i = _merge_gathered(d, i, k, mesh, axis)
+    with span("sharded.merge"):
+        for axis in reversed(axes):
+            COUNTERS["merge_candidates"] += mesh.shape[axis] * d.shape[0] * d.shape[1]
+            d, i = _merge_gathered(d, i, k, mesh, axis)
     return d, i
 
 
@@ -194,12 +212,13 @@ def sharded_search_program(mesh: Mesh, db, ids, sq_norms, queries, k: int,
     sq_norms (n_local,) are this rank's rows (+inf norms on padding and
     masked rows); queries (B, D) are the same on every rank. Returns the
     replicated (dists (B, k), ids (B, k) int32)."""
-    queries = queries.to(torch.float32)
-    q_sq = (queries * queries).sum(dim=1, keepdim=True)
-    ip = queries @ db.T
-    d = torch.clamp_min(q_sq + sq_norms[None, :] - 2.0 * ip, 0.0)
-    d = torch.where(torch.isinf(sq_norms)[None, :] | (ids < 0)[None, :], torch.inf, d)
-    local_d, local_i = _local_topk(d, ids[None, :].expand(d.shape), k)
+    with span("sharded.scan"):
+        queries = queries.to(torch.float32)
+        q_sq = (queries * queries).sum(dim=1, keepdim=True)
+        ip = queries @ db.T
+        d = torch.clamp_min(q_sq + sq_norms[None, :] - 2.0 * ip, 0.0)
+        d = torch.where(torch.isinf(sq_norms)[None, :] | (ids < 0)[None, :], torch.inf, d)
+        local_d, local_i = _local_topk(d, ids[None, :].expand(d.shape), k)
     return _merge_axes(local_d, local_i, k, mesh, axes)
 
 
@@ -212,10 +231,12 @@ def sharded_search_kernels(mesh: Mesh, db, ids, sq_norms, queries, k: int, ks: i
     then the merge. keep: the (cap,) bool table of a filter, whose masked
     shortlist ids are scrubbed before the rerank. The shard needs >= 1
     row and +inf norms on padding rows (the kernel's mask)."""
-    _, si, rows = fused_topk(db, ids, sq_norms, queries, ks, return_rows=True)
-    if keep is not None:
-        si = _scrub_ids(si, keep)
-    local_d, local_i = exact_rerank_rows(db, rows, si, queries, k)
+    with span("sharded.scan"):
+        _, si, rows = fused_topk(db, ids, sq_norms, queries, ks, return_rows=True)
+        if keep is not None:
+            si = _scrub_ids(si, keep)
+    with span("sharded.rerank"):
+        local_d, local_i = exact_rerank_rows(db, rows, si, queries, k)
     return _merge_axes(local_d, local_i, k, mesh, axes)
 
 
@@ -226,10 +247,12 @@ def sharded_search_sq8_kernels(mesh: Mesh, codes, db, ids, dec_norms, scale, que
     codes with queries x the global per-dimension scale (the kernel's
     int8 x int8 mode; queries are row-quantised inside fused_topk), then
     reranks its shortlist exactly from its f32 rows."""
-    _, si, rows = fused_topk(codes, ids, dec_norms, queries * scale, ks, return_rows=True)
-    if keep is not None:
-        si = _scrub_ids(si, keep)
-    local_d, local_i = exact_rerank_rows(db, rows, si, queries, k)
+    with span("sharded.scan"):
+        _, si, rows = fused_topk(codes, ids, dec_norms, queries * scale, ks, return_rows=True)
+        if keep is not None:
+            si = _scrub_ids(si, keep)
+    with span("sharded.rerank"):
+        local_d, local_i = exact_rerank_rows(db, rows, si, queries, k)
     return _merge_axes(local_d, local_i, k, mesh, axes)
 
 
@@ -578,7 +601,8 @@ class ShardedFlatIndex(_ShardedBase):
     scan_dtype="int8" scans SQ8 codes (a quarter of the f32 bytes), still
     exact through the rerank. Adds after staging park in a GrowTail;
     search(id_mask=...) pushes a filter into the scan through masked norm
-    copies staged once per mask object.
+    copies staged once per mask object. add_local ingests each rank's own
+    rows into its shard without a whole-corpus copy anywhere.
     """
 
     kind = "sharded_flat"
@@ -597,6 +621,81 @@ class ShardedFlatIndex(_ShardedBase):
         """Bulk (re)load: reset, then add."""
         self._reset_rows()
         self.add(vectors, ids)
+
+    def add_local(self, chunks, rows: int) -> None:
+        """Per-rank ingest, called once by every rank of the mesh on an empty
+        index: this rank's own `rows` rows arrive as an iterable of
+        (vectors (m, D), ids (m,)) chunks, tensors on any device or arrays,
+        and are copied straight into this rank's shard, which is allocated
+        once (every shard as long as the longest rank's rows, aligned as
+        _stage aligns, zero rows with id -1 and +inf norms after the live
+        ones). Norms and ids are filled chunk by chunk, so no rank holds
+        another rank's rows and no process a host copy of the corpus. The
+        layout is _stage's: ids ascend strictly on each rank, every id of a
+        rank lies below the next non-empty rank's, each in [0, 2**31 - 1).
+        Afterwards ntotal is the sum over the ranks and the index is staged
+        (device mode: later adds park in the tail). Raises ValueError on
+        every rank when any rank's chunks break the layout or do not hold
+        its `rows` rows."""
+        if self.ntotal:
+            raise ValueError("add_local needs an empty index")
+        mesh, axes, dev = self._mesh, self._axes, self.device
+        with span("sharded.ingest"):
+            claims = all_gather_axes(torch.tensor([int(rows)], dtype=torch.int64, device=dev),
+                                     mesh, axes).tolist()
+            per = -(-max(max(claims), 1) // self._tile_rows) * self._tile_rows
+            db = torch.empty((per, self.dim), dtype=torch.float32, device=dev)
+            idp = torch.full((per,), -1, dtype=torch.int32, device=dev)
+            sq = torch.full((per,), torch.inf, dtype=torch.float32, device=dev)
+            ok = torch.ones((), dtype=torch.bool, device=dev)
+            seen = filled = 0
+            for vectors, ids in chunks:
+                v = torch.as_tensor(vectors)
+                i64 = torch.as_tensor(ids).to(dev, torch.int64).reshape(-1)
+                m = int(i64.shape[0])
+                if v.shape != (m, self.dim) or seen + m > rows:
+                    ok &= False
+                    seen += m
+                    continue
+                if m == 0:
+                    continue
+                with span("sharded.stage"):
+                    s, e = filled, filled + m
+                    db[s:e].copy_(v)
+                    idp[s:e] = i64.to(torch.int32)
+                    sq[s:e] = (db[s:e] * db[s:e]).sum(dim=1)
+                    ok &= ((i64 >= 0) & (i64 < INT32_MAX)).all()
+                    ok &= (i64[1:] > i64[:-1]).all()
+                    if s:
+                        ok &= i64[0] > idp[s - 1]
+                seen, filled = seen + m, filled + m
+            # Padding rows are zeros, as _stage pads (SQ8's maxabs reads them).
+            db[filled:].zero_()
+            edge = idp[[0, max(filled - 1, 0)]].to(torch.int64)
+            info = torch.cat([torch.tensor([seen], dtype=torch.int64, device=dev),
+                              ok.to(torch.int64)[None], edge])
+            table = all_gather_axes(info[None], mesh, axes).tolist()
+            errors = []
+            for r, (got, fine, _, _) in enumerate(table):
+                if got != claims[r]:
+                    errors.append(f"rank {r}'s chunks held {got} rows, not {claims[r]}")
+                elif not fine:
+                    errors.append(f"rank {r}'s chunks are not (m, {self.dim}) rows with m "
+                                  f"strictly ascending ids in [0, 2**31 - 1)")
+            live = [(r, first, last) for r, (got, _, first, last) in enumerate(table) if got]
+            for (r, _, last), (q, first, _) in zip(live, live[1:]):
+                if last >= first:
+                    errors.append(f"rank {r}'s last id {last} is not below rank {q}'s first "
+                                  f"id {first}")
+            if errors:
+                raise ValueError("add_local: " + "; ".join(errors))
+            staged = (db, idp, sq)
+            if self.scan_dtype == "int8":
+                staged += _flat_sq8_stage(mesh, axes, db, sq)
+            self._mode = "device"
+            self._n_dev = sum(claims)
+            self._staged = staged
+            COUNTERS["staged_live_rows"] += filled
 
     def _rows_all(self):
         """Device mode: every stored row as (vecs, ids) on this rank's
@@ -621,13 +720,17 @@ class ShardedFlatIndex(_ShardedBase):
         cat = lambda ps: ps[0] if len(ps) == 1 else torch.cat(ps)  # noqa: E731
         return cat(parts_v), cat(parts_i)
 
+    @property
+    def _tile_rows(self) -> int:
+        """A shard's alignment for the kernel: 1024 rows for f32, 2048 for
+        int8 (memory cost < 1 tile a shard)."""
+        return 2048 if self.scan_dtype == "int8" else 1024
+
     def _aligned_cap(self, n: int) -> int:
-        """Rows of the staged store: each shard tile-aligned for the kernel,
-        1024 rows for f32 and 2048 for int8 (memory cost < 1 tile a shard)."""
+        """Rows of the staged store: each shard tile-aligned."""
         shards = self._shards
         per = -(-max(n, 1) // shards)
-        align = 2048 if self.scan_dtype == "int8" else 1024
-        return -(-per // align) * align * shards
+        return -(-per // self._tile_rows) * self._tile_rows * shards
 
     def _stage(self):
         """This rank's shard of the padded store: (db (per, D) f32, ids
@@ -635,36 +738,38 @@ class ShardedFlatIndex(_ShardedBase):
         plus (codes, decoded norms, scale) for int8."""
         if self._staged is not None and not self._restage_needed:
             return self._staged
-        n = self.ntotal
-        cap = self._aligned_cap(n)
-        per = cap // self._shards
-        lo = shard_index(self._mesh, self._axes) * per
-        hi = min(max(n - lo, 0), per) + lo
-        if self._mode == "device":
-            vecs, idsa = self._rows_all()
-            # Free the source chunks and the old staged shard before the
-            # new one allocates.
-            self._dev_vecs.clear()
-            self._dev_ids.clear()
-            self._staged = None
-            rows, row_ids = vecs[lo:hi], idsa[lo:hi]
-            del vecs, idsa
-        else:
-            rows = torch.from_numpy(self._vectors[lo:hi])
-            row_ids = torch.from_numpy(self._ids[lo:hi].astype(np.int32))
-        db = torch.zeros((per, self.dim), dtype=torch.float32, device=self.device)
-        db[: hi - lo] = rows.to(self.device)
-        idp = torch.full((per,), -1, dtype=torch.int32, device=self.device)
-        idp[: hi - lo] = row_ids.to(self.device)
-        # +inf norms on padding rows ARE the kernel's mask.
-        sq = torch.where(idp >= 0, (db * db).sum(dim=1), torch.inf)
-        staged = (db, idp, sq)
-        if self.scan_dtype == "int8":
-            staged += _flat_sq8_stage(self._mesh, self._axes, db, sq)
-        self._staged = staged
-        self._tail = None
-        self._restage_needed = False
-        self._mask_cache.clear()
+        with span("sharded.stage"):
+            n = self.ntotal
+            cap = self._aligned_cap(n)
+            per = cap // self._shards
+            lo = shard_index(self._mesh, self._axes) * per
+            hi = min(max(n - lo, 0), per) + lo
+            if self._mode == "device":
+                vecs, idsa = self._rows_all()
+                # Free the source chunks and the old staged shard before the
+                # new one allocates.
+                self._dev_vecs.clear()
+                self._dev_ids.clear()
+                self._staged = None
+                rows, row_ids = vecs[lo:hi], idsa[lo:hi]
+                del vecs, idsa
+            else:
+                rows = torch.from_numpy(self._vectors[lo:hi])
+                row_ids = torch.from_numpy(self._ids[lo:hi].astype(np.int32))
+            db = torch.zeros((per, self.dim), dtype=torch.float32, device=self.device)
+            db[: hi - lo] = rows.to(self.device)
+            idp = torch.full((per,), -1, dtype=torch.int32, device=self.device)
+            idp[: hi - lo] = row_ids.to(self.device)
+            # +inf norms on padding rows ARE the kernel's mask.
+            sq = torch.where(idp >= 0, (db * db).sum(dim=1), torch.inf)
+            staged = (db, idp, sq)
+            if self.scan_dtype == "int8":
+                staged += _flat_sq8_stage(self._mesh, self._axes, db, sq)
+            self._staged = staged
+            self._tail = None
+            self._restage_needed = False
+            self._mask_cache.clear()
+            COUNTERS["staged_live_rows"] += hi - lo
         return self._staged
 
     def _apply_removal_staged(self, table) -> int:
@@ -696,15 +801,26 @@ class ShardedFlatIndex(_ShardedBase):
         to reuse the staged masked operands."""
         return self._search(queries, k, id_mask, kernel_route=None)
 
+    def search_device(self, queries, k: int, *, id_mask=None):
+        """search() with the merged (dists (B, k) f32, ids (B, k) int32)
+        left on this rank's device (no copy to the host)."""
+        return self._search_device(queries, k, id_mask, kernel_route=None)
+
     def _search(self, queries, k: int, id_mask, kernel_route: bool | None):
         """search() with the route explicit: kernel_route=True is the flat
         kernel + per-shard rerank (the kernel's plain version on CPU
         tensors), False the exact route, None the card's choice (the
         kernel while the shortlist fits it, on a CUDA device)."""
+        d, i = self._search_device(queries, k, id_mask, kernel_route)
+        with span("sharded.fetch"):
+            return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+
+    def _search_device(self, queries, k: int, id_mask, kernel_route: bool | None):
         q = query_rows(queries, self.dim, self.device)
         if self.ntotal == 0:
             shape = (q.shape[0], k)
-            return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
+            return (torch.full(shape, torch.inf, dtype=torch.float32, device=self.device),
+                    torch.full(shape, -1, dtype=torch.int32, device=self.device))
         staged = self._stage()
         db, idp, sq = staged[:3]
         keep = masked_dec = None
@@ -733,7 +849,7 @@ class ShardedFlatIndex(_ShardedBase):
             if keep is not None:
                 td = torch.where(_keep_of(tail_ids, keep)[None, :], td, torch.inf)
             d, i = merge_tail(d, i, td, tail_ids, k)
-        return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+        return d, i
 
     def scan_bytes_per_row(self) -> int:
         """Bytes each rank's scan reads per row (4 * dim f32, dim int8)."""

@@ -3,7 +3,7 @@
 
     python3 tools/flat_mma_breakdown.py [--seed 1234] [--k 20] [--modes all|f32]
                                         [--variants shipped,no_select,...] [--yardstick]
-                                        [--save DIR | --compare DIR]
+                                        [--save DIR | --compare DIR] [--store N,D,B[,B...]]
 
 Builds csrc/fused_l2_topk.cu as it ships and in diagnostic variants (the
 FL2_* preprocessor switches of its source note), then times the four
@@ -12,7 +12,10 @@ int8 codes with bf16 queries, and int8 queries on the int8 codes (s8
 products), on 1,048,576 x 384 seeded Gaussian stores at B = 128 and 1024,
 the f32 store also at MemoDB's 131,072 rows at B = 128 and at the
 benchmark's 1,000,000 x 768 at B = 128 and 1 (CUDA-event means, k = 20;
-`--modes f32` keeps the f32 cases only):
+`--modes f32` keeps the f32 cases only; each `--store` adds an f32 store
+of N rows of width D at its batches, such as 10,000,000 x 96 at B = 128
+for the sharded DEEP-1B cell's rank shape cut to a size the plain check
+holds):
   - shipped:    the kernel as built by ops/cuda_build.py;
   - no_select:  the products and keys, without the selection;
   - no_mma:     the ring and the selection, without the products;
@@ -117,6 +120,8 @@ def main() -> int:
     ap.add_argument("--yardstick", action="store_true")
     ap.add_argument("--save", type=Path)
     ap.add_argument("--compare", type=Path)
+    ap.add_argument("--store", action="append", default=[],
+                    type=lambda t: [int(v) for v in t.split(",")])
     args = ap.parse_args()
     variants = {name: VARIANTS[name] for name in args.variants.split(",")}
 
@@ -136,6 +141,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     stores = [("float32", 131_072, 384, (128,)), ("float32", 1 << 20, 384, (128, 1024)),
               ("float32", 1_000_000, 768, (128, 1))]
+    stores += [("float32", n, d, tuple(batches)) for n, d, *batches in args.store]
     if args.modes == "all":
         stores += [("bfloat16", 1 << 20, 384, (128, 1024)), ("int8", 1 << 20, 384, (128, 1024))]
     cases = []
