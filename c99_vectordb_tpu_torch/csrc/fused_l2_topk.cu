@@ -27,8 +27,10 @@
 // streams its split's rows in row tiles, forms the keys tile in shared
 // memory, and then each warp merges its queries' tile keys into sorted
 // per-query lists (a ballot against the list's last key, then the
-// admitted candidates in position order). Lists live in shared memory when
-// they fit (k <= SMEM_LIST_MAX) and in the partial-output buffer otherwise.
+// admitted candidates in position order; mode 0 screens the keys against
+// the lists' last keys in registers first, below). Lists live in shared
+// memory when they fit (k <= SMEM_LIST_MAX) and in the partial-output
+// buffer otherwise.
 // The query tile is the fastest grid axis, so the blocks that share a split
 // run together and read the store through L2 once. Pass 2
 // (merge_splits_kernel): one warp per query merges the per-split sorted
@@ -111,20 +113,50 @@
 //     accumulators alternate (NQ <= 64: one per k step; above, queries 0-63
 //     and the rest, two groups a k step), so that a fold waits only for an
 //     older group (wgmma.wait_group 1) while a newer one runs, and the
-//     tensor cores hold work through the folds. The keys (norm + sum, +inf
-//     past the split) of a tile go to a keys tile in shared memory (stride
-//     132: conflict-free writes from the accumulators), and each consumer
-//     warp selects its queries' keys of that tile while the next tile's
-//     first groups run. The selection takes a warp's queries four at a
-//     time: their ballots together, then their lists (k <= 32) in
-//     registers, one entry a lane, one candidate of each of the four a round
-//     with no branch, so four chains of dependent shuffles overlap, and
-//     every 4 rounds the candidates left are held against the lists' last
-//     keys again (a list's first tile admits all 128 keys); deeper lists
-//     take warp_insert. A store whose rows are not 16-byte aligned (D % 4 !=
-//     0 or an unaligned base) takes a plain copy by the producer warp
-//     instead of TMA. tests/test_torch_f32_tiles.py emulates the fragments,
-//     the descriptors, the keys tile and the selection.
+//     tensor cores hold work through the folds. A finished tile's keys
+//     (norm + sum, +inf past the split) are screened where they are, in the
+//     accumulator registers, once its last groups are folded: a key is a
+//     candidate only when it is below its query's threshold, one float a
+//     query in shared memory: the last key of the query's list (+inf until
+//     the list is full, -inf past B), lowered to the successor of the
+//     query's cut when that is below. The cut is the least last key that
+//     any split's list of the query has published (an atomicMin on an
+//     ordered int, B of them after the staged queries, set to +inf by the
+//     staging kernel), read from L2 once a tile: a key above another
+//     split's k-th key has k keys below it and cannot be in the result, and
+//     one equal to it may still win on position, hence the successor. So a
+//     split's list may leave out keys that no output keeps; the outputs are
+//     those of a selection that holds every key against its list. A
+//     threshold may also be stale (a selection of the tile before still
+//     running): a list's last key and the cut only fall, so a stale
+//     threshold passes a superset, and the selection holds every candidate
+//     against the list itself. One barrier (bar.red.popc) with the selectors
+//     waits for every selection of the tile before and counts the consumer
+//     lanes that hold a candidate; with none, the tile ends there: no keys
+//     are written and nothing is selected (a query admits about k / t keys
+//     of its t-th tile). Otherwise each warp with a candidate screens again
+//     against the current thresholds and writes its survivors' keys into
+//     their slots of a keys tile in shared memory (stride 132:
+//     conflict-free writes from the accumulators) and, for each query, a
+//     16-bit mask of its 16 rows that survived (the warp's own slot of the
+//     query's eight, so no atomics). A tile with few candidate lanes (at
+//     most FW_SEL_LANES a ring stage of the tile, k <= 32) goes to the
+//     selectors, the producer warpgroup's three other warps, which select
+//     it while the consumers run the next tile's products; the consumers
+//     select a busier tile themselves during the next tile's first k step.
+//     The selection reads a query's eight masks as one uint4 (an empty one
+//     costs that read) and takes the candidates by position: a warp takes
+//     its queries G at a time (the consumers four, the selectors, on the
+//     producer warpgroup's 40 registers, one), their lists (k <= 32) in
+//     registers, one entry a lane, one candidate of each a round with no
+//     branch, so G chains of dependent shuffles overlap, and every 4 rounds
+//     the candidates left are held against the lists' last keys again (a
+//     list's first tile admits all 128 keys); deeper lists take
+//     warp_insert. A store whose rows are not 16-byte aligned (D % 4 != 0
+//     or an unaligned base) takes a plain copy by the producer warp instead
+//     of TMA. tests/test_torch_f32_tiles.py emulates the fragments, the
+//     descriptors, the keys tile, the screen, the masks, the selection and
+//     the cut across splits.
 //
 // Bound on the NVIDIA H100 80GB HBM3 (the SXM part; published at 700 W:
 // 3.35 TB/s; tensor cores 495 TFLOP/s TF32, 989 TFLOP/s bf16, 1,979 TOP/s
@@ -662,13 +694,16 @@ scan_topk_mma_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
 // them): the producer's waits for a free stage and its issue of the copies;
 // each consumer warp's waits for a full stage, its loads and splits of the
 // store, its wgmma issue, its waits on the products, its folds and stage
-// releases, the keys tile with its two barriers, and the selection.
+// releases, the screen with the keys tile and its barriers, and the
+// selection; then two counts, the keys the screen compared (rows before
+// the split's end, queries before B) and the keys it passed.
 #ifndef FL2_PROFILE
 #define FL2_PROFILE 0
 #endif
 #if FL2_PROFILE
 constexpr int FL2_PHASES = 9;
-__device__ unsigned long long fl2_prof[FL2_PHASES];
+constexpr int FL2_SLOTS = FL2_PHASES + 2;        // the phases, keys screened, keys passed
+__device__ unsigned long long fl2_prof[FL2_SLOTS];
 // Lane 0 of each warp adds the cycles since its last mark to its warp's
 // counter of phase i, in shared memory. The marks still cost registers: at
 // query tiles near 128 this build spills and ptxas serializes its wgmmas,
@@ -677,7 +712,7 @@ __device__ unsigned long long fl2_prof[FL2_PHASES];
     do {                                                              \
         if (lane == 0) {                                              \
             const unsigned now_ = (unsigned)clock();                  \
-            prof_s_[warp * FL2_PHASES + (i)] += now_ - prof_t_;       \
+            prof_s_[warp * FL2_SLOTS + (i)] += now_ - prof_t_;        \
             prof_t_ = now_;                                           \
         }                                                             \
     } while (0)
@@ -692,7 +727,9 @@ __device__ unsigned long long fl2_prof[FL2_PHASES];
 // multiple of 8 up to FW_QMAX); ring stages of FW_SC f32 columns: FW_BOXES
 // store boxes [FW_R][FW_DK] as TMA lands them (64-byte rows), then for each
 // box the queries' hi and lo parts as wgmma's K-major B operands; the keys
-// tile [NQ][FW_KS] for the selection.
+// tile [NQ][FW_KS] for the selection, with each query's survivor masks
+// [NQ][FW_CONSUMER_WARPS] (16 bits a warp: its 16 rows of the tile) and
+// threshold [NQ].
 constexpr int FW_R = 128;
 constexpr int FW_DK = 16;                        // f32 columns a box: two k steps
 constexpr int FW_BOXES = 2;                      // boxes a stage
@@ -701,6 +738,17 @@ constexpr int FW_QMAX = 128;
 constexpr int FW_KS = FW_R + 4;                  // conflict-free writes from the accumulators
 constexpr int FW_THREADS = 384;                  // producer warpgroup + two consumer warpgroups
 constexpr int FW_CONSUMER_WARPS = 8;
+constexpr int FW_SELECTORS = 3;                  // the producer warpgroup's other warps
+constexpr int FW_SCREEN_THREADS = 32 * (FW_CONSUMER_WARPS + FW_SELECTORS);
+// Named barriers (0 is __syncthreads): each tile's screen, consumers and
+// selectors (FW_BAR_TILE); its survivors written, for the selectors
+// (FW_BAR_KEYS) or for the consumers alone (FW_BAR_OWN); the split done
+// (FW_BAR_DONE).
+constexpr int FW_BAR_TILE = 1, FW_BAR_KEYS = 2, FW_BAR_OWN = 3, FW_BAR_DONE = 4;
+// The selectors take a tile whose candidates sit in at most this many
+// consumer lanes for each ring stage of the tile (so in about the time of
+// the next tile's products); the consumers select a busier tile themselves.
+constexpr int FW_SEL_LANES = 8;
 constexpr int FW_MAX_STAGES = 8;
 constexpr int FW_MIN_STAGES = 4;                 // the lists leave shared memory before the ring shrinks below
 constexpr int FW_BOX_BYTES = FW_R * FW_DK * 4;   // a store box
@@ -721,11 +769,13 @@ __host__ __device__ constexpr int fw_perm(int kappa) {
 }
 
 // Shared memory of scan_topk_f32_wgmma_kernel<NQ>: the ring, the keys tile,
-// the lists when they are kept there, the ring's barriers.
+// the survivor masks (16-byte aligned: a query's eight are read as one
+// uint4) and the thresholds, the lists when they are kept there, the
+// ring's barriers.
 struct FwLayout {
     int stages;
     bool smem_lists;
-    size_t keys, lists, bars, total;
+    size_t keys, masks, thr, lists, bars, total;
 };
 
 __host__ __device__ inline FwLayout fw_layout(int nq, int K, int stages, bool smem_lists) {
@@ -734,6 +784,8 @@ __host__ __device__ inline FwLayout fw_layout(int nq, int K, int stages, bool sm
     L.smem_lists = smem_lists;
     size_t o = (size_t)stages * fw_stage_bytes(nq);
     L.keys = o; o += sizeof(float) * nq * FW_KS;
+    L.masks = o; o += sizeof(uint16_t) * nq * FW_CONSUMER_WARPS;
+    L.thr = o; o += sizeof(float) * nq;
     L.lists = o; o += smem_lists ? (size_t)nq * K * (sizeof(float) + sizeof(int)) : 0;
     o = (o + 7) / 8 * 8;
     L.bars = o; o += 2 * FW_MAX_STAGES * sizeof(uint64_t);
@@ -793,6 +845,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 }
 __device__ __forceinline__ void bar_sync(int id, int threads) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+// bar.sync that also returns the number of the threads in which `pred` held.
+__device__ __forceinline__ int bar_red_popc(int id, int threads, bool pred) {
+    int n;
+    asm volatile("{\n.reg .pred q;\nsetp.ne.u32 q, %1, 0;\nbar.red.popc.u32 %0, %2, %3, q;\n}\n"
+                 : "=r"(n) : "r"((unsigned)pred), "r"(id), "r"(threads) : "memory");
+    return n;
 }
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -899,50 +961,70 @@ FL2_WGMMA(128, 64, 65, 66, 67, 68, 69)
 
 // -- the keys' selection --------------------------------------------------------------
 
-// Selection of an NQ x FW_R keys tile (stride FW_KS) whose first row is r0:
-// consumer warp w owns queries w, w + 8, ...; lane l holds columns l + 32 j
-// (j < C), and candidates (key < the list's last) go in by ascending column
-// (= position), each after every entry of key <= its own (select_tile's
-// order). A warp takes its queries G at a time, so that G chains of
-// dependent shuffles overlap: their keys, thresholds and ballots together,
-// then, for lists of k <= 32 held in registers (lane j: entry j), one
-// candidate of each of the G queries a round, branch-free. A candidate is in
-// when fewer than k entries have key' <= key; every F_PRUNE rounds the
-// candidates left are held against the lists' last keys again (a list's
-// first tile admits every key, and most fall behind). Deeper lists take
-// warp_insert, one at a time.
+// Selection of an NQ x FW_R keys tile (stride FW_KS) whose first row is r0,
+// from the survivors that the screen left: warp w of `warps` owns queries
+// w, w + warps, ...; a query's eight 16-bit masks, read as one uint4, are its
+// candidates by column (bit b of word j: column 32 j + b), and lane l holds
+// the keys of columns l + 32 j (j < C) of a query that has one. Candidates go
+// in by ascending column (= position), each after every entry of key <= its
+// own (select_tile's order). A candidate that the list has passed since the
+// screen (its key >= the list's last) finds k entries of key' <= key and
+// stays out, so a stale threshold changes no list. A warp takes its queries
+// G at a time, so that G chains of dependent shuffles overlap (the
+// consumers take 4; the selectors, on the producer warpgroup's few
+// registers, 1, and only k <= 32): for lists of k <= 32 held in registers
+// (lane j: entry j), one candidate of each of the G queries a round,
+// branch-free. A candidate is in when fewer than k entries have key' <=
+// key; every F_PRUNE rounds the candidates left are held against the lists'
+// last keys again (a list's first tile admits every key, and most fall
+// behind). Deeper lists take warp_insert, one at a time. A query whose list
+// changed gets its new last key as its threshold and offers it to the cut,
+// and its masks go back to zero.
 constexpr int F_PRUNE = 4;
-__device__ __forceinline__ void select_tile_f32(const Lists& L, const float* keys_s, int r0, int B,
-                                                int q0, int nq, int warp) {
+
+// A key as an int that orders like the key (for atomicMin), and back.
+__device__ __forceinline__ int key_ord(float f) {
+    const int i = __float_as_int(f);
+    return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float ord_key(int i) { return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff); }
+constexpr int ORD_INF = 0x7f800000;   // key_ord(+inf)
+
+template <int G>   // queries a group: w + warps (G g + u), u < G
+__device__ __forceinline__ void select_tile_f32(const Lists& L, const float* keys_s, uint16_t* masks,
+                                                float* thr_s, int* cut, int r0, int B, int q0, int nq,
+                                                int warp, int warps) {
     constexpr int C = FW_R / 32;
-    constexpr int W = FW_CONSUMER_WARPS;
-    constexpr int G = 4;   // queries a group: w + W (G g + u), u < G
+    constexpr int W = FW_CONSUMER_WARPS;   // a query's masks: one slot a consumer warp
+    static_assert(C == 4 && W == 8, "a query's masks are one uint4: word j is warps 2 j and 2 j + 1");
     const int lane = threadIdx.x & 31;
     const int K = L.K;
     const float INF = __int_as_float(0x7f800000);
-    for (int base = warp; base < nq && q0 + base < B; base += G * W) {
+    for (int base = warp; base < nq && q0 + base < B; base += G * warps) {
         float kc[G][C];
         unsigned mc[G][C];
+        bool has[G];   // query u has a candidate: its list is read and rewritten
         unsigned any = 0;
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-            const int qi = base + u * W;
-            // A query past B or past the tile has no list: nothing is admitted.
+            const int qi = base + u * warps;
+            // A query past B or past the tile has no list and no candidate.
             const bool live = qi < nq && q0 + qi < B;
-            const float thr = live ? L.k(qi)[K - 1] : -INF;
+            const uint4 m = live ? *reinterpret_cast<const uint4*>(masks + qi * W) : make_uint4(0, 0, 0, 0);
+            mc[u][0] = m.x;
+            mc[u][1] = m.y;
+            mc[u][2] = m.z;
+            mc[u][3] = m.w;
+            has[u] = (m.x | m.y | m.z | m.w) != 0;
+            any |= m.x | m.y | m.z | m.w;
 #pragma unroll
-            for (int j = 0; j < C; ++j) kc[u][j] = live ? keys_s[qi * FW_KS + 32 * j + lane] : INF;
-#pragma unroll
-            for (int j = 0; j < C; ++j) {
-                mc[u][j] = __ballot_sync(FULL, kc[u][j] < thr);
-                any |= mc[u][j];
-            }
+            for (int j = 0; j < C; ++j) kc[u][j] = has[u] ? keys_s[qi * FW_KS + 32 * j + lane] : INF;
         }
         if (!any) continue;
-        if (K > 32) {
+        if (G > 1 && K > 32) {   // the selectors take only k <= 32
 #pragma unroll
             for (int u = 0; u < G; ++u) {
-                const int qi = base + u * W;
+                const int qi = base + u * warps;
 #pragma unroll
                 for (int j = 0; j < C; ++j)
                     for (unsigned m = mc[u][j]; m; m &= m - 1) {
@@ -950,19 +1032,21 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
                         warp_insert(L.k(qi), L.p(qi), K, __shfl_sync(FULL, kc[u][j], src),
                                     r0 + 32 * j + src, lane);
                     }
+                if (has[u] && lane == 0) {
+                    const float last = L.k(qi)[K - 1];
+                    thr_s[qi] = last;
+                    if (last < __int_as_float(ORD_INF)) atomicMin(cut + q0 + qi, key_ord(last));
+                    *reinterpret_cast<uint4*>(masks + qi * W) = make_uint4(0, 0, 0, 0);
+                }
             }
+            __syncwarp();
             continue;
         }
         float vk[G];
         int vp[G];
-        bool has[G];   // query u admitted a candidate: its list is read and rewritten
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-            const int qi = base + u * W;
-            unsigned m = 0;
-#pragma unroll
-            for (int j = 0; j < C; ++j) m |= mc[u][j];
-            has[u] = m != 0;
+            const int qi = base + u * warps;
             vk[u] = has[u] && lane < K ? L.k(qi)[lane] : INF;
             vp[u] = has[u] && lane < K ? L.p(qi)[lane] : INT_MAXV;
         }
@@ -1015,10 +1099,15 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
         }
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-            const int qi = base + u * W;
+            const int qi = base + u * warps;
             if (has[u] && lane < K) {
                 L.k(qi)[lane] = vk[u];
                 L.p(qi)[lane] = vp[u];
+                if (lane == K - 1) {
+                    thr_s[qi] = vk[u];
+                    if (vk[u] < INF) atomicMin(cut + q0 + qi, key_ord(vk[u]));
+                }
+                if (lane == 0) *reinterpret_cast<uint4*>(masks + qi * W) = make_uint4(0, 0, 0, 0);
             }
         }
         __syncwarp();
@@ -1034,7 +1123,10 @@ __device__ __forceinline__ void select_tile_f32(const Lists& L, const float* key
 // of the box holding query column 16 c + fw_perm(.); zero past B and D.
 // ops/topk_cuda.stage_f32_plain is its plain version.
 __global__ void stage_f32_queries_kernel(const float* __restrict__ q, int B, int D, int nq,
-                                         int n_chunks, int64_t total, float* __restrict__ out) {
+                                         int n_chunks, int64_t total, float* __restrict__ out,
+                                         int* __restrict__ cut) {
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; cut && i < B; i += gridDim.x * blockDim.x)
+        cut[i] = ORD_INF;
     for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
          i += (int64_t)gridDim.x * blockDim.x) {
         int64_t rem = i;
@@ -1056,27 +1148,68 @@ __global__ void stage_f32_queries_kernel(const float* __restrict__ q, int B, int
 
 // -- pass 1 of mode 0 -----------------------------------------------------------------
 
-// Keys of a finished tile (norm + sum, +inf past the split) into the keys
-// tile: kacc[4 j + 2 h + e] is query 8 j + 2 t4 + e, tile row row_a + 8 h.
-// The first barrier waits for every consumer warp's selection of the tile
-// before (the keys tile is free), the second for every warp's writes.
+// The screen of a finished tile, in the accumulator registers: the key of
+// (query 8 j + 2 t4 + e, tile row row_a + 8 h) is nrm[h] + kacc[4 j + 2 h + e]
+// (nrm +inf past the split, so the key is too), and it is a candidate only
+// when key < thr[query], the last key of the query's list (+inf while the
+// list is unfilled, -inf past B). screen_any: whether any of this lane's
+// keys is a candidate, against thresholds that may be stale (a selection of
+// the tile before may still be running: a list's last key only falls, so a
+// stale threshold passes a superset).
 template <int NQ>
-__device__ __forceinline__ void write_keys(float* keys_s, const float (&kacc)[NQ / 2],
-                                           const float (&nrm)[2], int r0, int row_end, int row_a,
-                                           int t4) {
-    const float INF = __int_as_float(0x7f800000);
-    bar_sync(1, 32 * FW_CONSUMER_WARPS);
+__device__ __forceinline__ bool screen_any(const float* thr_s, const float (&kacc)[NQ / 2],
+                                           const float (&nrm)[2], int t4) {
+    bool cand = false;
 #pragma unroll
-    for (int j = 0; j < NQ / 8; ++j)
+    for (int j = 0; j < NQ / 8; ++j) {
+        const float2 thr = *reinterpret_cast<const float2*>(thr_s + 8 * j + 2 * t4);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+            cand |= __fadd_rn(nrm[h], kacc[4 * j + 2 * h]) < thr.x;
+            cand |= __fadd_rn(nrm[h], kacc[4 * j + 2 * h + 1]) < thr.y;
+        }
+    }
+    return cand;
+}
+
+// screen_write, once every selection of the tile before is done (every
+// threshold current; the keys tile and the masks free), in a warp with a
+// candidate (warp-uniform): the screen again, each survivor's key into its
+// keys-tile slot and, for each query, the 16-bit mask of the warp's rows that
+// survived (bit g + 8 h: tile row 16 v + g + 8 h; the warp's own slot, so no
+// atomics). The masks are left zero by the selection that reads them.
+// Returns this lane's survivors.
+template <int NQ>
+__device__ __forceinline__ int screen_write(float* keys_s, uint16_t* masks, const float* thr_s,
+                                            const float (&kacc)[NQ / 2], const float (&nrm)[2],
+                                            int row_a, int t4, int v) {
+    const int g = (threadIdx.x & 31) >> 2;
+    int passed = 0;
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int row = row_a + 8 * h;
-                keys_s[(8 * j + 2 * t4 + e) * FW_KS + row] =
-                    r0 + row < row_end ? __fadd_rn(nrm[h], kacc[4 * j + 2 * h + e]) : INF;
-            }
-    bar_sync(2, 32 * FW_CONSUMER_WARPS);
+    for (int j = 0; j < NQ / 8; ++j) {
+        const float2 thr = *reinterpret_cast<const float2*>(thr_s + 8 * j + 2 * t4);
+        float key[4];   // [2 h + e]
+        unsigned b = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            key[i] = __fadd_rn(nrm[i >> 1], kacc[4 * j + i]);
+            b |= (unsigned)(key[i] < ((i & 1) ? thr.y : thr.x)) << i;
+        }
+        if (!__any_sync(FULL, b)) continue;
+        passed += __popc(b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            if (b >> i & 1) keys_s[(8 * j + 2 * t4 + (i & 1)) * FW_KS + row_a + 8 * (i >> 1)] = key[i];
+        // Query 8 j + 2 t4 in the low half, + 1 in the high half; the OR
+        // over the eight lanes of this t4 gathers the warp's 16 rows.
+        unsigned w = (b & 1u) << g | (b >> 2 & 1u) << (g + 8) | (b >> 1 & 1u) << (g + 16) |
+                     (b >> 3 & 1u) << (g + 24);
+        w |= __shfl_xor_sync(FULL, w, 4);
+        w |= __shfl_xor_sync(FULL, w, 8);
+        w |= __shfl_xor_sync(FULL, w, 16);
+        if (g < 2) masks[(8 * j + 2 * t4 + g) * FW_CONSUMER_WARPS + v] = (uint16_t)(w >> (16 * g));
+    }
+    return passed;
 }
 
 // kacc[o + i] = first ? f[i] : kacc[o + i] + f[i] (round to nearest): the fold
@@ -1131,15 +1264,17 @@ __device__ __forceinline__ void split_step(const float4& x0, const float4& x1, i
 // just issued (wgmma.wait_group 1) and the tensor cores always hold work. A
 // stage goes back to the producer (its `empty` barrier, one arrive a
 // consumer warp) once every group that read it is done. The keys of a tile
-// go to the keys tile and are selected while the next tile's first group
-// runs. rows_per_split is a multiple of FW_R; qst: stage_f32_queries_kernel's
+// are screened against the lists' thresholds once its last groups are
+// folded, and its survivors are selected while the next tile's first
+// groups run. rows_per_split is a multiple of FW_R; qst: stage_f32_queries_kernel's
 // output; smem_lists: the lists are in shared memory.
 template <int NQ>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
                            const float* __restrict__ qst, const float* __restrict__ norms, int B,
                            int N, int D, int K, int rows_per_split, int stages, int smem_lists,
-                           int x_tma, float* __restrict__ part_k, int* __restrict__ part_p) {
+                           int x_tma, int* __restrict__ cut, float* __restrict__ part_k,
+                           int* __restrict__ part_p) {
     static_assert(NQ % 8 == 0 && NQ >= 8 && NQ <= FW_QMAX, "wgmma N");
     // TMA boxes land 128-byte aligned; 1024 keeps that past the profile
     // build's static counters.
@@ -1147,6 +1282,8 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
     unsigned char* smem = fw_smem;
     const FwLayout L = fw_layout(NQ, K, stages, smem_lists != 0);
     float* keys_s = reinterpret_cast<float*>(smem + L.keys);
+    uint16_t* masks = reinterpret_cast<uint16_t*>(smem + L.masks);
+    float* thr_s = reinterpret_cast<float*>(smem + L.thr);
     float* list_k = reinterpret_cast<float*>(smem + L.lists);
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
     uint64_t* empty = full + FW_MAX_STAGES;
@@ -1162,8 +1299,8 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
     const Lists lists{list_k, reinterpret_cast<int*>(list_k + NQ * K), part_k, part_p,
                       ((int64_t)split * B + q0) * K, K, smem_lists != 0};
 #if FL2_PROFILE
-    __shared__ unsigned prof_s_[FW_THREADS / 32 * FL2_PHASES];   // 32 bits: one call's cycles
-    for (int i = tid; i < FW_THREADS / 32 * FL2_PHASES; i += FW_THREADS) prof_s_[i] = 0;
+    __shared__ unsigned prof_s_[FW_THREADS / 32 * FL2_SLOTS];   // 32 bits: one block's counts
+    for (int i = tid; i < FW_THREADS / 32 * FL2_SLOTS; i += FW_THREADS) prof_s_[i] = 0;
     unsigned prof_t_ = (unsigned)clock();
 #endif
 
@@ -1174,14 +1311,37 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    if (warp >= 4) lists_init(lists, B, q0, NQ, warp - 4, FW_CONSUMER_WARPS);
+    if (warp >= 4) {
+        lists_init(lists, B, q0, NQ, warp - 4, FW_CONSUMER_WARPS);
+        // Thresholds +inf (every finite key passes until a list fills),
+        // -inf past B (nothing passes); no survivors.
+        const float INF = __int_as_float(0x7f800000);
+        for (int i = tid - 128; i < NQ; i += 32 * FW_CONSUMER_WARPS) thr_s[i] = q0 + i < B ? INF : -INF;
+        for (int i = tid - 128; i < NQ * FW_CONSUMER_WARPS / 8; i += 32 * FW_CONSUMER_WARPS)
+            reinterpret_cast<uint4*>(masks)[i] = make_uint4(0, 0, 0, 0);
+    }
     __syncthreads();
 
+    const int sel_lanes = K <= 32 ? FW_SEL_LANES * spt : 0;   // a tile the selectors take
     if (warp < 4) {
-        // The producer warpgroup: warp 0 runs the ring, the others leave;
-        // its registers go to the consumers.
+        // The producer warpgroup: warp 0 runs the ring, warps 1-3 are the
+        // selectors; the rest of its registers go to the consumers.
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-        if (warp != 0) return;
+        if (warp != 0) {
+            // Each tile's screen tells how many consumer lanes hold a
+            // candidate (this barrier also says that the selection of the
+            // tile before is done); a tile with few is selected here while
+            // the consumers run the next tile's products.
+            for (int tile = 0; tile < n_tiles; ++tile) {
+                const int lanes = bar_red_popc(FW_BAR_TILE, FW_SCREEN_THREADS, false);
+                if (FL2_NO_SELECT || lanes == 0 || lanes > sel_lanes) continue;
+                bar_sync(FW_BAR_KEYS, FW_SCREEN_THREADS);
+                select_tile_f32<1>(lists, keys_s, masks, thr_s, cut, row_begin + tile * FW_R, B, q0,
+                                   NQ, warp - 1, FW_SELECTORS);
+            }
+            bar_sync(FW_BAR_DONE, FW_SCREEN_THREADS);
+            return;
+        }
         const float* qbase = qst + (size_t)blockIdx.x * spt * fw_q_bytes(NQ) / sizeof(float);
         for (int s = 0, st = 0, round = 0; s < total; ++s) {
             if (s >= stages) mbar_wait(&empty[st], (round - 1) & 1);
@@ -1219,7 +1379,8 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
         FL2_MARK(0);
 #if FL2_PROFILE
         if (lane == 0)
-            for (int i = 0; i < 2; ++i) atomicAdd(&fl2_prof[i], (unsigned long long)prof_s_[warp * FL2_PHASES + i]);
+            for (int i = 0; i < 2; ++i)
+                atomicAdd(&fl2_prof[i], (unsigned long long)prof_s_[warp * FL2_SLOTS + i]);
 #endif
         return;
     }
@@ -1244,12 +1405,45 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
 #pragma unroll
     for (int i = 0; i < WB / 2; ++i) fb[i] = 0.f;
     unsigned xh[2][4], xl[2][4];               // A fragments of the last two k steps
-    float nrm[2] = {0.f, 0.f};                 // the last tile's norms
-    int prev_r0 = -1;                          // and its first row (-1: no tile yet)
+    int prev_r0 = -1;                          // the last tile's first row
+    bool pending = false;                      // its survivors await their selection
     int st = 0, round = 0, held = -1;          // ring position; the stage to hand back next
 #if FL2_PROFILE
     prof_t_ = (unsigned)clock();
 #endif
+
+    // A finished tile (first row r0; its sums complete in kacc, no group in
+    // flight, nrm its norms): the screen of its keys. One barrier with the
+    // selectors waits for every selection of the tile before and counts the
+    // lanes with a candidate; if any, each warp with one writes its
+    // survivors, and the selectors take them (the consumers go on at once) or,
+    // for a busier tile, the consumers select them themselves during the
+    // next tile's first k step (`pending`).
+    auto screen_tile = [&](int r0, const float (&nrm)[2]) {
+        const bool cand = screen_any<NQ>(thr_s, kacc, nrm, t4);
+        const int lanes = bar_red_popc(FW_BAR_TILE, FW_SCREEN_THREADS, cand);
+        int passed = 0;
+        pending = false;
+        if (!FL2_NO_SELECT && lanes > 0) {
+            if (__any_sync(FULL, cand))
+                passed = screen_write<NQ>(keys_s, masks, thr_s, kacc, nrm, row_a, t4, v);
+            if (lanes <= sel_lanes) {
+                bar_arrive(FW_BAR_KEYS, FW_SCREEN_THREADS);
+            } else {
+                bar_sync(FW_BAR_OWN, 32 * FW_CONSUMER_WARPS);
+                pending = true;
+            }
+        }
+#if FL2_PROFILE
+        passed = __reduce_add_sync(FULL, passed);
+        if (lane == 0) {
+            const int rows = max(0, min(16, row_end - (r0 + 16 * v)));
+            prof_s_[warp * FL2_SLOTS + FL2_PHASES] += rows * min(NQ, B - q0);
+            prof_s_[warp * FL2_SLOTS + FL2_PHASES + 1] += passed;
+        }
+#endif
+        FL2_MARK(7);
+    };
 
     // One stage of a tile: FW_BOXES boxes of two k steps each. Two groups
     // stay in flight: NQ <= 64, the groups of k steps ks - 1 and ks (fa on
@@ -1257,7 +1451,7 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
     // accumulator; NQ > 64, a k step's groups A (fa) and B (fb), each folded
     // before the next step reissues it. FIRST: the tile's first stage, whose
     // first k step has no group before it, folds into kacc by assignment,
-    // and runs the last tile's keys and selection once its groups are issued.
+    // and runs the selection of the last tile's survivors once its groups are issued.
     auto stage = [&](auto first_stage) {
         constexpr bool FIRST = decltype(first_stage)::value;
         mbar_wait(&full[st], round & 1);
@@ -1325,11 +1519,10 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
                     if (!FL2_NO_MMA) issue_group<WA>(acc, xh[e], xl[e], dh, dl);
                     FL2_MARK(4);
                 }
-                if (first && prev_r0 >= 0) {
-                    // The last tile's keys and selection, while this step's groups run.
-                    write_keys<NQ>(keys_s, kacc, nrm, prev_r0, row_end, row_a, t4);
-                    FL2_MARK(7);
-                    if (!FL2_NO_SELECT) select_tile_f32(lists, keys_s, prev_r0, B, q0, NQ, v);
+                if (first && pending) {
+                    // The last tile's survivors, while this step's groups run.
+                    select_tile_f32<4>(lists, keys_s, masks, thr_s, cut, prev_r0, B, q0, NQ, v,
+                                       FW_CONSUMER_WARPS);
                     FL2_MARK(8);
                 }
             }
@@ -1340,13 +1533,19 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
         if (++st == stages) { st = 0; ++round; }
     };
 
+    // Consumer thread ci (< NQ) keeps query ci's cut fresh: read at the start
+    // of each tile (from L2: other blocks lower it), folded into the
+    // threshold at its end.
+    const int ci = 32 * v + lane;
+    const bool cuts = ci < NQ && q0 + ci < B;
     for (int tile = 0; tile < n_tiles; ++tile) {
         const int r0 = row_begin + tile * FW_R;
-        float next_nrm[2];
+        const int shared_cut = cuts ? __ldcg(cut + q0 + ci) : ORD_INF;
+        float nrm[2];   // this tile's norms of the lane's rows, +inf past the split
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int row = r0 + row_a + 8 * h;
-            next_nrm[h] = row < row_end ? norms[row] : 0.f;
+            nrm[h] = row < row_end ? norms[row] : __int_as_float(0x7f800000);
         }
         held = -1;
         stage(std::true_type{});
@@ -1369,21 +1568,26 @@ scan_topk_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const float
             fold(kacc, fb, 0, false);   // step n_ks - 1
         }
         if (lane == 0) mbar_arrive(&empty[held]);
-        nrm[0] = next_nrm[0];
-        nrm[1] = next_nrm[1];
-        prev_r0 = r0;
         FL2_MARK(6);
+        if (cuts) {
+            // Another split's k-th key T: a key above it has k keys below it
+            // and is out of the query's result; one equal to T may still be
+            // in (by position), so the threshold is T's successor.
+            const float c = nextafterf(ord_key(shared_cut), __int_as_float(0x7f800000));
+            if (c < thr_s[ci]) thr_s[ci] = c;
+        }
+        screen_tile(r0, nrm);
+        prev_r0 = r0;
     }
-    if (prev_r0 >= 0) {
-        write_keys<NQ>(keys_s, kacc, nrm, prev_r0, row_end, row_a, t4);
-        FL2_MARK(7);
-        if (!FL2_NO_SELECT) select_tile_f32(lists, keys_s, prev_r0, B, q0, NQ, v);
-        FL2_MARK(8);
-    }
+    if (pending)
+        select_tile_f32<4>(lists, keys_s, masks, thr_s, cut, prev_r0, B, q0, NQ, v, FW_CONSUMER_WARPS);
+    bar_sync(FW_BAR_DONE, FW_SCREEN_THREADS);   // the selectors' last tile
+    FL2_MARK(8);
     lists_flush(lists, B, q0, NQ, v, FW_CONSUMER_WARPS);
 #if FL2_PROFILE
     if (lane == 0)
-        for (int i = 2; i < FL2_PHASES; ++i) atomicAdd(&fl2_prof[i], (unsigned long long)prof_s_[warp * FL2_PHASES + i]);
+        for (int i = 2; i < FL2_SLOTS; ++i)
+            atomicAdd(&fl2_prof[i], (unsigned long long)prof_s_[warp * FL2_SLOTS + i]);
 #endif
 }
 
@@ -1499,10 +1703,11 @@ int64_t f32_stage_floats(int B, int D, int nq) {
     return (int64_t)((B + nq - 1) / nq) * f32_boxes(D) * 2 * nq * FW_DK;
 }
 
-cudaError_t stage_f32(const float* q, int B, int D, int nq, float* qst, cudaStream_t stream) {
+cudaError_t stage_f32(const float* q, int B, int D, int nq, float* qst, cudaStream_t stream,
+                      int* cut = nullptr) {
     const int64_t total = f32_stage_floats(B, D, nq);
     const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-    stage_f32_queries_kernel<<<blocks, 256, 0, stream>>>(q, B, D, nq, f32_boxes(D), total, qst);
+    stage_f32_queries_kernel<<<blocks, 256, 0, stream>>>(q, B, D, nq, f32_boxes(D), total, qst, cut);
     return cudaGetLastError();
 }
 
@@ -1514,7 +1719,9 @@ cudaError_t launch_scan_f32(const float* q, const float* x, const float* norms, 
     if (L.total > SMEM_MAX - (FL2_PROFILE ? 1024 : 0)) return cudaErrorInvalidValue;
     cudaError_t err = allow_smem(reinterpret_cast<const void*>(&scan_topk_f32_wgmma_kernel<NQ>), 3 + NQ / 8);
     if (err != cudaSuccess) return err;
-    err = stage_f32(q, B, D, NQ, qst, stream);
+    // The queries' cuts follow their staged parts (B ints; see the kernel).
+    int* cut = reinterpret_cast<int*>(qst + f32_stage_floats(B, D, NQ));
+    err = stage_f32(q, B, D, NQ, qst, stream, cut);
     if (err != cudaSuccess) return err;
     // The store through TMA when its rows are 16-byte aligned (the tensor
     // map's strides must be), else through the producer's plain copy.
@@ -1535,7 +1742,7 @@ cudaError_t launch_scan_f32(const float* q, const float* x, const float* norms, 
     }
     scan_topk_f32_wgmma_kernel<NQ><<<dim3((B + NQ - 1) / NQ, S), FW_THREADS, L.total, stream>>>(
         map, x, qst, norms, B, N, D, K, rows_per_split(N, S, FW_R), L.stages, L.smem_lists, x_tma,
-        part_k, part_p);
+        cut, part_k, part_p);
     return cudaGetLastError();
 }
 
@@ -1568,7 +1775,7 @@ int occupancy(const void* kernel, int slot, size_t smem) {
 
 extern "C" {
 
-int fused_l2_topk_abi_version() { return 7; }
+int fused_l2_topk_abi_version() { return 8; }
 
 // Pass 1's shape in mode `dtype` at (D, K), into out: [0] the blocks that
 // fit on one SM (modes 1 and 3 count two, the bf16 layout at small k; mode
@@ -1595,13 +1802,13 @@ int fused_l2_topk_shape(int dtype, int D, int K, int* out) {
 }
 
 #if FL2_PROFILE
-// Diagnostic builds: the phase cycles of scan_topk_f32_wgmma_kernel's warps
-// summed since the last call (see FL2_PROFILE) into out[FL2_PHASES], then
-// cleared.
+// Diagnostic builds: the phase cycles of scan_topk_f32_wgmma_kernel's warps,
+// then the keys its screen compared and passed, summed since the last call
+// (see FL2_PROFILE) into out[FL2_SLOTS], then cleared.
 int fused_l2_topk_profile(unsigned long long* out) {
     cudaError_t err = cudaMemcpyFromSymbol(out, fl2_prof, sizeof(fl2_prof));
     if (err != cudaSuccess) return (int)err;
-    const unsigned long long zero[FL2_PHASES] = {};
+    const unsigned long long zero[FL2_SLOTS] = {};
     return (int)cudaMemcpyToSymbol(fl2_prof, zero, sizeof(zero));
 }
 #endif
@@ -1621,8 +1828,8 @@ int fused_l2_topk_stage_f32(const void* q, int B, int D, int nq, void* qst, void
 // part_k/part_p (S, B, K) scratch, S at most MAX_SPLITS (the wrapper's
 // launch plan); out_k/out_p (B, K). Mode 0 also takes its query tile nq (a
 // multiple of 8 up to FW_QMAX) and qst, 16-byte aligned scratch of
-// f32_stage_floats(B, D, nq) floats for the staged queries; the other modes
-// ignore both. Returns the CUDA error code of the launches (0 on success).
+// f32_stage_floats(B, D, nq) floats for the staged queries and B more for
+// the queries' cuts; the other modes ignore both. Returns the CUDA error code of the launches (0 on success).
 int fused_l2_topk(int dtype, const void* q, const void* x, const void* norms, const void* rs,
                   int B, int N, int D, int K, int S, int nq, void* qst, void* part_k, void* part_p,
                   void* out_k, void* out_p, void* stream) {

@@ -55,7 +55,7 @@ _MODES = {
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-ABI_VERSION = 7
+ABI_VERSION = 8
 SIGNATURES = {
     "fused_l2_topk": ([_CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
                        _VP, _VP], _CI),
@@ -224,9 +224,9 @@ def fused_l2_topk(q_staged, db, norms, k: int, rs=None):
     plan = launch_plan(b, n, k, _sm_count(dev), *shape,
                        q_step=F32_Q_STEP if mode[0] == 0 else None)
     # One scratch buffer: the f32 mode's staged queries (at its start, which
-    # the allocator aligns past the 16 bytes the bulk copies need), the
-    # partial keys, then their positions.
-    staged = f32_stage_floats(b, d, plan["q_tile"]) if mode[0] == 0 else 0
+    # the allocator aligns past the 16 bytes the bulk copies need) and its
+    # B cuts, the partial keys, then their positions.
+    staged = f32_stage_floats(b, d, plan["q_tile"]) + b if mode[0] == 0 else 0
     part = plan["splits"] * b * k
     scratch = torch.empty(staged + 2 * part, dtype=torch.int32, device=db.device)
     base = scratch.data_ptr()

@@ -15,6 +15,11 @@ positions equal except inside groups of keys tied within that tolerance.
 Index and API fixtures are integer-valued or hash embeddings, so their
 distances are exact in f32 on both devices."""
 
+import functools
+import hashlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -232,7 +237,7 @@ def _check_f32(q_st, db, norms, k):
     """One f32 launch against the plain version: keys within REL_TOL
     (relative, at least 1), positions equal except inside groups of keys
     tied within it, unfilled slots (inf, INT32_MAX) exactly where the plain
-    version has them."""
+    version has them. Returns the launch's (keys, positions)."""
     before = topk_cuda.fused_l2_topk.launches_by_mode["float32"]
     kk, kp = topk_cuda.fused_l2_topk(q_st, db, norms, k)
     assert topk_cuda.fused_l2_topk.launches_by_mode["float32"] == before + 1
@@ -246,6 +251,7 @@ def _check_f32(q_st, db, norms, k):
     assert np.all(np.abs(got[~empty] - want[~empty])
                   <= REL_TOL * np.maximum(np.abs(want[~empty]), 1.0))
     same_up_to_ties(want, pp.cpu().numpy(), got, kp.cpu().numpy(), REL_TOL)
+    return kk, kp
 
 
 @pytest.mark.parametrize("k", [1, 20, 128, 129, 200])
@@ -392,6 +398,68 @@ def test_f32_staging_equals_plain(cuda, b, d):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (topk_cuda.f32_stage_floats(b, d, q_tile),)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The f32 mode's screen (csrc/fused_l2_topk.cu screen_any, screen_write):
+# its keys are held against the lists' last keys in the accumulators, and
+# only the survivors reach the selection. Digests of the outputs that the kernel
+# gave on these operands before it had the screen (NVIDIA H100 80GB HBM3),
+# keyed "order-k<k>-b<b>": SHA-256 of the keys' then the positions' bytes.
+SCREEN_DIGESTS = Path(__file__).with_name("data") / "f32_screen_outputs.json"
+SCREEN_N, SCREEN_D = 1_000_003, 96
+
+
+@functools.lru_cache(maxsize=3)
+def _screen_store(order, device):
+    """A long store (one split of B <= 128 is 61 tiles) of D = 96 whose keys,
+    for every query of _screen_queries, come in ascending order of position
+    (the norms climb by 1e-3 a row, the products stay below 1e-4: after a
+    split's first tile no key passes), in descending order (every key
+    passes: the screen's worst case), or repeat with a period of 1,000
+    rows (equal keys within and across tiles)."""
+    rng = np.random.default_rng(96)
+    n, d = SCREEN_N, SCREEN_D
+    if order == "duplicates":
+        x = rng.standard_normal((1000, d)).astype(np.float32)[np.arange(n) % 1000]
+        db = torch.from_numpy(x).to(device)
+        return db, (db * db).sum(1)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    ramp = (1e-3 * np.arange(n)).astype(np.float32)
+    norms = ramp if order == "ascending" else ramp[::-1].copy()
+    return torch.from_numpy(x).to(device), torch.from_numpy(norms).to(device)
+
+
+def _screen_queries(order, b, device):
+    rng = np.random.default_rng(b)
+    q = rng.standard_normal((b, SCREEN_D)).astype(np.float32)
+    if order != "duplicates":
+        q *= np.float32(1e-6)
+    q_st, _ = topk_cuda.stage_queries(torch.from_numpy(q).to(device), torch.float32)
+    return q_st
+
+
+def _digest(kk, kp):
+    return hashlib.sha256(kk.cpu().numpy().tobytes() + kp.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("b", [1, 8, 128, 200])
+@pytest.mark.parametrize("k", [1, 20, 32, 33])
+@pytest.mark.parametrize("order", ["ascending", "descending", "duplicates"])
+def test_f32_screen_matches_plain_and_earlier_outputs(cuda, order, k, b):
+    """The f32 mode with its screen against the plain version (_check_f32)
+    and, bit for bit, against the outputs of the kernel that selected from
+    every key (SCREEN_DIGESTS): rows in ascending key order (nothing passes
+    after a split's first tile), in descending order (every key passes),
+    and repeated rows (exact ties across tiles, lowest position first); k
+    from 1 through 32 (lists in registers) to 33 (warp_insert); B = 1 and
+    8 (query tile 8), 128 (one tile) and 200 (two of 104)."""
+    db, norms = _screen_store(order, cuda)
+    kk, kp = _check_f32(_screen_queries(order, b, cuda), db, norms, k)
+    if order != "duplicates":
+        first = np.arange(k) if order == "ascending" else SCREEN_N - 1 - np.arange(k)
+        assert (kp.cpu().numpy() == first[None, :]).all()
+    want = json.loads(SCREEN_DIGESTS.read_text())[f"{order}-k{k}-b{b}"]
+    assert _digest(kk, kp) == want
 
 
 def test_f32_memodb_shape(cuda):

@@ -17,7 +17,9 @@ of N rows of width D at its batches, such as 10,000,000 x 96 at B = 128
 for the sharded DEEP-1B cell's rank shape cut to a size the plain check
 holds):
   - shipped:    the kernel as built by ops/cuda_build.py;
-  - no_select:  the products and keys, without the selection;
+  - no_select:  the products, keys and the f32 mode's screen, without the
+    selection (modes 1-3: the keys tile; mode 0: every tile ends at the
+    screen's barrier, so no key survives);
   - no_mma:     the ring and the selection, without the products;
   - ring_only:  the ring alone (loads, splits, decode, keys tile);
   - stages4, dk128_stages2: other ring shapes of modes 1-3 (FL2_DK 128:
@@ -27,8 +29,11 @@ holds):
     case prints the producer warp's split between waiting for a free stage
     and issuing its copies, the consumer warps' split between waiting for a
     full stage, loading and splitting the store, issuing wgmma groups,
-    waiting for groups, folding (and handing stages back), the keys tile
-    with its barriers, and the selection.
+    waiting for groups, folding (and handing stages back), the screen of
+    the keys against the lists' thresholds with the keys tile and its
+    barriers, and the selection; then the survivor share, the keys the
+    screen passed over the keys it compared (rows before the split's end,
+    queries before B; "not counted" from a kernel without the counts).
 The variants that compute the contract (all but the FL2_NO_* cuts) are
 first held against the plain version in every case (chip_smoke.check_selection;
 bit-equal for int8 queries). At MemoDB's shape (f32, 131,072 rows, B = 128)
@@ -70,9 +75,11 @@ VARIANTS = {
     "dk128_stages2": ("FL2_DK=128", "FL2_STAGES=2"),
     "profile": ("FL2_PROFILE=1",),
 }
-# FL2_PROFILE's phases: the producer's two, then the consumers' seven.
+# FL2_PROFILE's phases: the producer's two, then the consumers' seven; then
+# its counts of keys screened and keys passed.
 PRODUCER_PHASES = ("free_wait", "copy_issue")
-CONSUMER_PHASES = ("full_wait", "split", "wgmma_issue", "wgmma_wait", "fold", "keys", "select")
+CONSUMER_PHASES = ("full_wait", "split", "wgmma_issue", "wgmma_wait", "fold", "screen", "select")
+PROFILE_COUNTS = 2
 MEMODB_CASE = "f32 N=131072 D=384 B=128"
 
 
@@ -187,7 +194,7 @@ def main() -> int:
             parts.append(f"{label} {ms:.4f} ms")
             if "FL2_PROFILE=1" in defines and label.startswith("f32"):
                 phases = PRODUCER_PHASES + CONSUMER_PHASES
-                cycles = (ctypes.c_uint64 * len(phases))()
+                cycles = (ctypes.c_uint64 * (len(phases) + PROFILE_COUNTS))()
                 prof = ctypes.CDLL(str(paths[name])).fused_l2_topk_profile
                 torch.cuda.synchronize()
                 prof(cycles)                       # clear what earlier cases left
@@ -196,10 +203,13 @@ def main() -> int:
                 assert prof(cycles) == 0
                 np_ = len(PRODUCER_PHASES)
                 for role, names, got in (("producer", PRODUCER_PHASES, cycles[:np_]),
-                                         ("consumers", CONSUMER_PHASES, cycles[np_:])):
+                                         ("consumers", CONSUMER_PHASES, cycles[np_:len(phases)])):
                     total = sum(got) or 1
                     parts.append(f"({role}: " + " ".join(
                         f"{ph} {100 * c / total:.1f}%" for ph, c in zip(names, got)) + ")")
+                screened, passed = cycles[len(phases):]
+                parts.append(f"survivors {passed} of {screened} keys ({100 * passed / screened:.4f}%)"
+                             if screened else "survivors not counted")
             if label == MEMODB_CASE:
                 dev = device_ms(call, 20)
                 if dev is None:
