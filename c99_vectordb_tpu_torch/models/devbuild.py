@@ -4,8 +4,10 @@ families (counterpart of the JAX package's models/devbuild.py).
 Every helper here is plain torch, as its counterpart is plain XLA:
 
   * filter pushdown: +inf row norms ARE the scan kernels' exclusion
-    mechanism, so a filter needs no kernel change: one masked copy of a
-    small (n,)-sized operand per filter, staged once and cached;
+    mechanism, so a filter needs no kernel change: its keep table and one
+    masked copy of a small (n,)-sized operand, staged once per filter and
+    cached (MaskCache); every family, the sharded ones too, masks through
+    keep_of, mask_norms and mask_shortlist_ids;
   * chunk storage, bucketing and the scatter into padded (nlist, pad)
     inverted lists, all on the index's device, so a corpus-scale build
     never crosses to the host;
@@ -43,28 +45,30 @@ def tail_restage_threshold(ntotal: int) -> int:
     return max(4096, ntotal // 64)
 
 
-def _keep(ids: torch.Tensor, id_mask) -> torch.Tensor:
-    """True where the row's external id is set in id_mask. Ids below 0
-    (padding) or at/after the mask's end are EXCLUDED, never clip-aliased
-    onto the boundary slot."""
-    mask = torch.as_tensor(np.asarray(id_mask, dtype=bool), device=ids.device)
-    cap = mask.shape[0]
+def keep_table(id_mask, device) -> torch.Tensor:
+    """A filter's (cap,) bool keep table keyed by external id, on `device`,
+    from a numpy array, a list or a tensor on any device."""
+    if isinstance(id_mask, torch.Tensor):
+        return id_mask.to(device=device, dtype=torch.bool)
+    return torch.from_numpy(np.asarray(id_mask, dtype=bool)).to(device)
+
+
+def keep_of(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Keep-mask of an ids operand (any shape) against a keep table: ids
+    below 0 (padding) or at/after cap are EXCLUDED, never clip-aliased onto
+    the boundary slot."""
+    cap = table.shape[0]
     safe = torch.clamp(ids.to(torch.int64), 0, cap - 1)
-    return mask[safe] & (ids >= 0) & (ids < cap)
+    return table[safe] & (ids >= 0) & (ids < cap)
 
 
-def mask_norms(norms: torch.Tensor, ids: torch.Tensor, id_mask) -> torch.Tensor:
+def mask_norms(norms: torch.Tensor, ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Masked copy of a norms operand (same shape as ids): +inf where the
     row's external id is masked out (or padding)."""
-    return torch.where(_keep(ids, id_mask), norms, torch.inf)
+    return torch.where(keep_of(ids, table), norms, torch.inf)
 
 
-def mask_rows(ids: torch.Tensor, id_mask) -> torch.Tensor:
-    """Boolean keep-mask in the ids operand's layout."""
-    return _keep(ids, id_mask)
-
-
-def mask_shortlist_ids(ids: torch.Tensor, id_mask) -> torch.Tensor:
+def mask_shortlist_ids(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Invalidate (-1) shortlist entries whose external id is masked out.
 
     The scan gives masked rows +inf DISTANCE but keeps their real ids, and
@@ -72,23 +76,27 @@ def mask_shortlist_ids(ids: torch.Tensor, id_mask) -> torch.Tensor:
     inf entries pad it out. The exact rerank is mask-unaware — it would
     re-score them with their true finite distances and LEAK them into
     results — so every masked path scrubs shortlist ids before reranking."""
-    return torch.where(_keep(ids, id_mask), ids, -1)
+    return torch.where(keep_of(ids, table), ids, -1)
 
 
 class MaskCache:
     """Per-index cache of filter-mask stagings.
 
     Keyed by the mask ARRAY OBJECT (kept referenced, so identity is
-    stable); passing the same mask object across searches reuses the
-    staged masked operands."""
+    stable); passing the same mask object across searches reuses its keep
+    table (on the index's `device`) and the staged masked operands."""
 
-    def __init__(self):
+    def __init__(self, device):
+        self.device = device
         self._mask = None
         self._value = None
 
     def get(self, id_mask, build):
+        """(keep table, *build(keep table)): the mask's keep table and the
+        family's masked operands, built only when the mask OBJECT changes."""
         if self._mask is not id_mask:
-            self._value = build()
+            table = keep_table(id_mask, self.device)
+            self._value = (table, *build(table))
             self._mask = id_mask
         return self._value
 

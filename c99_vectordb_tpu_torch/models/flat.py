@@ -8,11 +8,12 @@ the CLI; bulk loads are sorted on ingest), which makes the lowest-position
 tie-break of every selection equal the contract's lowest-id tie-break.
 
 Search routes (counterpart of the JAX package's models/flat.py):
-  - on CUDA: a slacked shortlist (rerank.shortlist_depth) from the fused
-    L2 top-k kernel (ops/topk_cuda.py) when the store has >= 1024 rows and
-    the shortlist is <= 1024 deep, else from topk_program; masked
-    shortlists are scrubbed (mask_shortlist_ids); then the exact f32
-    rerank restores exact distances and (distance, id) order;
+  - on CUDA: a slacked shortlist (rerank.shortlist_depth) from
+    kernel_shortlist (the fused L2 top-k kernel of ops/topk_cuda.py, masked
+    ids scrubbed) when the store has >= 1024 rows and the shortlist is at
+    most topk_cuda.SHORTLIST_MAX deep, else from topk_program; then the
+    exact f32 rerank of the selected rows restores exact distances and
+    (distance, id) order. ShardedFlatIndex runs kernel_shortlist per shard;
   - on the CPU: topk_program at depth k, with no rerank.
 """
 
@@ -25,16 +26,30 @@ import torch
 
 from ..constants import DIM
 from ..ops.distances import query_rows, ranked_many_program, ranked_program
-from ..ops.rerank import build_id_lookup, exact_rerank_rows, exact_rerank_staged, shortlist_depth
+from ..ops.rerank import exact_rerank_rows, shortlist_depth
 from ..ops.topk import topk_program
-from ..ops.topk_cuda import fused_topk
+from ..ops.topk_cuda import SHORTLIST_MAX, fused_topk
 from ..utils.runtime import resolve_device
 from ..utils.timing import span
 from .base import next_pow2
-from .devbuild import MaskCache, mask_norms, mask_rows, mask_shortlist_ids
+from .devbuild import MaskCache, keep_of, mask_norms, mask_shortlist_ids
 from .registry import register
 
 _SCAN_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def kernel_shortlist(store, ids, norms, queries, depth: int, scale=None, keep=None):
+    """The flat kernel's step: the top-`depth` rows of `store` by the fused
+    L2 kernel (norms: +inf on padding and masked rows; scale: an SQ8
+    store's per-dimension scale, folded into the queries), with the ids of
+    a filter's masked rows scrubbed to -1 against its keep table `keep`.
+    Returns (ids (B, depth) int32, store rows (B, depth) int32) for an
+    exact rerank of those rows."""
+    _, out_ids, rows = fused_topk(store, ids, norms, queries if scale is None else queries * scale,
+                                  depth, return_rows=True)
+    if keep is not None:
+        out_ids = mask_shortlist_ids(out_ids, keep)
+    return out_ids, rows
 
 
 @register
@@ -56,7 +71,7 @@ class FlatIndex:
         self._vectors = np.zeros((0, self.dim), dtype=np.float32)
         self._ids = np.zeros((0,), dtype=np.int64)
         self._device = None
-        self._mask_cache = MaskCache()
+        self._mask_cache = MaskCache(self.device)
 
     # -- introspection ----------------------------------------------------
 
@@ -131,10 +146,19 @@ class FlatIndex:
 
     # -- device staging ----------------------------------------------------
 
+    def _build_masked(self, keep):
+        """Once-per-mask staged operands of the keep table `keep`: the
+        masked sq norms and scan norms (+inf IS the kernel's exclusion
+        marker) and the valid rows that topk_program reads."""
+        _, ids, valid, sq_norms, _, scan_norms, _ = self._staged()
+        return (mask_norms(sq_norms, ids, keep),
+                None if scan_norms is None else mask_norms(scan_norms, ids, keep),
+                valid & keep_of(ids, keep))
+
     def _staged(self):
-        """Padded device tensors, an 8-tuple:
-        (vectors f32, ids_i32, valid, sq_norms, id_lookup, scan_dev,
-        scan_norms, scan_scale). scan_dev is the scan_dtype copy the kernel
+        """Padded device tensors, a 7-tuple:
+        (vectors f32, ids_i32, valid, sq_norms, scan_dev, scan_norms,
+        scan_scale). scan_dev is the scan_dtype copy the kernel
         reads (aliases `vectors` for f32); scan_norms is None when it would
         alias sq_norms (f32/bf16 scans) and the decoded-space norms for
         int8; scan_scale is the (D,) SQ8 per-dimension scale (None unless
@@ -177,8 +201,6 @@ class FlatIndex:
                     torch.from_numpy(ids).to(dev),
                     torch.from_numpy(valid).to(dev),
                     torch.from_numpy(sq_norms).to(dev),
-                    # Rerank id->row lookup (row == id-sorted position here).
-                    build_id_lookup(self._ids, dev),
                     scan_dev,
                     scan_norms,
                     scan_scale,
@@ -210,47 +232,27 @@ class FlatIndex:
                 shape = (queries.shape[0], k)
                 return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
             with span("flat.scan"):
-                (vecs, ids, valid, sq_norms, id_lookup, scan_vecs, scan_norms,
-                 scan_scale) = self._staged()
+                vecs, ids, valid, sq_norms, scan_vecs, scan_norms, scan_scale = self._staged()
+                keep = None
                 if id_mask is not None:
-
-                    def _build():
-                        return (
-                            mask_norms(sq_norms, ids, id_mask),
-                            None if scan_norms is None else mask_norms(scan_norms, ids, id_mask),
-                            valid & mask_rows(ids, id_mask),
-                        )
-
-                    sq_norms_eff, scan_norms_eff, valid_eff = self._mask_cache.get(id_mask, _build)
-                else:
-                    sq_norms_eff, scan_norms_eff, valid_eff = sq_norms, scan_norms, valid
+                    keep, sq_norms, scan_norms, valid = self._mask_cache.get(id_mask,
+                                                                             self._build_masked)
                 cap = vecs.shape[0]
                 k_eff = min(k, cap)
                 k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
                 # The kernel keeps k_scan-deep lists; deeper shortlists and
-                # small stores take topk_program + the staged rerank.
-                fused_ok = cap >= 1024 and k_scan <= 1024
-                if rerank_route and fused_ok:
-                    q_scan = q_dev if scan_scale is None else q_dev * scan_scale
-                    dists, out_ids, scan_rows = fused_topk(
-                        scan_vecs, ids,
-                        sq_norms_eff if scan_norms_eff is None else scan_norms_eff,
-                        q_scan, k_scan, return_rows=True,
-                    )
-                    if id_mask is not None:
-                        out_ids = mask_shortlist_ids(out_ids, id_mask)
+                # small stores take topk_program.
+                if rerank_route and cap >= 1024 and k_scan <= SHORTLIST_MAX:
+                    out_ids, rows = kernel_shortlist(
+                        scan_vecs, ids, sq_norms if scan_norms is None else scan_norms, q_dev,
+                        k_scan, scan_scale, keep)
                 else:
-                    dists, out_ids = topk_program(vecs, ids, valid_eff, sq_norms_eff, q_dev, k_scan)
-                    scan_rows = None
+                    dists, out_ids, rows = topk_program(vecs, ids, valid, sq_norms, q_dev, k_scan)
             if rerank_route:
                 with span("flat.rerank"):
-                    if scan_rows is not None:
-                        # The scan store shares row order with the f32 store,
-                        # so the kernel's winner rows index the rerank store
-                        # directly.
-                        dists, out_ids = exact_rerank_rows(vecs, scan_rows, out_ids, q_dev, k_eff)
-                    else:
-                        dists, out_ids = exact_rerank_staged(vecs, id_lookup, out_ids, q_dev, k_eff)
+                    # The scan store shares row order with the f32 store, so
+                    # the selected rows index the rerank store directly.
+                    dists, out_ids = exact_rerank_rows(vecs, rows, out_ids, q_dev, k_eff)
             with span("flat.fetch"):
                 dists = dists.cpu().numpy()
                 out_ids = out_ids.cpu().numpy().astype(np.int64)

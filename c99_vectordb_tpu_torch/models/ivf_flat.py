@@ -67,9 +67,9 @@ from .devbuild import (
     fold_scatter,
     grow_pad,
     is_device_array,
+    keep_of,
     list_hwm,
     mask_norms,
-    mask_rows,
     mask_shortlist_ids,
     merge_tail,
     removal_table,
@@ -190,7 +190,7 @@ class IVFFlatIndex:
         self._restage_needed = False
         self._ranked_cache = None
         self._list_counts = None        # per-list counts of the last staging
-        self._mask_cache = MaskCache()
+        self._mask_cache = MaskCache(self.device)
 
     # -- introspection ------------------------------------------------------
 
@@ -446,6 +446,17 @@ class IVFFlatIndex:
         self._staged = staged
         self._hwm = list_hwm(staged[3]).to(torch.int32)
 
+    def _build_masked(self, keep):
+        """Once-per-mask staged operands of the keep table `keep`: the
+        masked list norms (and decoded norms on the int8 scan; +inf IS the
+        kernels' exclusion marker) and the lists' keep mask for the plain
+        route."""
+        _, _, _, list_ids, list_sqn, _, _, scan_extra = self._stage()
+        return (mask_norms(list_sqn, list_ids, keep),
+                None if scan_extra is None or scan_extra[0] != "int8"
+                else mask_norms(scan_extra[3], list_ids, keep),
+                keep_of(list_ids, keep))
+
     def _stage(self):
         if self._staged is None or self._restage_needed:
             # A restage folds the tail into the existing lists when it can
@@ -661,18 +672,10 @@ class IVFFlatIndex:
             return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
         (centroids, c_sq, list_vecs, list_ids, list_sqn, id_lookup, pad,
          scan_extra) = self._stage()
-        keep_rows = None
+        keep = keep_rows = None
         if id_mask is not None:
-
-            def _build():
-                return (
-                    mask_norms(list_sqn, list_ids, id_mask),
-                    None if scan_extra is None or scan_extra[0] != "int8"
-                    else mask_norms(scan_extra[3], list_ids, id_mask),
-                    mask_rows(list_ids, id_mask),
-                )
-
-            list_sqn, m_dec_sqn, keep_rows = self._mask_cache.get(id_mask, _build)
+            keep, list_sqn, m_dec_sqn, keep_rows = self._mask_cache.get(id_mask,
+                                                                        self._build_masked)
             if scan_extra is not None and scan_extra[0] == "int8":
                 scan_extra = ("int8", scan_extra[1], scan_extra[2], m_dec_sqn)
         nprobe_eff = min(nprobe or self.nprobe, int(centroids.shape[0]))
@@ -686,25 +689,25 @@ class IVFFlatIndex:
                 _, codes, dim_scale, dec_sqn = scan_extra
                 _, si, srows = ivf_sq8_search(centroids, c_sq, codes, dim_scale, dec_sqn,
                                               list_ids, q, nprobe_eff, ks, hwm=self._hwm)
-                if id_mask is not None:
-                    si = mask_shortlist_ids(si, id_mask)
+                if keep is not None:
+                    si = mask_shortlist_ids(si, keep)
                 dists, out_ids = exact_rerank_rows(flat_store, srows, si, q, k)
             else:
                 dense = width <= DENSE_MAX_BF16 if scan is None else scan == "dense"
                 _, si = ivf_full_search(centroids, c_sq, scan_extra[1], list_sqn, list_ids, q,
                                         nprobe_eff, ks, dense=dense, hwm=self._hwm)
-                if id_mask is not None:
-                    si = mask_shortlist_ids(si, id_mask)
+                if keep is not None:
+                    si = mask_shortlist_ids(si, keep)
                 dists, out_ids = exact_rerank_staged(flat_store, id_lookup, si, q, k)
         elif card_route:
             # f32 lists: the scan's true-f32 distances are the answer.
             dense = width <= DENSE_MAX_F32 if scan is None else scan == "dense"
             dists, out_ids = ivf_full_search(centroids, c_sq, list_vecs, list_sqn, list_ids, q,
                                              nprobe_eff, k, dense=dense, hwm=self._hwm)
-            if id_mask is not None:
+            if keep is not None:
                 # The select kernel lets masked rows (+inf, real id) fill an
                 # underfilled list; they must not come back as results.
-                out_ids = mask_shortlist_ids(out_ids, id_mask)
+                out_ids = mask_shortlist_ids(out_ids, keep)
         else:
             dists, out_ids = self._cpu_route(centroids, c_sq, list_vecs, list_ids, q,
                                              nprobe_eff, k, keep_rows)
@@ -713,8 +716,8 @@ class IVFFlatIndex:
             # queries that probe their assigned list, then one (distance,
             # id) merge.
             td = tail_scores(self._tail, centroids, c_sq, q, nprobe_eff)
-            if id_mask is not None:
-                td = torch.where(mask_rows(self._tail["ids"], id_mask)[None, :], td, torch.inf)
+            if keep is not None:
+                td = torch.where(keep_of(self._tail["ids"], keep)[None, :], td, torch.inf)
             dists, out_ids = merge_tail(dists, out_ids, td, self._tail["ids"], k)
         return dists.cpu().numpy(), out_ids.cpu().numpy().astype(np.int64)
 

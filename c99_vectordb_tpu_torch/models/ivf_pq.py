@@ -71,9 +71,9 @@ from .devbuild import (
     capped_assign_incremental,
     corpus_geometry,
     is_device_array,
+    keep_of,
     list_hwm,
     mask_norms,
-    mask_rows,
     mask_shortlist_ids,
     merge_tail,
     removal_table,
@@ -238,7 +238,7 @@ class IVFPQIndex:
         self._tail: GrowTail | None = None
         self._restage_needed = False
         self._list_counts = None            # per-list counts of the last staging
-        self._mask_cache = MaskCache()
+        self._mask_cache = MaskCache(self.device)
 
     # -- introspection -------------------------------------------------------
 
@@ -606,6 +606,13 @@ class IVFPQIndex:
         self._staged = staged
         self._hwm = list_hwm(staged[4]).to(torch.int32)
 
+    def _build_masked(self, keep):
+        """Once-per-mask staged operands of the keep table `keep`: a masked
+        copy of the item constants (+inf IS the ADC kernels' exclusion
+        marker) and the lists' keep mask for the plain route."""
+        staged = self._stage()
+        return mask_norms(staged[6], staged[4], keep), keep_of(staged[4], keep)
+
     def _stage(self):
         if self._staged is None or self._restage_needed:
             if self._mode == "device":
@@ -766,10 +773,9 @@ class IVFPQIndex:
         q_adc = self._rotate_device(q)
         (centroids, c_sq, codebooks, list_codes, list_ids, canvas, item_const,
          pad) = self._stage()
-        keep_rows = None
+        keep = keep_rows = None
         if id_mask is not None:
-            item_const, keep_rows = self._mask_cache.get(id_mask, lambda: (
-                mask_norms(item_const, list_ids, id_mask), mask_rows(list_ids, id_mask)))
+            keep, item_const, keep_rows = self._mask_cache.get(id_mask, self._build_masked)
         ksub_eff = int(codebooks.shape[1])
         nprobe_eff = min(nprobe or self.nprobe, int(centroids.shape[0]))
         k_adc = min(k * self.refine_factor, self.ntotal) if self.refine else k
@@ -783,10 +789,10 @@ class IVFPQIndex:
                 dists, out_ids = adc_full_search(centroids, c_sq, codebooks, canvas, item_const,
                                                  list_ids, q_adc, nprobe_eff, k_adc,
                                                  hwm=self._hwm)
-            if id_mask is not None:
+            if keep is not None:
                 # Masked rows can pad the dense shortlist as +inf entries
                 # with REAL ids; the rerank would re-score them finitely.
-                out_ids = mask_shortlist_ids(out_ids, id_mask)
+                out_ids = mask_shortlist_ids(out_ids, keep)
         else:
             if list_codes is None:
                 list_codes = unstage_codes_device(canvas, self.m, ksub_eff)
@@ -797,8 +803,8 @@ class IVFPQIndex:
             # exact distance to their reconstruction), masked to the probed
             # lists, so the merged shortlist equals a fresh build's.
             td = tail_scores(self._tail, centroids, c_sq, q_adc, nprobe_eff, vec_field="recon")
-            if id_mask is not None:
-                td = torch.where(mask_rows(self._tail["ids"], id_mask)[None, :], td, torch.inf)
+            if keep is not None:
+                td = torch.where(keep_of(self._tail["ids"], keep)[None, :], td, torch.inf)
             dists, out_ids = merge_tail(dists, out_ids, td, self._tail["ids"], k_adc)
         if self.refine:
             vecs, id_lookup, _, _ = self._stage_refine()

@@ -62,27 +62,31 @@ def topk_program(
     sq_norms: torch.Tensor,
     queries: torch.Tensor,
     k: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, dim) x (cap, dim) -> top-k (distances (B, k), ids (B, k) int32)."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, dim) x (cap, dim) -> top-k (distances (B, k), ids (B, k) int32,
+    store rows (B, k) int32), as ops/topk_cuda.fused_topk(return_rows=True)
+    returns them."""
     queries = torch.as_tensor(queries, dtype=torch.float32, device=db.device)
     dists = scores_via_matmul(queries, db, sq_norms)
     dists = torch.where(valid[None, :], dists, torch.inf)
     top_d, rows = stable_topk(dists, k)
     out_ids = torch.where(top_d < torch.inf, ids[rows], -1)
-    return top_d, out_ids
+    return top_d, out_ids, rows.to(torch.int32)
 
 
-def merge_topk(
-    dists: torch.Tensor, ids: torch.Tensor, k: int
-) -> tuple[torch.Tensor, torch.Tensor]:
+def merge_topk(dists: torch.Tensor, ids: torch.Tensor, k: int, payload=None):
     """Merge candidate sets: (B, C) -> exact (B, k) by (distance, id).
 
     Invalid candidates must carry +inf distance. The output pads to width
-    k with (inf, -1) when C < k."""
+    k with (inf, -1) when C < k. With `payload` (B, C), a per-candidate
+    value carried through the selection, the merged (B, k) payload comes
+    third (0 in padding)."""
     if dists.shape[-1] < k:
         pad = k - dists.shape[-1]
         dists = torch.nn.functional.pad(dists, (0, pad), value=torch.inf)
         ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        if payload is not None:
+            payload = torch.nn.functional.pad(payload, (0, pad), value=0)
     tie_ids = torch.where(torch.isinf(dists), INT32_MAX, ids)
     # Lexicographic (distance, id): stable sort by the secondary key, then
     # stable sort by the primary key.
@@ -92,4 +96,7 @@ def merge_topk(
     by_d = torch.argsort(dists, dim=-1, stable=True)[..., :k]
     out_d = torch.gather(dists, -1, by_d)
     out_i = torch.gather(tie_ids, -1, by_d)
-    return out_d, torch.where(out_i == INT32_MAX, -1, out_i)
+    out_i = torch.where(out_i == INT32_MAX, -1, out_i)
+    if payload is None:
+        return out_d, out_i
+    return out_d, out_i, torch.gather(torch.gather(payload, -1, by_id), -1, by_d)

@@ -69,6 +69,10 @@ SIGNATURES = {
 F32_Q_STEP = 8
 F32_BOX_COLS = 16
 F32_STAGE_COLS = 32
+# The deepest shortlist the index routes ask of the kernel: the JAX
+# package's routes bound theirs so (its Pallas kernel keeps k within one
+# 1024-row tile), and deeper shortlists take both packages' exact routes.
+SHORTLIST_MAX = 1024
 
 
 def _load() -> ctypes.CDLL:

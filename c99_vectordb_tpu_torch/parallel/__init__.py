@@ -13,5 +13,4 @@ from .sharded import (  # noqa: F401
     sharded_search_2level,
     sharded_search_kernels,
     sharded_search_program,
-    sharded_search_sq8_kernels,
 )

@@ -11,13 +11,13 @@ psum:
     two-level merge). Each rank takes its local top-k, then an all_gather
     of the (B, k) candidates and a (distance, id) merge give every rank
     the global top-k. Per-query traffic is O(shards * k).
-  - the kernel route (the JAX package's TPU branch): per shard, the port's
-    fused L2 top-k kernel (ops/topk_cuda.fused_topk) takes a slacked
-    shortlist, masked shortlist ids are scrubbed to -1, and an exact f32
-    rerank of the shard's own rows restores exact distances before the
-    merge. The SQ8 store scans int8 codes with queries x the GLOBAL
-    per-dimension scale (a MAX all_reduce over the corpus axes, so every
-    shard codes alike).
+  - the kernel route (the JAX package's TPU branch): per shard, the flat
+    index's kernel step (models/flat.kernel_shortlist: the fused L2 top-k
+    kernel, masked shortlist ids scrubbed to -1) takes a slacked
+    shortlist, and an exact f32 rerank of the shard's own rows restores
+    exact distances before the merge. The SQ8 store scans int8 codes with
+    queries x the GLOBAL per-dimension scale (a MAX all_reduce over the
+    corpus axes, so every shard codes alike).
   - search (2-D): rows over `data`, dims over `model`; the partial inner
     products and norms are summed over `model` before the local top-k.
   - IVF (ShardedIVFIndex): the inverted lists are SLOT-SHARDED. Each
@@ -65,10 +65,11 @@ import torch
 
 from ..models.base import list_pad, next_pow2
 from ..models.devbuild import (
-    ChunkStore, GrowTail, MaskCache, apply_removal, bucketize_device, is_device_array, list_hwm,
-    merge_tail, removal_table, rows_sqn, scatter_list_ids_device, scatter_lists_device,
-    tail_restage_threshold, tail_scores,
+    ChunkStore, GrowTail, MaskCache, apply_removal, bucketize_device, is_device_array, keep_of,
+    list_hwm, mask_norms, mask_shortlist_ids, merge_tail, removal_table, rows_sqn,
+    scatter_list_ids_device, scatter_lists_device, tail_restage_threshold, tail_scores,
 )
+from ..models.flat import kernel_shortlist
 from ..models.ivf_flat import DENSE_MAX_F32, _sq8_stage
 from ..models.ivf_pq import _residual_subs, train_opq_rotation
 from ..models.registry import register
@@ -82,13 +83,10 @@ from ..ops.kmeans import assign_clusters, assign_clusters_multi, train_kmeans, \
     train_kmeans_multi
 from ..ops.rerank import exact_rerank_rows, shortlist_depth
 from ..ops.topk import merge_topk, stable_topk
-from ..ops.topk_cuda import fused_topk
+from ..ops.topk_cuda import SHORTLIST_MAX
 from ..utils.timing import span
 from .mesh import Mesh, all_gather_axes, all_gather_axis, all_reduce_axes, \
     all_reduce_axis, default_data_mesh
-
-# The kernel keeps shortlists up to this deep (csrc/fused_l2_topk.cu).
-KERNEL_MAX_K = 1024
 
 COUNTERS = {"staged_live_rows": 0, "merge_candidates": 0}
 
@@ -169,40 +167,6 @@ def _merge_axes(local_d, local_i, k: int, mesh: Mesh, axes: tuple[str, ...]):
     return d, i
 
 
-def _merge_topk_with_rows(dists, ids, rows, k: int):
-    """merge_topk carrying a per-candidate payload (`rows`) through the
-    (distance, id) selection: +inf candidates tie at INT32_MAX and come
-    back as id -1. The output pads to width k with (inf, -1, 0)."""
-    if dists.shape[-1] < k:
-        pad = k - dists.shape[-1]
-        dists = torch.nn.functional.pad(dists, (0, pad), value=torch.inf)
-        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
-        rows = torch.nn.functional.pad(rows, (0, pad), value=0)
-    tie_ids = torch.where(torch.isinf(dists), INT32_MAX, ids)
-    by_id = torch.argsort(tie_ids, dim=-1, stable=True)
-    dists, tie_ids, rows = (torch.gather(a, -1, by_id) for a in (dists, tie_ids, rows))
-    by_d = torch.argsort(dists, dim=-1, stable=True)[..., :k]
-    out_i = torch.gather(tie_ids, -1, by_d)
-    return (torch.gather(dists, -1, by_d), torch.where(out_i == INT32_MAX, -1, out_i),
-            torch.gather(rows, -1, by_d))
-
-
-def _keep_of(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Keep-mask of an ids operand against a (cap,) bool table keyed by
-    external id: ids below 0 or at/after cap are excluded, never
-    clip-aliased onto the boundary slot."""
-    cap = table.shape[0]
-    safe = torch.clamp(ids.to(torch.int64), 0, cap - 1)
-    return table[safe] & (ids >= 0) & (ids < cap)
-
-
-def _scrub_ids(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Masked rows enter a kernel shortlist as +inf padding with their REAL
-    ids; the per-shard exact rerank would re-score them finitely and leak
-    them, so they become -1 first."""
-    return torch.where(_keep_of(ids, table), ids, -1)
-
-
 # -- the per-shard programs (each rank passes its own shard) ---------------------------
 
 
@@ -222,35 +186,21 @@ def sharded_search_program(mesh: Mesh, db, ids, sq_norms, queries, k: int,
     return _merge_axes(local_d, local_i, k, mesh, axes)
 
 
-def sharded_search_kernels(mesh: Mesh, db, ids, sq_norms, queries, k: int, ks: int,
-                           axes: tuple[str, ...] = ("data",), keep=None):
+def sharded_search_kernels(mesh: Mesh, scan, scan_norms, scale, db, ids, queries, k: int,
+                           ks: int, axes: tuple[str, ...] = ("data",), keep=None):
     """Exact search with the flat kernel per shard: fused scan + top-ks
-    shortlist over the rank's rows (the (B, n_local) score matrix never
-    reaches device memory), then an exact f32 rerank of the shard's own
-    shortlisted rows (the kernel's winner rows index the shard directly),
-    then the merge. keep: the (cap,) bool table of a filter, whose masked
-    shortlist ids are scrubbed before the rerank. The shard needs >= 1
-    row and +inf norms on padding rows (the kernel's mask)."""
+    shortlist over the rank's scan store (models/flat.kernel_shortlist; the
+    (B, n_local) score matrix never reaches device memory), then an exact
+    f32 rerank of the shard's own shortlisted rows of db (the scan store
+    shares db's row order, so the kernel's winner rows index it directly),
+    then the merge. scan, scan_norms, scale: db, its sq norms and None, or
+    the SQ8 store's int8 codes, their decoded-space norms and the GLOBAL
+    per-dimension scale (the kernel then scans with queries x scale). keep:
+    the (cap,) bool table of a filter, whose masked shortlist ids are
+    scrubbed before the rerank. The shard needs >= 1 row and +inf norms on
+    padding rows (the kernel's mask)."""
     with span("sharded.scan"):
-        _, si, rows = fused_topk(db, ids, sq_norms, queries, ks, return_rows=True)
-        if keep is not None:
-            si = _scrub_ids(si, keep)
-    with span("sharded.rerank"):
-        local_d, local_i = exact_rerank_rows(db, rows, si, queries, k)
-    return _merge_axes(local_d, local_i, k, mesh, axes)
-
-
-def sharded_search_sq8_kernels(mesh: Mesh, codes, db, ids, dec_norms, scale, queries,
-                               k: int, ks: int, axes: tuple[str, ...] = ("data",),
-                               keep=None):
-    """sharded_search_kernels on the SQ8 store: each rank scans its int8
-    codes with queries x the global per-dimension scale (the kernel's
-    int8 x int8 mode; queries are row-quantised inside fused_topk), then
-    reranks its shortlist exactly from its f32 rows."""
-    with span("sharded.scan"):
-        _, si, rows = fused_topk(codes, ids, dec_norms, queries * scale, ks, return_rows=True)
-        if keep is not None:
-            si = _scrub_ids(si, keep)
+        si, rows = kernel_shortlist(scan, ids, scan_norms, queries, ks, scale, keep)
     with span("sharded.rerank"):
         local_d, local_i = exact_rerank_rows(db, rows, si, queries, k)
     return _merge_axes(local_d, local_i, k, mesh, axes)
@@ -309,12 +259,6 @@ def _flat_tail_scores(tail_vecs, tail_ids, queries):
     return torch.where((tail_ids >= 0)[None, :], d, torch.inf)
 
 
-def _mask_tensor(id_mask, device) -> torch.Tensor:
-    if isinstance(id_mask, torch.Tensor):
-        return id_mask.to(device=device, dtype=torch.bool)
-    return torch.from_numpy(np.asarray(id_mask, dtype=bool)).to(device)
-
-
 class _ShardedBase:
     """Shared plumbing of the sharded families: add / search / ranked_all /
     ids and state() / from_state() through storage/index_io.py.
@@ -345,7 +289,7 @@ class _ShardedBase:
             if dev.type != mesh.device.type or dev.index not in (None, mesh.device.index):
                 raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
         self.dim = int(dim)
-        self._mask_cache = MaskCache()
+        self._mask_cache = MaskCache(mesh.device)
         self._reset_rows()
         self._mesh = None
         self.mesh = mesh
@@ -386,7 +330,7 @@ class _ShardedBase:
         self._tail = None
         self._restage_needed = False
         self._ranked_cache = None
-        self._mask_cache.clear()
+        self._mask_cache = MaskCache(mesh.device)
 
     @property
     def device(self) -> torch.device:
@@ -580,12 +524,6 @@ class _ShardedBase:
             return np.zeros((0,), np.float32), np.zeros((0,), np.int64)
         dists, out_ids, n = self.ranked_all_device(query)
         return dists[:n].cpu().numpy(), out_ids[:n].cpu().numpy().astype(np.int64)
-
-    def _mask_table(self, id_mask):
-        """The filter's (cap,) keep table on the device + the family's
-        masked staged operands, rebuilt only when the mask OBJECT changes."""
-        return self._mask_cache.get(
-            id_mask, lambda: self._build_masked(_mask_tensor(id_mask, self.device)))
 
 
 @register
@@ -786,14 +724,12 @@ class ShardedFlatIndex(_ShardedBase):
         return int(all_reduce_axes(count, self._mesh, self._axes, "sum")[0])
 
     def _build_masked(self, keep):
-        """Once-per-mask staged operands: the masked sq norms (and decoded
+        """Once-per-mask staged operands of the keep table `keep`: the
+        masked sq norms and the masked norms of the scan store (the decoded
         norms on the int8 route); +inf IS the scan's exclusion marker."""
         staged = self._stage()
-        kept = _keep_of(staged[1], keep)
-        masked_sq = torch.where(kept, staged[2], torch.inf)
-        masked_dec = (torch.where(kept, staged[4], torch.inf)
-                      if self.scan_dtype == "int8" else None)
-        return keep, masked_sq, masked_dec
+        sq = mask_norms(staged[2], staged[1], keep)
+        return sq, mask_norms(staged[4], staged[1], keep) if self.scan_dtype == "int8" else sq
 
     def search(self, queries, k: int, *, id_mask=None) -> tuple[np.ndarray, np.ndarray]:
         """id_mask: optional (cap,) bool keyed by EXTERNAL id (filter
@@ -823,22 +759,17 @@ class ShardedFlatIndex(_ShardedBase):
                     torch.full(shape, -1, dtype=torch.int32, device=self.device))
         staged = self._stage()
         db, idp, sq = staged[:3]
-        keep = masked_dec = None
+        scan, scan_sq, scale = staged[3:] if self.scan_dtype == "int8" else (db, sq, None)
+        keep = None
         if id_mask is not None:
-            keep, sq, masked_dec = self._mask_table(id_mask)
+            keep, sq, scan_sq = self._mask_cache.get(id_mask, self._build_masked)
         depth = shortlist_depth(k, self.ntotal)
         if kernel_route is None:
-            kernel_route = self.device.type == "cuda" and depth <= KERNEL_MAX_K
+            kernel_route = self.device.type == "cuda" and depth <= SHORTLIST_MAX
         if kernel_route:
-            ks = min(depth, db.shape[0], KERNEL_MAX_K)
-            if self.scan_dtype == "int8":
-                codes, dec_sq, scale = staged[3:]
-                d, i = sharded_search_sq8_kernels(
-                    self._mesh, codes, db, idp, dec_sq if keep is None else masked_dec,
-                    scale, q, k, ks, self._axes, keep)
-            else:
-                d, i = sharded_search_kernels(self._mesh, db, idp, sq, q, k, ks, self._axes,
-                                              keep)
+            ks = min(depth, db.shape[0], SHORTLIST_MAX)
+            d, i = sharded_search_kernels(self._mesh, scan, scan_sq, scale, db, idp, q, k, ks,
+                                          self._axes, keep)
         else:
             d, i = sharded_search_program(self._mesh, db, idp, sq, q, k, self._axes)
         if self._tail and self._tail.count:
@@ -847,7 +778,7 @@ class ShardedFlatIndex(_ShardedBase):
             tail_ids = self._tail["ids"]
             td = _flat_tail_scores(self._tail["vecs"], tail_ids, q)
             if keep is not None:
-                td = torch.where(_keep_of(tail_ids, keep)[None, :], td, torch.inf)
+                td = torch.where(keep_of(tail_ids, keep)[None, :], td, torch.inf)
             d, i = merge_tail(d, i, td, tail_ids, k)
         return d, i
 
@@ -1044,7 +975,7 @@ def sharded_ivf_sq8_search_program(mesh: Mesh, centroids, c_sq, codes, dim_scale
     _, si, srows = ivf_sq8_search(centroids, c_sq, codes, dim_scale, dec_sqn, list_ids, queries,
                                   nprobe, ks, hwm=hwm)
     if keep is not None:
-        si = _scrub_ids(si, keep)
+        si = mask_shortlist_ids(si, keep)
     local_d, local_i = exact_rerank_rows(rerank_vecs.reshape(-1, rerank_vecs.shape[-1]), srows,
                                          si, queries, k)
     return _merge_axes(local_d, local_i, k, mesh, axes)
@@ -1081,13 +1012,13 @@ def _pq_probe_scan(centroids, c_sq, codebooks, list_codes, list_ids, list_vecs, 
             codes = list_codes[lists].long().transpose(1, 2)                # (bc, m, pad)
             ids = list_ids[lists]
             if keep is not None:
-                ids = _scrub_ids(ids, keep)
+                ids = mask_shortlist_ids(ids, keep)
             d = torch.gather(lut, 2, codes).sum(dim=1)
             d = torch.where(ids >= 0, d, torch.inf)
             rows = lists[:, None].to(torch.int32) * pad + lane[None, :]
-            best_d, best_i, best_r = _merge_topk_with_rows(
-                torch.cat([best_d, d], 1), torch.cat([best_i, ids], 1),
-                torch.cat([best_r, rows], 1), k_adc)
+            best_d, best_i, best_r = merge_topk(
+                torch.cat([best_d, d], 1), torch.cat([best_i, ids], 1), k_adc,
+                torch.cat([best_r, rows], 1))
         d, i = exact_rerank_rows(flat_vecs, best_r, best_i, queries[q0 : q0 + chunk], k)
         out_d.append(d)
         out_i.append(i)
@@ -1123,7 +1054,7 @@ def sharded_pq_search_program(mesh: Mesh, centroids, c_sq, codebooks, canvas, it
         _, si, rows = adc_dense_search(centroids, c_sq, codebooks, canvas, item_const, list_ids,
                                        q_adc, nprobe, k_adc, return_rows=True, hwm=hwm)
         if keep is not None:
-            si = _scrub_ids(si, keep)
+            si = mask_shortlist_ids(si, keep)
         local_d, local_i = exact_rerank_rows(list_vecs.reshape(-1, list_vecs.shape[-1]), rows,
                                              si, queries, k)
     else:
@@ -1437,14 +1368,14 @@ class ShardedIVFIndex(_ShardedBase):
         return int(all_reduce_axes(count, self._mesh, self._axes, "sum")[0])
 
     def _build_masked(self, keep):
-        """Once-per-mask staged operands: the masked scan norms (list_sqn,
-        or dec_sqn for int8; +inf IS the kernels' exclusion marker) and the
-        block's keep canvas for the plain probe scan (which scores diff^2
-        and never reads the norms)."""
+        """Once-per-mask staged operands of the keep table `keep`: the
+        masked scan norms (list_sqn, or dec_sqn for int8; +inf IS the
+        kernels' exclusion marker) and the block's keep canvas for the
+        plain probe scan (which scores diff^2 and never reads the norms)."""
         staged = self._stage()
         li_at, norms_at = (5, 4) if self.scan_dtype == "int8" else (4, 3)
-        kept = _keep_of(staged[li_at], keep)
-        return keep, torch.where(kept, staged[norms_at], torch.inf), kept
+        kept = keep_of(staged[li_at], keep)
+        return torch.where(kept, staged[norms_at], torch.inf), kept
 
     def scan_rows_per_chip(self, b: int, nprobe: int | None = None) -> dict:
         """Candidate rows each rank scans for a (b,)-query batch: B * nprobe
@@ -1466,7 +1397,7 @@ class ShardedIVFIndex(_ShardedBase):
         td = tail_scores(self._tail, self._staged[0], self._staged[1], q, nprobe,
                          vec_field=self._tail_field)
         if keep is not None:
-            td = torch.where(_keep_of(tail_ids, keep)[None, :], td, torch.inf)
+            td = torch.where(keep_of(tail_ids, keep)[None, :], td, torch.inf)
         return merge_tail(d, i, td, tail_ids, k)
 
     # -- search -----------------------------------------------------------------------------------
@@ -1496,7 +1427,7 @@ class ShardedIVFIndex(_ShardedBase):
         nprobe_eff = min(nprobe or self.nprobe, nlist)
         keep = masked_norms = keep_canvas = None
         if id_mask is not None:
-            keep, masked_norms, keep_canvas = self._mask_table(id_mask)
+            keep, masked_norms, keep_canvas = self._mask_cache.get(id_mask, self._build_masked)
         if self.scan_dtype == "int8":
             centroids, c_sq, codes, scale, dec_sqn, li, rerank = staged
             ks = min(shortlist_depth(k, self.ntotal), nprobe_eff * pad_local)
@@ -1796,11 +1727,11 @@ class ShardedIVFPQIndex(ShardedIVFIndex):
         return int(all_reduce_axes(count, self._mesh, self._axes, "sum")[0])
 
     def _build_masked(self, keep):
-        """Once-per-mask staged operands: the keep table and a masked copy
-        of the block's item constants (+inf IS the ADC kernel's exclusion
-        marker; the plain route reads the table only)."""
+        """Once-per-mask staged operands of the keep table `keep`: a masked
+        copy of the block's item constants (+inf IS the ADC kernel's
+        exclusion marker; the plain route reads the table only)."""
         staged = self._stage()
-        return keep, torch.where(_keep_of(staged[5], keep), staged[4], torch.inf)
+        return (mask_norms(staged[4], staged[5], keep),)
 
     # -- search -----------------------------------------------------------------------------
 
@@ -1830,7 +1761,7 @@ class ShardedIVFPQIndex(ShardedIVFIndex):
         k_adc = max(min(k * self.refine_factor, self.ntotal), k)
         keep = None
         if id_mask is not None:
-            keep, item_const = self._mask_table(id_mask)
+            keep, item_const = self._mask_cache.get(id_mask, self._build_masked)
         if kernel_route is None:
             kernel_route = self.device.type == "cuda" and kernel_shape(int(codebooks.shape[1]),
                                                                        self.m)

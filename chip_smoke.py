@@ -428,7 +428,7 @@ def phase_flat(device, n, d, seed, card):
         if dt == "int8":
             # The same SQ8 store through fused_topk(q_int8=False): bf16
             # queries against the codes decoded to bf16, then the exact rerank.
-            vecs, ids_t, _, _, _, codes, dec_norms, scale = index._staged()
+            vecs, ids_t, _, _, codes, dec_norms, scale = index._staged()
             qd = torch.from_numpy(q).to(device)
             _, si, rows = topk_cuda.fused_topk(codes, ids_t, dec_norms, qd * scale, 20,
                                                q_int8=False, return_rows=True)

@@ -64,14 +64,15 @@ def test_search_matches_jax(scan_dtype, masked, k):
 
 
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", [False, True, "tensor"])
 def test_card_route_wiring_on_cpu_tensors(scan_dtype, masked):
     """The CUDA search route, run on CPU tensors, against the same route
-    assembled from JAX pieces (flat.py's on-TPU branch)."""
+    assembled from JAX pieces (flat.py's on-TPU branch). masked="tensor"
+    passes the port the mask as a torch tensor, JAX the numpy array."""
     x, ids, q, mask = _corpus(1000, 2)
     j, t = _pair(x, ids, scan_dtype)
     k = 10
-    id_mask = mask if masked else None
+    id_mask = None if not masked else torch.from_numpy(mask) if masked == "tensor" else mask
     td, ti = t._search(q, k, id_mask, rerank_route=True)
 
     (vecs, jids, valid, sq_norms, _, scan_vecs, scan_norms, scan_scale) = j._staged()

@@ -951,7 +951,7 @@ def test_dense_hwm_follows_remove_and_restage(monkeypatch):
     from c99_vectordb_tpu.ops.adc_pallas import (CODE_LANES, adc_dense_program,
                                                  adc_dense_program_multi)
     from c99_vectordb_tpu_torch.models import ivf_pq as tpq_mod
-    from c99_vectordb_tpu_torch.models.devbuild import list_hwm, mask_norms
+    from c99_vectordb_tpu_torch.models.devbuild import keep_table, list_hwm, mask_norms
     from c99_vectordb_tpu_torch.ops import adc as tadc
 
     seen = []
@@ -984,7 +984,7 @@ def test_dense_hwm_follows_remove_and_restage(monkeypatch):
         qd128[:, :8] = qd.numpy()
         progs = (adc_dense_program(8, pad, 8, 256, q.shape[0], 3),
                  adc_dense_program_multi(8, pad, 8, 256, q.shape[0], 3, 8))
-        for ic in (const, mask_norms(const, li, mask)):
+        for ic in (const, mask_norms(const, li, keep_table(mask, li.device))):
             got = tadc.adc_dense_plain(probes, pc, qd, canvas, ic, li, packed=False,
                                        hwm=want_hwm)
             bare = tadc.adc_dense_plain(probes, pc, qd, canvas, ic, li, packed=False)

@@ -50,6 +50,7 @@ from c99_vectordb_tpu.storage import index_io as jio
 from c99_vectordb_tpu_torch import commands as tcommands
 from c99_vectordb_tpu_torch.models.registry import resolve
 from c99_vectordb_tpu_torch.ops.adc import unstage_codes_device
+from c99_vectordb_tpu_torch.ops.topk import merge_topk
 from c99_vectordb_tpu_torch.parallel import ShardedIVFPQIndex, default_data_mesh
 from c99_vectordb_tpu_torch.parallel import sharded as tsharded
 
@@ -347,12 +348,11 @@ def test_merge_topk_with_rows_matches_jax():
     for k in (1, 12, 40):
         want = jsharded._merge_topk_with_rows(jnp.asarray(d), jnp.asarray(i),
                                               jnp.asarray(rows), k)
-        have = tsharded._merge_topk_with_rows(torch.from_numpy(d), torch.from_numpy(i),
-                                              torch.from_numpy(rows), k)
+        have = merge_topk(torch.from_numpy(d), torch.from_numpy(i), k, torch.from_numpy(rows))
         for a, b in zip(have, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    wide = tsharded._merge_topk_with_rows(torch.from_numpy(d[:, :3]), torch.from_numpy(i[:, :3]),
-                                          torch.from_numpy(rows[:, :3]), 5)
+    wide = merge_topk(torch.from_numpy(d[:, :3]), torch.from_numpy(i[:, :3]), 5,
+                      torch.from_numpy(rows[:, :3]))
     assert wide[0].shape == (5, 5) and (wide[1][:, 3:] == -1).all()
 
 

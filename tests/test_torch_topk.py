@@ -266,7 +266,7 @@ def _padded_store(rng, n_live=300, cap=512, d=8):
 def test_topk_program_matches_jax_on_exact_ties(k):
     db, ids, valid, norms, q = _padded_store(np.random.default_rng(3))
     jd, ji = jtopk.topk_program(db.shape[0], db.shape[1], k)(db, ids, valid, norms, q)
-    td, ti = ttopk.topk_program(*(torch.from_numpy(a) for a in (db, ids, valid, norms, q)), k)
+    td, ti, _ = ttopk.topk_program(*(torch.from_numpy(a) for a in (db, ids, valid, norms, q)), k)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 

@@ -156,7 +156,7 @@ def run_cases(world: int, out: Path, shared: Path) -> dict[str, np.ndarray]:
     # kernel (which fills a list with masked rows at +inf with their ids).
     few = underfilled_mask()
     staged = ix._stage()
-    _, masked_sqn, _ = ix._mask_table(few)
+    _, masked_sqn, _ = ix._mask_cache.get(few, ix._build_masked)
     from c99_vectordb_tpu_torch.ops.ivf_scan import ivf_full_search
 
     raw_d, raw_i = ivf_full_search(staged[0], staged[1], staged[2], masked_sqn, staged[4],

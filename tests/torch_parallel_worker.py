@@ -33,7 +33,6 @@ from c99_vectordb_tpu_torch.ops import topk_cuda  # noqa: E402
 from c99_vectordb_tpu_torch.parallel import (  # noqa: E402
     ShardedFlatIndex, make_host_chip_mesh, make_mesh, sharded_search_2d,
     sharded_search_2level, sharded_search_kernels, sharded_search_program,
-    sharded_search_sq8_kernels,
 )
 from c99_vectordb_tpu_torch.parallel.sharded import shard_rows  # noqa: E402
 from c99_vectordb_tpu_torch.storage.index_io import read_index, write_index  # noqa: E402
@@ -112,15 +111,15 @@ def run_cases(world: int, out: Path, jax_files: Path | None) -> dict[str, np.nda
     # TestSlotSharding (flat): the kernel routes, as programs and as the index
     db, idp, sq = idx._stage()
     ks = min(2 * K, db.shape[0], 1024)
-    pd, pi = sharded_search_kernels(idx.mesh, db, idp, sq, t(q), K, ks)
+    pd, pi = sharded_search_kernels(idx.mesh, db, sq, None, db, idp, t(q), K, ks)
     put("kernels_program", d=pd, i=pi)
     sq8 = ShardedFlatIndex(dim=64, scan_dtype="int8")
     sq8.load(x, ids)
     d, i = sq8.search(q, K)
     kd, ki = sq8._search(q, K, None, kernel_route=True)
     db8, idp8, _, codes, dec_sq, scale = sq8._stage()
-    pd, pi = sharded_search_sq8_kernels(sq8.mesh, codes, db8, idp8, dec_sq, scale, t(q), K,
-                                        min(2 * K, db8.shape[0]))
+    pd, pi = sharded_search_kernels(sq8.mesh, codes, dec_sq, scale, db8, idp8, t(q), K,
+                                    min(2 * K, db8.shape[0]))
     md, mi = sq8._search(q, K, mask, kernel_route=True)
     put("sq8", d=d, i=i, kd=kd, ki=ki, pd=pd, pi=pi, md=md, mi=mi, scale=scale,
         per=db8.shape[0])
