@@ -15,10 +15,20 @@ Search routes (counterpart of the JAX package's models/flat.py):
     exact f32 rerank of the selected rows restores exact distances and
     (distance, id) order. ShardedFlatIndex runs kernel_shortlist per shard;
   - on the CPU: topk_program at depth k, with no rerank.
+
+On a card, an unmasked search on the kernel route replays a CUDA graph
+of its (B, k) from the key's third call on (SearchGraph, GraphCache):
+the queries' copy in from a pinned buffer, the kernel's shortlist, the
+exact rerank and the results' copies out, the same launches on the same
+operands as the eager route, issued by one replay. A key's first call
+runs eagerly (it stages the store and builds the kernel), its second
+captures. The cache belongs to one staging: add and remove_ids drop it
+with the staged tensors, so no graph outlives the pointers it holds.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any
 
 import numpy as np
@@ -28,7 +38,7 @@ from ..constants import DIM
 from ..ops.distances import query_rows, ranked_many_program, ranked_program
 from ..ops.rerank import exact_rerank_rows, shortlist_depth
 from ..ops.topk import topk_program
-from ..ops.topk_cuda import SHORTLIST_MAX, fused_topk
+from ..ops.topk_cuda import SHORTLIST_MAX, add_launch_counts, fused_topk, launch_counts
 from ..utils.runtime import resolve_device
 from ..utils.timing import span
 from .base import next_pow2
@@ -36,6 +46,15 @@ from .devbuild import MaskCache, keep_of, mask_norms, mask_shortlist_ids
 from .registry import register
 
 _SCAN_DTYPES = ("float32", "bfloat16", "int8")
+
+# The keys (B, k) whose searches one staging keeps captured, the least
+# recently used dropped past it: the bound on the graphs' memory pools.
+GRAPH_KEYS = 8
+
+# Always on and process-wide (as parallel/sharded.COUNTERS): searches that
+# captured a CUDA graph of their key, that replayed one an earlier search
+# captured, and that ran eagerly (on any device).
+COUNTERS = {"graph_captures": 0, "graph_replays": 0, "eager_searches": 0}
 
 
 def kernel_shortlist(store, ids, norms, queries, depth: int, scale=None, keep=None):
@@ -50,6 +69,100 @@ def kernel_shortlist(store, ids, norms, queries, depth: int, scale=None, keep=No
     if keep is not None:
         out_ids = mask_shortlist_ids(out_ids, keep)
     return out_ids, rows
+
+
+def kernel_route(cap: int, k_scan: int) -> bool:
+    """Whether the card's shortlist comes from the kernel: it keeps
+    k_scan-deep lists, so deeper shortlists and small stores (cap rows,
+    padded) take topk_program."""
+    return cap >= 1024 and k_scan <= SHORTLIST_MAX
+
+
+class GraphCache:
+    """The captured searches of one staging by key (B, k): None for a key
+    seen once, its SearchGraph once captured; past `keys` keys the least
+    recently used goes."""
+
+    def __init__(self, keys: int = GRAPH_KEYS):
+        self.keys = keys
+        self._entries: OrderedDict = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    def __getitem__(self, key):
+        return self._entries[key]
+
+    def step(self, key, *, cuda: bool, masked: bool, kernel: bool) -> str:
+        """How a search of `key` runs: "replay" its graph, "capture" it (the
+        key's second sighting) or "eager": off the card, under a mask, off
+        the kernel route, and at a key's first sighting, which stages the
+        store, builds the kernel and sets its attributes (none of which
+        may happen inside a capture)."""
+        if not cuda or masked or not kernel:
+            return "eager"
+        if key not in self._entries:
+            self._entries[key] = None
+            if len(self._entries) > self.keys:
+                self._entries.popitem(last=False)
+            return "eager"
+        self._entries.move_to_end(key)
+        return "capture" if self._entries[key] is None else "replay"
+
+    def put(self, key, graph) -> None:
+        self._entries[key] = graph
+
+
+class SearchGraph:
+    """An index's card route for one (B, k), captured as one CUDA graph: the
+    queries' copy from a pinned host buffer into a device buffer,
+    FlatIndex._device_search's launches as the eager route makes them, and
+    the (B, k_eff) distances' and ids' copies into pinned host buffers."""
+
+    def __init__(self, index: "FlatIndex", b: int, k_eff: int, k_scan: int):
+        self.q_host = torch.empty((b, index.dim), dtype=torch.float32, pin_memory=True)
+        self.q_dev = torch.empty((b, index.dim), dtype=torch.float32, device=index.device)
+        self.d_host = torch.empty((b, k_eff), dtype=torch.float32, pin_memory=True)
+        self.i_host = torch.empty((b, k_eff), dtype=torch.int32, pin_memory=True)
+        self.q_np, self.d_np, self.i_np = (t.numpy() for t in (self.q_host, self.d_host,
+                                                              self.i_host))
+        self.graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        # A capture stream on the index's card (the default one is made on
+        # whichever card is current when the first graph is captured).
+        with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(index.device)):
+            self.q_dev.copy_(self.q_host, non_blocking=True)
+            dists, ids = index._device_search(self.q_dev, k_eff, k_scan, None, True)
+            self.d_host.copy_(dists, non_blocking=True)
+            self.i_host.copy_(ids, non_blocking=True)
+        # The capture launched nothing; each replay counts its launches.
+        self.launched = launch_counts() - before
+        add_launch_counts(self.launched, -1)
+
+    def run(self, queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """One search of `queries` ((B, D) f32): copy in, replay, one
+        synchronisation, and the results as fresh host arrays (f32
+        distances, int64 ids), never views of the pinned buffers."""
+        with span("flat.upload"):
+            self.q_np[...] = queries
+        with span("flat.replay"):
+            self.graph.replay()
+            add_launch_counts(self.launched)
+        with span("flat.fetch"):
+            torch.cuda.current_stream(self.q_dev.device).synchronize()
+            return self.d_np.copy(), self.i_np.astype(np.int64)
+
+
+def _padded(dists: np.ndarray, ids: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(B, k_eff) host results padded to k columns with (inf, -1)."""
+    if ids.shape[1] < k:
+        pad = ((0, 0), (0, k - ids.shape[1]))
+        dists = np.pad(dists, pad, constant_values=np.inf)
+        ids = np.pad(ids, pad, constant_values=-1)
+    return dists, ids
 
 
 @register
@@ -72,6 +185,7 @@ class FlatIndex:
         self._ids = np.zeros((0,), dtype=np.int64)
         self._device = None
         self._mask_cache = MaskCache(self.device)
+        self._graphs = GraphCache()
 
     # -- introspection ----------------------------------------------------
 
@@ -120,8 +234,7 @@ class FlatIndex:
                 np.concatenate([self._ids, ids]),
                 self.dim,
             )
-            self._device = None
-            self._mask_cache.clear()
+            self._unstage()
 
     def reconstruct(self, doc_id: int) -> np.ndarray:
         """Return the stored vector for an external id. Raises KeyError if
@@ -140,11 +253,18 @@ class FlatIndex:
         if removed:
             self._vectors = self._vectors[keep]
             self._ids = self._ids[keep]
-            self._device = None
-            self._mask_cache.clear()
+            self._unstage()
         return removed
 
     # -- device staging ----------------------------------------------------
+
+    def _unstage(self) -> None:
+        """Drop the device stagings (rebuilt on the next search) and what
+        holds their pointers: the masked operands and the captured
+        searches."""
+        self._device = None
+        self._mask_cache.clear()
+        self._graphs = GraphCache()
 
     def _build_masked(self, keep):
         """Once-per-mask staged operands of the keep table `keep`: the
@@ -223,44 +343,60 @@ class FlatIndex:
         """search() with the route made explicit: rerank_route=True is the
         card's shortlist -> kernel -> rerank route (on CPU tensors the
         kernel wrapper takes its plain version), False the single exact
-        topk_program pass."""
+        topk_program pass. On a card, GraphCache.step picks between the
+        eager route and a CUDA graph of the same launches."""
         with span("flat.search"):
+            queries = np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim)
+            b = queries.shape[0]
+            if not self.ntotal:
+                return np.full((b, k), np.inf, np.float32), np.full((b, k), -1, np.int64)
+            cap = next_pow2(self.ntotal)
+            k_eff = min(k, cap)
+            k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
+            key = (b, k)
+            step = self._graphs.step(key, cuda=self.device.type == "cuda",
+                                     masked=id_mask is not None,
+                                     kernel=rerank_route and b > 0 and kernel_route(cap, k_scan))
+            if step == "capture":
+                COUNTERS["graph_captures"] += 1
+                with span("flat.capture"):
+                    self._graphs.put(key, SearchGraph(self, b, k_eff, k_scan))
+            elif step == "replay":
+                COUNTERS["graph_replays"] += 1
+            if step != "eager":
+                dists, out_ids = self._graphs[key].run(queries)
+                return _padded(dists, out_ids, k)
+            COUNTERS["eager_searches"] += 1
             with span("flat.upload"):
-                queries = np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, self.dim)
-                q_dev = torch.from_numpy(queries).to(self.device) if self.ntotal else None
-            if q_dev is None:
-                shape = (queries.shape[0], k)
-                return np.full(shape, np.inf, np.float32), np.full(shape, -1, np.int64)
-            with span("flat.scan"):
-                vecs, ids, valid, sq_norms, scan_vecs, scan_norms, scan_scale = self._staged()
-                keep = None
-                if id_mask is not None:
-                    keep, sq_norms, scan_norms, valid = self._mask_cache.get(id_mask,
-                                                                             self._build_masked)
-                cap = vecs.shape[0]
-                k_eff = min(k, cap)
-                k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
-                # The kernel keeps k_scan-deep lists; deeper shortlists and
-                # small stores take topk_program.
-                if rerank_route and cap >= 1024 and k_scan <= SHORTLIST_MAX:
-                    out_ids, rows = kernel_shortlist(
-                        scan_vecs, ids, sq_norms if scan_norms is None else scan_norms, q_dev,
-                        k_scan, scan_scale, keep)
-                else:
-                    dists, out_ids, rows = topk_program(vecs, ids, valid, sq_norms, q_dev, k_scan)
-            if rerank_route:
-                with span("flat.rerank"):
-                    # The scan store shares row order with the f32 store, so
-                    # the selected rows index the rerank store directly.
-                    dists, out_ids = exact_rerank_rows(vecs, rows, out_ids, q_dev, k_eff)
+                q_dev = torch.from_numpy(queries).to(self.device)
+            dists, out_ids = self._device_search(q_dev, k_eff, k_scan, id_mask, rerank_route)
             with span("flat.fetch"):
                 dists = dists.cpu().numpy()
                 out_ids = out_ids.cpu().numpy().astype(np.int64)
-                if k_eff < k:
-                    pad = ((0, 0), (0, k - k_eff))
-                    dists = np.pad(dists, pad, constant_values=np.inf)
-                    out_ids = np.pad(out_ids, pad, constant_values=-1)
-            return dists, out_ids
+            return _padded(dists, out_ids, k)
+
+    def _device_search(self, q_dev, k_eff: int, k_scan: int, id_mask, rerank_route: bool):
+        """The search's device work on staged queries q_dev: (distances
+        (B, k_eff), ids (B, k_eff)) on the index's device. The card's
+        kernel route keeps k_scan-deep shortlists for the rerank."""
+        with span("flat.scan"):
+            vecs, ids, valid, sq_norms, scan_vecs, scan_norms, scan_scale = self._staged()
+            keep = None
+            if id_mask is not None:
+                keep, sq_norms, scan_norms, valid = self._mask_cache.get(id_mask,
+                                                                         self._build_masked)
+            if rerank_route and kernel_route(vecs.shape[0], k_scan):
+                out_ids, rows = kernel_shortlist(
+                    scan_vecs, ids, sq_norms if scan_norms is None else scan_norms, q_dev,
+                    k_scan, scan_scale, keep)
+            else:
+                dists, out_ids, rows = topk_program(vecs, ids, valid, sq_norms, q_dev, k_scan)
+        if rerank_route:
+            with span("flat.rerank"):
+                # The scan store shares row order with the f32 store, so
+                # the selected rows index the rerank store directly.
+                dists, out_ids = exact_rerank_rows(vecs, rows, out_ids, q_dev, k_eff)
+        return dists, out_ids
 
     def ranked_rows(self) -> int:
         """Rows of the full ranking: the staged store's padded capacity."""

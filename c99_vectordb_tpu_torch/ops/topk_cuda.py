@@ -25,8 +25,9 @@ Layers:
     `fused_l2_topk.launches` counts kernel launches,
     `fused_l2_topk.launches_by_mode` by mode and
     `fused_l2_topk.launches_by_qtile` the f32 launches by their query
-    tile N. `launch_plan` sizes the grid and the scratch (on the CPU too,
-    where the tests hold it).
+    tile N (`launch_counts` reads all three, `add_launch_counts` adds a
+    replayed CUDA graph's launches). `launch_plan` sizes the grid and the
+    scratch (on the CPU too, where the tests hold it).
   - `fused_topk(db, ids, sq_norms, queries, k, q_int8=None)`: the JAX
     package's `fused_topk` contract: query staging, the selection above,
     and the epilogue (+ ||q||^2, clamp at 0, positions -> ids).
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -263,6 +265,28 @@ def _count_launch(mode_name: str, q_tile: int) -> None:
 fused_l2_topk.launches = 0
 fused_l2_topk.launches_by_mode = dict.fromkeys((name for _, name in _MODES.values()), 0)
 fused_l2_topk.launches_by_qtile = dict.fromkeys(range(F32_Q_STEP, 129, F32_Q_STEP), 0)
+
+
+def launch_counts() -> Counter:
+    """fused_l2_topk's launch counters as one Counter: the total under
+    "launches", each mode under its name, each f32 query tile under its N.
+    The difference of two readings goes to add_launch_counts."""
+    f = fused_l2_topk
+    return Counter({"launches": f.launches, **f.launches_by_mode, **f.launches_by_qtile})
+
+
+def add_launch_counts(delta: Counter, sign: int = 1) -> None:
+    """Add `sign` times `delta`, a difference of launch_counts readings, to
+    the counters: what a CUDA graph's capture launched, counted again at
+    each replay (and taken back at the capture, which runs nothing)."""
+    f = fused_l2_topk
+    for key, n in delta.items():
+        if key == "launches":
+            f.launches += sign * n
+        elif isinstance(key, str):
+            f.launches_by_mode[key] += sign * n
+        else:
+            f.launches_by_qtile[key] += sign * n
 
 
 def stage_f32(q_staged, q_tile: int):

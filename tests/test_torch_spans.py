@@ -4,7 +4,8 @@ Disabled (the default), a span is one shared no-op: no clock read, nothing
 recorded, no profiler range. Enabled, each of FlatIndex's spans counts once
 a search call (the staging once after an add), the inner ones nest inside
 `flat.search` under a profiler, and results are bit-equal either way. The
-`cuda`-marked case runs the card's kernel route (on the card:
+`cuda`-marked cases run the card's kernel route, a key's first call eager
+and a later one as a replayed CUDA graph (on the card:
 `python -m pytest --noconftest -m cuda tests/test_torch_spans.py`); this
 file imports no jax.
 """
@@ -144,10 +145,15 @@ def test_stage_keeps_its_line_and_trace(capsys, monkeypatch, tmp_path, enabled):
 
 @pytest.mark.cuda
 def test_spans_on_the_card_route(cuda, spans):
+    """A key's first call on the card runs eagerly, with the eager spans;
+    the bit-equal comparison is against the same first call on a twin
+    index with spans off."""
     index, queries = _index(4096, device=cuda)
     off_table = spans.snapshot()
     spans.enable(False)
-    off = index.search(queries, 10)
+    twin, _ = _index(4096, device=cuda)
+    off = twin.search(queries, 10)
+    index._staged()
     spans.enable(True)
     spans.reset()
     on = index.search(queries, 10)
@@ -157,3 +163,21 @@ def test_spans_on_the_card_route(cuda, spans):
     assert all(count == 1 for count, _ in table.values())
     for a, b in zip(off, on):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_spans_on_the_graph_route(cuda, spans):
+    """From a key's third call on, the search replays its CUDA graph:
+    flat.search holds the pinned upload, the replay and the fetch."""
+    index, queries = _index(4096, device=cuda)
+    first = index.search(queries, 10)          # eager
+    index.search(queries, 10)                  # captures
+    spans.reset()
+    again = index.search(queries, 10)
+    table = spans.snapshot()
+    assert set(table) == {"flat.search", "flat.upload", "flat.replay", "flat.fetch"}
+    assert all(count == 1 for count, _ in table.values())
+    inner = sum(table[n][1] for n in ("flat.upload", "flat.replay", "flat.fetch"))
+    assert 0 < inner <= table["flat.search"][1]
+    for a, b in zip(first, again):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
