@@ -7,7 +7,11 @@ Every helper here is plain torch, as its counterpart is plain XLA:
     mechanism, so a filter needs no kernel change: its keep table and one
     masked copy of a small (n,)-sized operand, staged once per filter and
     cached (MaskCache); every family, the sharded ones too, masks through
-    keep_of, mask_norms and mask_shortlist_ids;
+    keep_of, mask_norms and mask_shortlist_ids. COUNTERS, always on and
+    process-wide (as models/flat.COUNTERS), counts the stagings
+    MaskCache.get built ("mask_builds") and reused ("mask_hits") in every
+    family, and holds the rows the last mask FlatIndex staged keeps among
+    its staged rows ("mask_live_rows", set once per build);
   * chunk storage, bucketing and the scatter into padded (nlist, pad)
     inverted lists, all on the index's device, so a corpus-scale build
     never crosses to the host;
@@ -27,6 +31,8 @@ import torch
 
 from ..ops.topk import merge_topk, stable_topk
 from .base import next_pow2
+
+COUNTERS = {"mask_builds": 0, "mask_hits": 0, "mask_live_rows": 0}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.int32,
            "uint8": torch.uint8}
@@ -95,9 +101,12 @@ class MaskCache:
         """(keep table, *build(keep table)): the mask's keep table and the
         family's masked operands, built only when the mask OBJECT changes."""
         if self._mask is not id_mask:
+            COUNTERS["mask_builds"] += 1
             table = keep_table(id_mask, self.device)
             self._value = (table, *build(table))
             self._mask = id_mask
+        else:
+            COUNTERS["mask_hits"] += 1
         return self._value
 
     def clear(self):

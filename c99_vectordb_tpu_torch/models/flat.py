@@ -24,6 +24,10 @@ operands as the eager route, issued by one replay. A key's first call
 runs eagerly (it stages the store and builds the kernel), its second
 captures. The cache belongs to one staging: add and remove_ids drop it
 with the staged tensors, so no graph outlives the pointers it holds.
+
+A masked search (`id_mask`) always runs eagerly. Its mask staging
+(devbuild.MaskCache: the keep table and masked norms, built once per mask
+object) runs inside the span `flat.mask`, within `flat.scan`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..ops.topk import topk_program
 from ..ops.topk_cuda import SHORTLIST_MAX, add_launch_counts, fused_topk, launch_counts
 from ..utils.runtime import resolve_device
 from ..utils.timing import span
+from . import devbuild
 from .base import next_pow2
 from .devbuild import MaskCache, keep_of, mask_norms, mask_shortlist_ids
 from .registry import register
@@ -53,8 +58,11 @@ GRAPH_KEYS = 8
 
 # Always on and process-wide (as parallel/sharded.COUNTERS): searches that
 # captured a CUDA graph of their key, that replayed one an earlier search
-# captured, and that ran eagerly (on any device).
-COUNTERS = {"graph_captures": 0, "graph_replays": 0, "eager_searches": 0}
+# captured, and that ran eagerly (on any device); searches that passed an
+# id_mask; and the rows every search's route handed the scan (the padded
+# store), summed. The mask stagings are counted in devbuild.COUNTERS.
+COUNTERS = {"graph_captures": 0, "graph_replays": 0, "eager_searches": 0,
+            "masked_searches": 0, "scanned_rows": 0}
 
 
 def kernel_shortlist(store, ids, norms, queries, depth: int, scale=None, keep=None):
@@ -269,11 +277,14 @@ class FlatIndex:
     def _build_masked(self, keep):
         """Once-per-mask staged operands of the keep table `keep`: the
         masked sq norms and scan norms (+inf IS the kernel's exclusion
-        marker) and the valid rows that topk_program reads."""
+        marker) and the valid rows that topk_program reads. Sets
+        devbuild.COUNTERS["mask_live_rows"] to the rows the mask keeps."""
         _, ids, valid, sq_norms, _, scan_norms, _ = self._staged()
+        live = valid & keep_of(ids, keep)
+        devbuild.COUNTERS["mask_live_rows"] = int(live.sum())
         return (mask_norms(sq_norms, ids, keep),
                 None if scan_norms is None else mask_norms(scan_norms, ids, keep),
-                valid & keep_of(ids, keep))
+                live)
 
     def _staged(self):
         """Padded device tensors, a 7-tuple:
@@ -354,6 +365,9 @@ class FlatIndex:
             k_eff = min(k, cap)
             k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
             key = (b, k)
+            COUNTERS["scanned_rows"] += cap
+            if id_mask is not None:
+                COUNTERS["masked_searches"] += 1
             step = self._graphs.step(key, cuda=self.device.type == "cuda",
                                      masked=id_mask is not None,
                                      kernel=rerank_route and b > 0 and kernel_route(cap, k_scan))
@@ -383,8 +397,9 @@ class FlatIndex:
             vecs, ids, valid, sq_norms, scan_vecs, scan_norms, scan_scale = self._staged()
             keep = None
             if id_mask is not None:
-                keep, sq_norms, scan_norms, valid = self._mask_cache.get(id_mask,
-                                                                         self._build_masked)
+                with span("flat.mask"):
+                    keep, sq_norms, scan_norms, valid = self._mask_cache.get(
+                        id_mask, self._build_masked)
             if rerank_route and kernel_route(vecs.shape[0], k_scan):
                 out_ids, rows = kernel_shortlist(
                     scan_vecs, ids, sq_norms if scan_norms is None else scan_norms, q_dev,
