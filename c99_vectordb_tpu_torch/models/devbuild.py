@@ -7,7 +7,11 @@ Every helper here is plain torch, as its counterpart is plain XLA:
     mechanism, so a filter needs no kernel change: its keep table and one
     masked copy of a small (n,)-sized operand, staged once per filter and
     cached (MaskCache); every family, the sharded ones too, masks through
-    keep_of, mask_norms and mask_shortlist_ids. COUNTERS, always on and
+    keep_of, mask_norms and mask_shortlist_ids. FlatIndex stages a mask
+    that keeps at most 1/64 of its padded store (the ratio of
+    tail_restage_threshold) as a compacted copy of the rows it keeps
+    instead, which its kernel route scans in place of the store
+    (models/flat.py MaskedStore). COUNTERS, always on and
     process-wide (as models/flat.COUNTERS), counts the stagings
     MaskCache.get built ("mask_builds") and reused ("mask_hits") in every
     family, and holds the rows the last mask FlatIndex staged keeps among

@@ -26,8 +26,12 @@ captures. The cache belongs to one staging: add and remove_ids drop it
 with the staged tensors, so no graph outlives the pointers it holds.
 
 A masked search (`id_mask`) always runs eagerly. Its mask staging
-(devbuild.MaskCache: the keep table and masked norms, built once per mask
-object) runs inside the span `flat.mask`, within `flat.scan`.
+(devbuild.MaskCache: the keep table and a MaskedStore, built once per mask
+object) runs inside the span `flat.mask`, within `flat.scan`. A mask that
+keeps at most 1/COMPACT_SHARE of the padded store stages the rows it keeps
+compacted (span `flat.compact`, inside `flat.mask`), and the kernel route
+scans that copy instead of the whole store; the rerank reads the f32 store
+at the rows it maps back to.
 """
 
 from __future__ import annotations
@@ -56,13 +60,23 @@ _SCAN_DTYPES = ("float32", "bfloat16", "int8")
 # recently used dropped past it: the bound on the graphs' memory pools.
 GRAPH_KEYS = 8
 
+# The smallest store the kernel route scans, and the kernel's row tile.
+KERNEL_MIN_ROWS = 1024
+ROW_TILE = 128
+# A mask that keeps at most 1/COMPACT_SHARE of the padded store stages its
+# rows compacted: the copy costs at most that share of the store's bytes,
+# the ratio devbuild.tail_restage_threshold holds an append tail to.
+COMPACT_SHARE = 64
+
 # Always on and process-wide (as parallel/sharded.COUNTERS): searches that
 # captured a CUDA graph of their key, that replayed one an earlier search
 # captured, and that ran eagerly (on any device); searches that passed an
-# id_mask; and the rows every search's route handed the scan (the padded
-# store), summed. The mask stagings are counted in devbuild.COUNTERS.
+# id_mask, and those of them that scanned a mask's compacted rows; and the
+# rows every search's route handed the scan (the padded store, or a mask's
+# compacted rows), summed. The mask stagings are counted in
+# devbuild.COUNTERS.
 COUNTERS = {"graph_captures": 0, "graph_replays": 0, "eager_searches": 0,
-            "masked_searches": 0, "scanned_rows": 0}
+            "masked_searches": 0, "compact_searches": 0, "scanned_rows": 0}
 
 
 def kernel_shortlist(store, ids, norms, queries, depth: int, scale=None, keep=None):
@@ -83,7 +97,63 @@ def kernel_route(cap: int, k_scan: int) -> bool:
     """Whether the card's shortlist comes from the kernel: it keeps
     k_scan-deep lists, so deeper shortlists and small stores (cap rows,
     padded) take topk_program."""
-    return cap >= 1024 and k_scan <= SHORTLIST_MAX
+    return cap >= KERNEL_MIN_ROWS and k_scan <= SHORTLIST_MAX
+
+
+def compact_rows(pos, scan_vecs, scan_norms, ids):
+    """The store rows `pos` (ascending) copied out of the scan store, its
+    norms and ids into a fresh staging of whole row tiles, at least
+    KERNEL_MIN_ROWS of them, so the kernel scans it: (scan rows, norms,
+    ids int32, store rows int32). Padding rows take the staging's
+    conventions: zero rows, +inf norms, id -1 (store row 0)."""
+    n = int(pos.shape[0])
+    m = max(KERNEL_MIN_ROWS, -(-n // ROW_TILE) * ROW_TILE)
+    dev = scan_vecs.device
+    vecs = torch.zeros((m, scan_vecs.shape[1]), dtype=scan_vecs.dtype, device=dev)
+    torch.index_select(scan_vecs, 0, pos, out=vecs[:n])   # no (n, D) temporary
+    norms = torch.full((m,), torch.inf, dtype=torch.float32, device=dev)
+    norms[:n] = scan_norms[pos]
+    out_ids = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    out_ids[:n] = ids[pos]
+    rows = torch.zeros((m,), dtype=torch.int32, device=dev)
+    rows[:n] = pos
+    return vecs, norms, out_ids, rows
+
+
+class MaskedStore:
+    """One mask's operands on one FlatIndex staging (FlatIndex._build_masked,
+    cached per mask object by devbuild.MaskCache).
+
+    `compact` is compact_rows of the rows the mask keeps where they are at
+    most 1/COMPACT_SHARE of the padded store, else None. They stay in store
+    order, which is id order, so the scan's (distance, position) ties stay
+    (distance, id) ties, and only passing rows and padding are in it, so
+    its shortlist needs no scrub. The kernel route scans it in place of
+    the store.
+
+    `full()` gives the full-store operands: the sq norms and scan norms
+    (None where they alias) with +inf on the rows the mask drops (the
+    kernel's exclusion marker) and the live rows topk_program reads. A
+    mask without `compact` builds them with the store; one with it builds
+    them on the first search that takes a full-store route."""
+
+    def __init__(self, staged, keep, live=None, compact=None):
+        self._staged, self._keep = staged, keep
+        self._full = None
+        self.compact = compact
+        if compact is None:
+            self.full(live)
+
+    def full(self, live=None):
+        if self._full is None:
+            _, ids, valid, sq_norms, _, scan_norms, _ = self._staged
+            keep = self._keep
+            if live is None:
+                live = valid & keep_of(ids, keep)
+            self._full = (mask_norms(sq_norms, ids, keep),
+                          None if scan_norms is None else mask_norms(scan_norms, ids, keep),
+                          live)
+        return self._full
 
 
 class GraphCache:
@@ -275,16 +345,24 @@ class FlatIndex:
         self._graphs = GraphCache()
 
     def _build_masked(self, keep):
-        """Once-per-mask staged operands of the keep table `keep`: the
-        masked sq norms and scan norms (+inf IS the kernel's exclusion
-        marker) and the valid rows that topk_program reads. Sets
+        """The keep table `keep`'s MaskedStore, once per mask: compacted
+        where the mask keeps at most 1/COMPACT_SHARE of the padded store
+        (its positions found first and the full-size temporaries freed
+        before the rows are gathered), else the full-store operands. Sets
         devbuild.COUNTERS["mask_live_rows"] to the rows the mask keeps."""
-        _, ids, valid, sq_norms, _, scan_norms, _ = self._staged()
+        staged = self._staged()
+        _, ids, valid, sq_norms, scan_vecs, scan_norms, _ = staged
         live = valid & keep_of(ids, keep)
-        devbuild.COUNTERS["mask_live_rows"] = int(live.sum())
-        return (mask_norms(sq_norms, ids, keep),
-                None if scan_norms is None else mask_norms(scan_norms, ids, keep),
-                live)
+        n_live = int(live.sum())
+        devbuild.COUNTERS["mask_live_rows"] = n_live
+        if n_live > ids.shape[0] // COMPACT_SHARE:
+            return (MaskedStore(staged, keep, live=live),)
+        with span("flat.compact"):
+            pos = torch.nonzero(live).squeeze(1)
+            del live
+            compact = compact_rows(pos, scan_vecs, sq_norms if scan_norms is None else scan_norms,
+                                   ids)
+        return (MaskedStore(staged, keep, compact=compact),)
 
     def _staged(self):
         """Padded device tensors, a 7-tuple:
@@ -345,9 +423,12 @@ class FlatIndex:
     ) -> tuple[np.ndarray, np.ndarray]:
         """id_mask: optional (cap,) bool keyed by EXTERNAL id — rows whose
         id is False (or >= cap) are excluded exactly (metadata filter
-        pushdown), through a masked copy of the norms operand staged once
-        per mask object. Pass the SAME mask array across calls to reuse
-        the staging."""
+        pushdown), through operands staged once per mask object: where the
+        mask keeps at most 1/COMPACT_SHARE of the padded store (1/64), a
+        compacted copy of the rows it keeps, which the card's kernel scans
+        in place of the store; otherwise, and on the full-store routes, a
+        masked copy of the norms operand. Pass the SAME mask array across
+        calls to reuse the staging."""
         return self._search(queries, k, id_mask, rerank_route=self.device.type == "cuda")
 
     def _search(self, queries, k: int, id_mask, rerank_route: bool):
@@ -365,9 +446,10 @@ class FlatIndex:
             k_eff = min(k, cap)
             k_scan = shortlist_depth(k_eff, cap) if rerank_route else k_eff
             key = (b, k)
-            COUNTERS["scanned_rows"] += cap
-            if id_mask is not None:
-                COUNTERS["masked_searches"] += 1
+            if id_mask is None:
+                COUNTERS["scanned_rows"] += cap
+            else:
+                COUNTERS["masked_searches"] += 1     # its rows counted by _device_search
             step = self._graphs.step(key, cuda=self.device.type == "cuda",
                                      masked=id_mask is not None,
                                      kernel=rerank_route and b > 0 and kernel_route(cap, k_scan))
@@ -395,12 +477,23 @@ class FlatIndex:
         kernel route keeps k_scan-deep shortlists for the rerank."""
         with span("flat.scan"):
             vecs, ids, valid, sq_norms, scan_vecs, scan_norms, scan_scale = self._staged()
-            keep = None
+            kernel = rerank_route and kernel_route(vecs.shape[0], k_scan)
+            keep = compact = None
             if id_mask is not None:
                 with span("flat.mask"):
-                    keep, sq_norms, scan_norms, valid = self._mask_cache.get(
-                        id_mask, self._build_masked)
-            if rerank_route and kernel_route(vecs.shape[0], k_scan):
+                    keep, masked = self._mask_cache.get(id_mask, self._build_masked)
+                compact = masked.compact if kernel else None
+                if compact is None:
+                    sq_norms, scan_norms, valid = masked.full()
+                    COUNTERS["scanned_rows"] += vecs.shape[0]
+                else:
+                    COUNTERS["compact_searches"] += 1
+                    COUNTERS["scanned_rows"] += compact[0].shape[0]
+            if compact is not None:
+                c_vecs, c_norms, c_ids, c_rows = compact
+                out_ids, rows = kernel_shortlist(c_vecs, c_ids, c_norms, q_dev, k_scan, scan_scale)
+                rows = c_rows[rows]
+            elif kernel:
                 out_ids, rows = kernel_shortlist(
                     scan_vecs, ids, sq_norms if scan_norms is None else scan_norms, q_dev,
                     k_scan, scan_scale, keep)
@@ -408,8 +501,9 @@ class FlatIndex:
                 dists, out_ids, rows = topk_program(vecs, ids, valid, sq_norms, q_dev, k_scan)
         if rerank_route:
             with span("flat.rerank"):
-                # The scan store shares row order with the f32 store, so
-                # the selected rows index the rerank store directly.
+                # The scan store shares row order with the f32 store (a
+                # compacted scan's rows mapped back to it), so the selected
+                # rows index the rerank store directly.
                 dists, out_ids = exact_rerank_rows(vecs, rows, out_ids, q_dev, k_eff)
         return dists, out_ids
 

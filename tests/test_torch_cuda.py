@@ -515,11 +515,16 @@ def _corpus(n, seed, d=32):
 
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("n,k", [(3000, 10), (3000, 600), (300, 10)])
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", [False, True, "sparse"])
 def test_flat_on_card_matches_cpu(cuda, scan_dtype, n, k, masked):
     """Kernel route (n=3000, k=10), deep-shortlist route (k_scan > 1024)
-    and small-store route (cap < 1024), each against the CPU index."""
+    and small-store route (cap < 1024), each against the CPU index.
+    masked="sparse" keeps at most 1/64 of the padded store: the kernel
+    route scans its compacted rows, the other two its full-store operands."""
     x, ids, q, mask = _corpus(n, seed=n + k)
+    if masked == "sparse":
+        mask = np.zeros_like(mask)
+        mask[ids[:: n // 50]] = True
     on_card = FlatIndex(dim=32, scan_dtype=scan_dtype, device=cuda)
     on_cpu = FlatIndex(dim=32, scan_dtype=scan_dtype, device="cpu")
     on_card.add(torch.from_numpy(x).to(cuda), ids)

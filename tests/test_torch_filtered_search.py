@@ -5,7 +5,8 @@ Each case's filter is `id >= round(filter_rate * N)` over the row ids,
 filter_rate 0.01 (99% of rows pass) or 0.99 (1% pass). Here: masked
 searches against a float64 exact top-k over the passing rows, on the card's
 route (the kernel wrapper's plain version on CPU tensors) and the CPU
-route; the filter layer's counters and its span; the benchmark's two
+route; a low-pass mask's compacted staging at and around its gate; the
+filter layer's counters and its spans; the benchmark's two
 filtered cells through the harness at a tiny size, and planted faults
 that must read not correct; the filtered roofline's arithmetic and its
 readers.
@@ -29,6 +30,7 @@ from portbench.reference import bound, filter_bound
 REPO = Path(__file__).resolve().parent.parent
 N, DIM, K = 4000, 64, 10
 CAP = 4096                   # next_pow2(N): the rows the route hands the scan
+GATE = CAP // 64             # a mask keeping at most this many rows is compacted
 RATES = (0.01, 0.99)
 CELLS = {0.99: "cohere768_1m_flat_idfilter.search_b128_f99p",
          0.01: "cohere768_1m_flat_idfilter.search_b128_f1p"}
@@ -122,6 +124,100 @@ def test_mask_span_once_a_masked_search(corpus, masked):
         assert table["flat.mask"][1] <= table["flat.scan"][1]
     else:
         assert "flat.mask" not in table
+
+
+def _passing(case: str) -> np.ndarray:
+    """A mask passing the last `case` rows, or ("scattered") 40 rows drawn
+    across the store."""
+    if case == "scattered":
+        mask = np.zeros(N, bool)
+        mask[np.random.default_rng(5).choice(N, 40, replace=False)] = True
+        return mask
+    return np.arange(N) >= N - int(case)
+
+
+def _same(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["0", "1", "40", str(GATE), str(GATE + 1), "scattered"])
+def test_compact_staging_at_its_gate(corpus, case):
+    """At or under the gate the card's route scans the mask's compacted rows
+    (at least 1024, whole 128-row tiles); above it the whole store. Either
+    way the results are exact over the passing rows, and equal an index of
+    only those rows searched with no mask."""
+    rows, queries = corpus
+    mask = _passing(case)
+    passing = int(mask.sum())
+    compact = passing <= GATE
+    f0 = dict(flat.COUNTERS)
+    d, i = _index(rows)._search(queries, K, mask, rerank_route=True)
+    assert flat.COUNTERS["compact_searches"] - f0["compact_searches"] == int(compact)
+    assert flat.COUNTERS["scanned_rows"] - f0["scanned_rows"] == (1024 if compact else CAP)
+    assert devbuild.COUNTERS["mask_live_rows"] == passing
+    want_d, want_i = _exact(rows, queries, mask, K)
+    found = np.isfinite(want_d)
+    assert found.sum(1).tolist() == [min(passing, K)] * len(queries)
+    np.testing.assert_array_equal(i[found], want_i[found])
+    np.testing.assert_allclose(d[found], want_d[found], rtol=0, atol=DIST_TOL)
+    assert (i[~found] == -1).all() and np.isinf(d[~found]).all()
+    alone = FlatIndex(dim=DIM, device="cpu")
+    alone.add(rows[mask], np.flatnonzero(mask))
+    _same((d, i), alone._search(queries, K, None, rerank_route=True))
+
+
+@pytest.mark.parametrize("mutation", ["add", "remove_ids"])
+def test_add_and_remove_drop_the_compact_staging(corpus, mutation):
+    rows, queries = corpus
+    mask = _mask(0.99)
+    held = np.flatnonzero(mask)[::4]
+    index = FlatIndex(dim=DIM, device="cpu")
+    if mutation == "add":
+        rest = np.setdiff1d(np.arange(N), held)
+        index.add(rows[rest], rest)
+    else:
+        index.add(rows, np.arange(N, dtype=np.int64))
+    index._search(queries, K, mask, rerank_route=True)
+    live = mask.copy()
+    if mutation == "add":
+        index.add(rows[held], held)
+    else:
+        assert index.remove_ids(held) == len(held)
+        live[held] = False
+    f0, d0 = dict(flat.COUNTERS), dict(devbuild.COUNTERS)
+    d, i = index._search(queries, K, mask, rerank_route=True)
+    assert devbuild.COUNTERS["mask_builds"] - d0["mask_builds"] == 1
+    assert devbuild.COUNTERS["mask_live_rows"] == int(live.sum())
+    assert flat.COUNTERS["compact_searches"] - f0["compact_searches"] == 1
+    want_d, want_i = _exact(rows, queries, live, K)
+    np.testing.assert_array_equal(i, want_i)
+    np.testing.assert_allclose(d, want_d, rtol=0, atol=DIST_TOL)
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_compact_span_once_a_build(corpus, rate):
+    """`flat.compact` covers a compacted build inside `flat.mask`: once on a
+    build, never on a hit, never above the gate."""
+    rows, queries = corpus
+    index = _index(rows)
+    mask = _mask(rate)
+    timing.reset()
+    timing.enable(True)
+    try:
+        for _ in range(3):
+            index._search(queries, K, mask, rerank_route=True)
+        table = timing.snapshot()
+    finally:
+        timing.enable(False)
+        timing.reset()
+    assert table["flat.mask"][0] == 3
+    if rate == 0.99:
+        assert table["flat.compact"][0] == 1
+        assert table["flat.compact"][1] <= table["flat.mask"][1]
+    else:
+        assert "flat.compact" not in table
 
 
 def _tiny_cell(rate: float) -> harness.Cell:

@@ -19,6 +19,7 @@ from c99_vectordb_tpu.ops.rerank import shortlist_depth
 from c99_vectordb_tpu.ops.topk_pallas import fused_topk as jax_fused_topk
 from c99_vectordb_tpu.storage import index_io as jio
 from c99_vectordb_tpu_torch import commands as tcommands
+from c99_vectordb_tpu_torch.models import flat as tflat
 from c99_vectordb_tpu_torch.models.flat import FlatIndex as TFlat
 from c99_vectordb_tpu_torch.storage import index_io as tio
 
@@ -64,16 +65,23 @@ def test_search_matches_jax(scan_dtype, masked, k):
 
 
 @pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("masked", [False, True, "tensor"])
+@pytest.mark.parametrize("masked", [False, True, "tensor", "sparse"])
 def test_card_route_wiring_on_cpu_tensors(scan_dtype, masked):
     """The CUDA search route, run on CPU tensors, against the same route
     assembled from JAX pieces (flat.py's on-TPU branch). masked="tensor"
-    passes the port the mask as a torch tensor, JAX the numpy array."""
+    passes the port the mask as a torch tensor, JAX the numpy array;
+    masked="sparse" keeps 10 of the 1,024 padded rows, so the port scans
+    their compacted staging where JAX scans the masked store."""
     x, ids, q, mask = _corpus(1000, 2)
+    if masked == "sparse":
+        mask = np.zeros_like(mask)
+        mask[ids[::100]] = True
     j, t = _pair(x, ids, scan_dtype)
     k = 10
     id_mask = None if not masked else torch.from_numpy(mask) if masked == "tensor" else mask
+    compacted = tflat.COUNTERS["compact_searches"]
     td, ti = t._search(q, k, id_mask, rerank_route=True)
+    assert tflat.COUNTERS["compact_searches"] - compacted == int(masked == "sparse")
 
     (vecs, jids, valid, sq_norms, _, scan_vecs, scan_norms, scan_scale) = j._staged()
     norms = sq_norms if scan_norms is None else scan_norms
